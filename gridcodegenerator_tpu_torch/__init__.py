@@ -1,0 +1,37 @@
+"""gridcodegenerator_tpu_torch — the PyTorch / CUDA port of
+:mod:`gridcodegenerator_tpu`.
+
+The same batched rigid-body dynamics on torch tensors: plain PyTorch
+batch-last versions on any device, and hand-written CUDA kernels for the
+NVIDIA H100 (``ops/kernels/csrc``), built per robot topology at first use.
+This package imports torch and never jax.
+
+First-order families of this slice:
+  * inverse dynamics (RNEA)              → :func:`inverse_dynamics`, :func:`bias_force`
+  * analytical mass-matrix inverse       → :func:`direct_minv`
+  * analytical ∂ID (∂c/∂q, ∂c/∂q̇)        → :func:`inverse_dynamics_gradient`
+  * analytical ∇FD (−M⁻¹·∂c/∂u)          → :func:`forward_dynamics_gradient`
+"""
+
+from .api import (
+    bias_force,
+    direct_minv,
+    forward_dynamics_gradient,
+    inverse_dynamics,
+    inverse_dynamics_gradient,
+)
+from .models.robot import (RobotModel, from_jax_arrays, load_robot,
+                           robot_model_from_description)
+from .models.topology import Topology
+from .models.urdf import RobotDescription, parse_urdf
+from .utils.golden import GoldenDynamics
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RobotModel", "RobotDescription", "Topology", "GoldenDynamics",
+    "load_robot", "parse_urdf", "robot_model_from_description",
+    "from_jax_arrays",
+    "inverse_dynamics", "bias_force", "direct_minv",
+    "inverse_dynamics_gradient", "forward_dynamics_gradient",
+]

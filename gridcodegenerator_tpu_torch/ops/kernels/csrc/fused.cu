@@ -1,0 +1,220 @@
+// The four first-order kernels of the port, one thread per state.
+//
+// Replaces (gridcodegenerator_tpu/ops/kernels/fused.py):
+//   fd_grad_fused          (fused.py:394)  -> grid_fd_grad_{f32,f64}
+//   id_grad_fused          (fused.py:433)  -> grid_id_grad_{f32,f64}
+//   minv_fused, one tile   (fused.py:290)  -> grid_minv_{f32,f64}
+//   inverse_dynamics_fused (fused.py:270)  -> grid_rnea_{f32,f64}
+// Each Pallas kernel ran its blops body on a VMEM tile of (8·k, 128) states;
+// here the same body (rbd.cuh) runs per thread, one state per thread, on
+// the (n, B) batch-last layout at the boundary: a warp's loads of q[i·B + b]
+// and stores of out[(r·n + c)·B + b] are 32 consecutive addresses, and the
+// ragged tail is masked with b < B instead of padded.
+//
+// What bounds it on an H100: not DRAM (≈ 3n inputs and 2n² outputs per
+// state) but the per-state working set. ∇FD keeps X (36n), v/a/f (18n), the
+// M⁻¹ recursion's IA/F (36n + 6n²) and one side's ∂v/∂a/∂f (18n²) live:
+// ptxas gives it a 5.7 KB (float32) stack frame a thread at n = 7, far
+// beyond 255 registers, so the per-state arrays sit in local memory
+// (L1/L2-cached) and the kernel is bound by that traffic. This first
+// version accepts it and keeps the traffic down where that is simple: the
+// q and q̇ sides run one after the other (only one side's ∂-tensors live),
+// the structurally zero columns of ∂v/∂a are skipped (ancestor sparsity),
+// and the robot constants (152·n values) are staged in shared memory once
+// per block, where every thread of a warp reads the same address. Joint
+// and column loops stay rolled (rbd.cuh), which keeps nvcc to seconds and
+// ptxas free of spills; ptxas's report is printed at build time
+// (_build.py). Staging the ∂-tensors in shared memory, or a block or warp
+// per state, is later work.
+//
+// Robot topology comes in as -D macros (see rbd.cuh); the kernels are
+// templated on float and double so the card can hold them to the plain
+// version at float64 round-off. No fast-math: sincos/sincosf are the
+// accurate library calls.
+#include <cuda_runtime.h>
+
+#include "rbd.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <typename T>
+__device__ __forceinline__ const T* stage_constants(const T* __restrict__ g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  for (int k = threadIdx.x; k < grid::kConstCount; k += blockDim.x)
+    sm[k] = g[k];
+  __syncthreads();
+  return sm;
+}
+
+__device__ __forceinline__ long long state_index() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fd_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+               const T* __restrict__ qd, const T* __restrict__ u,
+               T* __restrict__ ddq, T* __restrict__ ddqd, long long B,
+               T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::fd_grad_state(R, q, qd, u, ddq, ddqd, B, b, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+id_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+               const T* __restrict__ qd, const T* __restrict__ qdd,
+               T* __restrict__ dq, T* __restrict__ dqd, long long B,
+               T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::id_grad_state(R, q, qd, qdd, dq, dqd, B, b, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+minv_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+            T* __restrict__ M, long long B) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::minv_state(R, q, M, B, b);
+}
+
+template <typename T, bool kQdd>
+__global__ void __launch_bounds__(kThreads)
+rnea_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+            const T* __restrict__ qd, const T* __restrict__ qdd,
+            T* __restrict__ c, long long B, T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::rnea_state<T, kQdd>(R, q, qd, qdd, c, B, b, minus_g);
+}
+
+dim3 blocks_for(long long B) {
+  return dim3(static_cast<unsigned>((B + kThreads - 1) / kThreads));
+}
+
+template <typename T>
+size_t smem_bytes() {
+  return grid::kConstCount * sizeof(T);
+}
+
+template <typename T>
+int fd_grad(const void* consts, const void* q, const void* qd, const void* u,
+            void* ddq, void* ddqd, long long B, double gravity,
+            void* stream) {
+  fd_grad_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(u),
+      static_cast<T*>(ddq), static_cast<T*>(ddqd), B,
+      static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int id_grad(const void* consts, const void* q, const void* qd,
+            const void* qdd, void* dq, void* dqd, long long B, double gravity,
+            void* stream) {
+  id_grad_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(qdd),
+      static_cast<T*>(dq), static_cast<T*>(dqd), B,
+      static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int minv(const void* consts, const void* q, void* M, long long B,
+         void* stream) {
+  minv_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<T*>(M), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qdd == nullptr is the bias-force variant (no S·q̈, no armature term)
+template <typename T>
+int rnea(const void* consts, const void* q, const void* qd, const void* qdd,
+         void* c, long long B, double gravity, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const T* k = static_cast<const T*>(consts);
+  if (qdd != nullptr) {
+    rnea_kernel<T, true><<<blocks_for(B), kThreads, smem_bytes<T>(), s>>>(
+        k, static_cast<const T*>(q), static_cast<const T*>(qd),
+        static_cast<const T*>(qdd), static_cast<T*>(c), B,
+        static_cast<T>(-gravity));
+  } else {
+    rnea_kernel<T, false><<<blocks_for(B), kThreads, smem_bytes<T>(), s>>>(
+        k, static_cast<const T*>(q), static_cast<const T*>(qd), nullptr,
+        static_cast<T*>(c), B, static_cast<T>(-gravity));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface for ctypes (ops/kernels/_build.py declares the argtypes).
+// Every entry launches on the given stream, does not synchronise, and
+// returns cudaGetLastError() of the launch.
+extern "C" {
+
+int grid_num_joints() { return grid::N; }
+
+const char* grid_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int grid_fd_grad_f32(const void* consts, const void* q, const void* qd,
+                     const void* u, void* ddq, void* ddqd, long long B,
+                     double gravity, void* stream) {
+  return fd_grad<float>(consts, q, qd, u, ddq, ddqd, B, gravity, stream);
+}
+int grid_fd_grad_f64(const void* consts, const void* q, const void* qd,
+                     const void* u, void* ddq, void* ddqd, long long B,
+                     double gravity, void* stream) {
+  return fd_grad<double>(consts, q, qd, u, ddq, ddqd, B, gravity, stream);
+}
+
+int grid_id_grad_f32(const void* consts, const void* q, const void* qd,
+                     const void* qdd, void* dq, void* dqd, long long B,
+                     double gravity, void* stream) {
+  return id_grad<float>(consts, q, qd, qdd, dq, dqd, B, gravity, stream);
+}
+int grid_id_grad_f64(const void* consts, const void* q, const void* qd,
+                     const void* qdd, void* dq, void* dqd, long long B,
+                     double gravity, void* stream) {
+  return id_grad<double>(consts, q, qd, qdd, dq, dqd, B, gravity, stream);
+}
+
+int grid_minv_f32(const void* consts, const void* q, void* M, long long B,
+                  void* stream) {
+  return minv<float>(consts, q, M, B, stream);
+}
+int grid_minv_f64(const void* consts, const void* q, void* M, long long B,
+                  void* stream) {
+  return minv<double>(consts, q, M, B, stream);
+}
+
+int grid_rnea_f32(const void* consts, const void* q, const void* qd,
+                  const void* qdd, void* c, long long B, double gravity,
+                  void* stream) {
+  return rnea<float>(consts, q, qd, qdd, c, B, gravity, stream);
+}
+int grid_rnea_f64(const void* consts, const void* q, const void* qd,
+                  const void* qdd, void* c, long long B, double gravity,
+                  void* stream) {
+  return rnea<double>(consts, q, qd, qdd, c, B, gravity, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,176 @@
+"""The slice as a whole: the port's public API against the JAX API
+(``impl="bl"``) in float64, against the golden model in float32, its shape
+errors, and a process that has no jax at all."""
+
+import functools
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gridcodegenerator_tpu as g
+import gridcodegenerator_tpu_torch as gt
+from conftest import ROBOTS, get_setup, random_state
+from gridcodegenerator_tpu_torch.models import zoo
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# number of state arguments of each API family
+FAMILIES = {
+    "forward_dynamics_gradient": 3,
+    "inverse_dynamics_gradient": 3,
+    "inverse_dynamics": 3,
+    "bias_force": 2,
+    "direct_minv": 1,
+}
+
+
+def assert_close(got, ref):
+    got = got.numpy()
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape
+    err = np.abs(got - ref)
+    assert np.all(err <= 1e-10 * np.maximum(1.0, np.abs(ref))), \
+        f"max err {err.max():.3e}"
+
+
+@functools.cache
+def _tmodel(name, dtype=torch.float64):
+    return gt.load_robot(ROBOTS[name], dtype=dtype)
+
+
+def _states(name, batch, k):
+    desc = get_setup(name)[0]
+    return random_state(desc.n, seed=5, batch=batch)[:k]
+
+
+# every family on a batch; the north-star op also on leading dims and on a
+# single state (the JAX API runs its vmap tier there)
+CASES = ([(fam, (4,)) for fam in FAMILIES]
+         + [("forward_dynamics_gradient", (2, 3)),
+            ("forward_dynamics_gradient", ())])
+
+
+@pytest.mark.parametrize("fam,batch", CASES)
+def test_api_matches_jax(fam, batch):
+    name = "dpend"
+    states = _states(name, batch, FAMILIES[fam])
+    ref = getattr(g, fam)(get_setup(name)[2],
+                          *(jnp.asarray(s) for s in states), impl="bl")
+    got = getattr(gt, fam)(_tmodel(name),
+                           *(torch.from_numpy(s) for s in states))
+    assert_close(got, ref)
+
+
+@pytest.mark.parametrize("name", ["iiwa14", "barm", "chain5p"])
+def test_api_matches_golden(name):
+    """Every family of the slice against the float64 golden model."""
+    _, gold, _ = get_setup(name)
+    q, qd, u = _states(name, (3,), 3)
+    m = _tmodel(name)
+    tq, tqd, tu = (torch.from_numpy(s) for s in (q, qd, u))
+    out = {
+        "fdg": gt.forward_dynamics_gradient(m, tq, tqd, tu),
+        "idg": gt.inverse_dynamics_gradient(m, tq, tqd, tu),
+        "id": gt.inverse_dynamics(m, tq, tqd, tu),
+        "bias": gt.bias_force(m, tq, tqd),
+        "minv": gt.direct_minv(m, tq),
+    }
+    for k in range(3):
+        ref = {
+            "fdg": gold.fd_grad(q[k], qd[k], u[k]),
+            "idg": np.hstack(gold.rnea_grad(q[k], qd[k], u[k])),
+            "id": gold.rnea(q[k], qd[k], u[k])[0],
+            "bias": gold.rnea(q[k], qd[k], None)[0],
+            "minv": gold.minv(q[k], True),
+        }
+        for key, r in ref.items():
+            got = out[key][k].numpy()
+            assert np.abs(got - r).max() <= 1e-9 * max(1.0, np.abs(r).max()), key
+
+
+def test_f32_parity_head_vs_golden():
+    """bench.py's parity protocol on the port's f32 plain path: the same
+    256 iiwa-14 states bench.py scores (its jax.random inputs, key 0), each
+    scored as max|J − J_golden| / max(1, max|J_golden|); the bound is the
+    one fused.py's ∇FD docstring names."""
+    n, P = 7, 256
+    ks = jax.random.split(jax.random.key(0), 3)
+    q, qd, u = (np.array(jax.random.uniform(k, (1 << 16, n), jnp.float32,
+                                             -r, r)[:P])
+                for k, r in zip(ks, (2.0, 1.0, 8.0)))
+    gold = gt.GoldenDynamics(gt.parse_urdf(zoo.iiwa14()))
+    J = gt.forward_dynamics_gradient(
+        gt.load_robot(zoo.iiwa14(), dtype=torch.float32),
+        *(torch.from_numpy(s) for s in (q, qd, u))).numpy()
+    errs = []
+    for k in range(P):
+        ref = gold.fd_grad(*(s[k].astype(np.float64) for s in (q, qd, u)))
+        errs.append(np.abs(J[k] - ref).max() / max(1.0, np.abs(ref).max()))
+    assert max(errs) <= 5e-6
+
+
+# ------------------------------------------------------------ shape errors
+BAD = {
+    "wrong width": lambda n: [(4, n + 1), (4, n), (4, n)],
+    "scalar": lambda n: [(), (n,), (n,)],
+    "batch mismatch": lambda n: [(4, n), (3, n), (4, n)],
+    "lead mismatch": lambda n: [(2, 3, n), (3, 2, n), (2, 3, n)],
+}
+
+
+@pytest.mark.parametrize("case", list(BAD))
+@pytest.mark.parametrize("fam", ["forward_dynamics_gradient",
+                                 "inverse_dynamics"])
+def test_check_states_errors_match_jax(case, fam):
+    jm = get_setup("iiwa14")[2]
+    shapes = BAD[case](jm.n)
+    with pytest.raises(ValueError) as ref:
+        getattr(g, fam)(jm, *(np.zeros(s) for s in shapes))
+    with pytest.raises(ValueError) as got:
+        getattr(gt, fam)(_tmodel("iiwa14"),
+                         *(torch.zeros(s, dtype=torch.float64)
+                           for s in shapes))
+    assert str(got.value) == str(ref.value)
+
+
+def test_unported_options_raise():
+    m = _tmodel("dpend")
+    q = torch.zeros((3, 2), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.forward_dynamics_gradient(m, q, q, q, impl="vmap")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.inverse_dynamics(m, q, q, q, f_ext=torch.zeros((3, 2, 6)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.direct_minv(m, q, dense=False)
+    with pytest.raises(ValueError, match="impl must be one of"):
+        gt.forward_dynamics_gradient(m, q, q, q, impl="pallas")
+
+
+def test_port_imports_no_jax():
+    """The port runs in a process where importing jax fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "import gridcodegenerator_tpu_torch as gt\n"
+        "from gridcodegenerator_tpu_torch.models import zoo\n"
+        "m = gt.load_robot(zoo.iiwa14(), dtype=torch.float64)\n"
+        "q = torch.zeros((3, 7), dtype=torch.float64)\n"
+        "J = gt.forward_dynamics_gradient(m, q, q, q)\n"
+        "assert J.shape == (3, 7, 14) and bool(torch.isfinite(J).all())\n"
+        "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
+        "'gridcodegenerator_tpu.') for k in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,0 +1,103 @@
+"""The port's NumPy front end and torch RobotModel against the JAX package:
+URDF fixtures, the parser and the model constants must agree exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+import gridcodegenerator_tpu as g
+import gridcodegenerator_tpu_torch as gt
+from conftest import ROBOTS, get_setup
+from gridcodegenerator_tpu.models import zoo as jzoo
+from gridcodegenerator_tpu_torch.models import zoo as tzoo
+from gridcodegenerator_tpu_torch.models.robot import MODEL_FIELDS
+
+torch.set_num_threads(1)
+
+SLICE_ROBOTS = ["iiwa14", "chain5p", "barm", "dpend"]
+
+FIXTURES = {
+    "iiwa14": lambda z: z.iiwa14(damping=0.1),
+    "panda": lambda z: z.panda(damping=0.15),
+    "hyq": lambda z: z.hyq(damping=0.2),
+    "branched_arm": lambda z: z.branched_arm(damping=0.12),
+    "atlas": lambda z: z.atlas(damping=0.05),
+    "serial_chain": lambda z: z.serial_chain(5, damping=0.1,
+                                             prismatic_every=2),
+    "random_tree": lambda z: z.random_tree(12, seed=3),
+    "double_pendulum": lambda z: z.double_pendulum(),
+}
+
+
+@pytest.mark.parametrize("urdf_fn", list(FIXTURES))
+def test_zoo_urdf_identical(urdf_fn):
+    assert FIXTURES[urdf_fn](tzoo) == FIXTURES[urdf_fn](jzoo)
+
+
+@pytest.mark.parametrize("name", list(ROBOTS))
+def test_parse_urdf_identical(name):
+    ref = g.parse_urdf(ROBOTS[name])
+    got = gt.parse_urdf(ROBOTS[name])
+    assert got.name == ref.name
+    assert got.joint_types == ref.joint_types
+    assert got.topology.parents == ref.topology.parents
+    assert got.topology.joint_names == ref.topology.joint_names
+    assert got.topology.link_names == ref.topology.link_names
+    assert got.topology.ancestors == ref.topology.ancestors
+    assert got.topology.subtrees == ref.topology.subtrees
+    assert got.mimic == ref.mimic
+    for field in ("origin_xyz", "origin_rpy", "axis", "damping", "inertia",
+                  "base_inertia", "q_lower", "q_upper", "effort", "velocity",
+                  "armature", "frictionloss"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(ref, field), err_msg=field)
+
+
+@pytest.mark.parametrize("name", SLICE_ROBOTS)
+def test_robot_model_constants_identical(name):
+    _, _, jm = get_setup(name)  # JAX model, float64
+    tm = gt.load_robot(ROBOTS[name], dtype=torch.float64)
+    assert tm.n == jm.n
+    assert tm.topology.parents == jm.topology.parents
+    assert tm.joint_types == jm.joint_types
+    assert tm.name == jm.name
+    for f in MODEL_FIELDS:
+        np.testing.assert_array_equal(getattr(tm, f).numpy(),
+                                      np.asarray(getattr(jm, f)), err_msg=f)
+    np.testing.assert_array_equal(tm.prismatic.numpy(),
+                                  np.asarray(jm.prismatic))
+
+
+@pytest.mark.parametrize("name", SLICE_ROBOTS)
+def test_from_jax_arrays_matches_load_robot(name):
+    _, _, jm = get_setup(name)
+    arrays = {f: np.asarray(getattr(jm, f)) for f in MODEL_FIELDS}
+    conv = gt.from_jax_arrays(arrays, jm.topology.parents, jm.joint_types,
+                              jm.name)
+    own = gt.load_robot(ROBOTS[name], dtype=torch.float64)
+    assert conv.dtype == torch.float64
+    assert conv.topology.parents == own.topology.parents
+    assert conv.joint_types == own.joint_types
+    for f in MODEL_FIELDS + ("prismatic",):
+        assert torch.equal(getattr(conv, f), getattr(own, f)), f
+
+
+def test_model_to_and_packed_layout():
+    m = gt.load_robot(ROBOTS["barm"], dtype=torch.float64)
+    m32 = m.to(dtype=torch.float32)
+    assert m32.dtype == torch.float32 and m.dtype == torch.float64
+    assert m32.prismatic.dtype == torch.bool
+    n = m.n
+    assert m.packed.shape == (152 * n,)
+    # Xb, Xs, Xc, S, inertia, damping, armature — the csrc/rbd.cuh layout
+    offsets = {"Xb": 0, "Xs": 36 * n, "Xc": 72 * n, "S": 108 * n,
+               "inertia": 114 * n, "damping": 150 * n, "armature": 151 * n}
+    for f, off in offsets.items():
+        t = getattr(m, f).reshape(-1)
+        assert torch.equal(m.packed[off:off + t.numel()], t), f
+
+
+def test_accurate_trig_not_ported():
+    with pytest.raises(NotImplementedError, match="accurate_trig"):
+        gt.robot_model_from_description(gt.parse_urdf(ROBOTS["iiwa14"]),
+                                        accurate_trig=True)
