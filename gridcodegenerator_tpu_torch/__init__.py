@@ -6,8 +6,10 @@ batch-last versions on any device, and hand-written CUDA kernels for the
 NVIDIA H100 (``ops/kernels/csrc``), built per robot topology at first use.
 This package imports torch and never jax.
 
-First-order families of this slice:
+The five first-order families, for every fixed-base robot (past 16 joints
+∇FD, ∂ID and M⁻¹ run through the staged pipeline, ``ops/kernels/staged``):
   * inverse dynamics (RNEA)              → :func:`inverse_dynamics`, :func:`bias_force`
+  * forward dynamics (ABA)               → :func:`forward_dynamics`
   * analytical mass-matrix inverse       → :func:`direct_minv`
   * analytical ∂ID (∂c/∂q, ∂c/∂q̇)        → :func:`inverse_dynamics_gradient`
   * analytical ∇FD (−M⁻¹·∂c/∂u)          → :func:`forward_dynamics_gradient`
@@ -16,6 +18,7 @@ First-order families of this slice:
 from .api import (
     bias_force,
     direct_minv,
+    forward_dynamics,
     forward_dynamics_gradient,
     inverse_dynamics,
     inverse_dynamics_gradient,
@@ -32,6 +35,6 @@ __all__ = [
     "RobotModel", "RobotDescription", "Topology", "GoldenDynamics",
     "load_robot", "parse_urdf", "robot_model_from_description",
     "from_jax_arrays",
-    "inverse_dynamics", "bias_force", "direct_minv",
+    "inverse_dynamics", "bias_force", "direct_minv", "forward_dynamics",
     "inverse_dynamics_gradient", "forward_dynamics_gradient",
 ]

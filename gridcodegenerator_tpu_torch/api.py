@@ -112,6 +112,18 @@ def direct_minv(model: RobotModel, q, *, dense: bool = True,
     return _run(model, (q,), fused.minv_fused)
 
 
+def forward_dynamics(model: RobotModel, q, qd, u, *, gravity: float = -9.81,
+                     impl: str = "auto", f_ext=None):
+    """q̈ = M⁻¹ (u − c(q, q̇)) by the articulated-body algorithm, (..., n)
+    — the JAX package's TPU route (``api._k_fd``)."""
+    _check_states(model, (q, qd, u), ("q", "qd", "u"))
+    _no_fext(f_ext)
+    _check_impl(impl, q)
+    return _run(model, (q, qd, u),
+                lambda m, *s: fused.forward_dynamics_aba_fused(
+                    m, *s, gravity=gravity))
+
+
 def inverse_dynamics_gradient(model: RobotModel, q, qd, qdd, *,
                               gravity: float = -9.81, impl: str = "auto",
                               f_ext=None):

@@ -11,9 +11,11 @@ prismatic joints. The coefficient functions below are the JAX package's NumPy
 code, unchanged, so both packages start from bit-identical float64 constants.
 
 The model holds plain tensors on one device in one dtype; ``.to(device,
-dtype)`` returns a copy elsewhere. The topology and joint types are static
-Python data: the CUDA kernels are compiled once per topology from them
-(``ops/kernels/_build.py``).
+dtype)`` returns a copy elsewhere. Models are built on the card
+(``device="cuda"``) unless the caller names another device; where there is
+no CUDA device that default raises rather than building on the CPU. The
+topology and joint types are static Python data: the CUDA kernels are
+compiled once per topology from them (``ops/kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -129,8 +131,20 @@ class RobotModel:
                           for f in MODEL_FIELDS]).contiguous()
 
 
+def _require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist — the port
+    never quietly builds on the CPU when the card was asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "False): models are built on the card by default; pass "
+            "device='cpu' to build one on the CPU")
+    return device
+
+
 def robot_model_from_description(desc: RobotDescription,
-                                 dtype=torch.float32, device="cpu",
+                                 dtype=torch.float32, device="cuda",
                                  accurate_trig: bool = False) -> RobotModel:
     if accurate_trig:
         raise NotImplementedError(
@@ -151,18 +165,19 @@ def robot_model_from_description(desc: RobotDescription,
                         dtype, device)
 
 
-def from_jax_arrays(arrays: dict, parents, joint_types,
-                    name: str) -> RobotModel:
-    """Build the port's model, on the CPU, from the leaves of a JAX
+def from_jax_arrays(arrays: dict, parents, joint_types, name: str,
+                    device="cuda") -> RobotModel:
+    """Build the port's model on ``device`` from the leaves of a JAX
     ``RobotModel`` given as numpy arrays keyed by field name (``Xb``,
     ``Xs``, ``Xc``, ``S``, ``inertia``, ``damping``, ``armature``), keeping
-    their dtype; move it with ``.to(device, dtype)``."""
+    their dtype."""
     topo = Topology(tuple(int(p) for p in parents))
     dtype = torch.as_tensor(np.array(arrays["Xb"])).dtype
-    return _from_arrays(arrays, topo, joint_types, name, dtype, "cpu")
+    return _from_arrays(arrays, topo, joint_types, name, dtype, device)
 
 
 def _from_arrays(arrays, topology, joint_types, name, dtype, device):
+    device = _require_device(device)
     fields = {f: torch.tensor(np.asarray(arrays[f]), dtype=dtype,
                               device=device) for f in MODEL_FIELDS}
     prism = torch.tensor([t == "prismatic" for t in joint_types],
@@ -171,7 +186,7 @@ def _from_arrays(arrays, topology, joint_types, name, dtype, device):
                       name=name, joint_types=tuple(joint_types))
 
 
-def load_robot(urdf: str, dtype=torch.float32, device="cpu") -> RobotModel:
+def load_robot(urdf: str, dtype=torch.float32, device="cuda") -> RobotModel:
     """Parse a URDF (path or XML string) into a :class:`RobotModel`."""
     return robot_model_from_description(parse_urdf(urdf), dtype=dtype,
                                         device=device)

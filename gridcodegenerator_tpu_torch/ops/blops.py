@@ -396,3 +396,145 @@ def fd_grad_bl(model: RobotModel, q, qd, u, gravity=-9.81):
                              sides=("qd",))["qd"]
     ddqd = matmatN(Minv, dqd, negate=True)
     return ddq, ddqd
+
+
+# --------------------------------------------------------------------------
+# column-blocked variants (the staged large-robot pipeline, kernels/staged.py)
+# --------------------------------------------------------------------------
+def crba_bl(model: RobotModel, X):
+    """Batch-last Composite Rigid Body Algorithm: the joint-space mass
+    matrix ``M + diag(armature)`` as an (n, n) list of lists of (1, B)
+    entries, ``None`` where structurally zero (M[i][j] ≠ 0 only for j on
+    i's root path; joints of different trees of a forest never couple).
+    The list-of-lists form feeds the active-region Cholesky
+    (``kernels/contact_fused._chol_factor_act``) directly."""
+    n = model.n
+    parents = model.topology.parents
+    B = X[0].shape[-1]
+    IC = [_mat(model.inertia[i]).expand(6, 6, B) for i in range(n)]
+    Sb = [_col(model.S[i]) for i in range(n)]
+    for i in range(n - 1, -1, -1):
+        p = parents[i]
+        if p >= 0:
+            IC[p] = IC[p] + matmat6_T(X[i], matmat6(IC[i], X[i]))
+    M = [[None] * n for _ in range(n)]
+    for i in range(n):
+        F = sum(IC[i][:, c] * Sb[i][c:c + 1] for c in range(6))   # (6,B)
+        M[i][i] = (sum(Sb[i][c:c + 1] * F[c:c + 1] for c in range(6))
+                   + model.armature[i:i + 1, None])
+        j = i
+        while parents[j] >= 0:
+            F = matvec6_T(X[j], F)
+            j = parents[j]
+            val = sum(Sb[j][c:c + 1] * F[c:c + 1] for c in range(6))
+            M[i][j] = val
+            M[j][i] = val
+    return M
+
+
+def rnea_grad_cols_bl(model: RobotModel, X, qd, v, a, f, gravity=-9.81,
+                      c0: int = 0, cb: int | None = None, sides=("q", "qd"),
+                      as_rows: bool = False):
+    """Column-blocked batch-last ∂ID: the ``cb`` differentiation directions
+    [c0, c0+cb) of ∂c/∂u for the requested sides, each (n, cb, B).
+
+    ``as_rows=True`` returns, per side, the per-joint row list instead:
+    ``rows[i]`` is ∂c_i/∂u_blk (cb, B), or ``None`` where the row is
+    structurally zero (joint i outside ancestors ∪ subtree of the block) —
+    the sparsity set the staged ∇FD finish contracts over.
+
+    One forward loop computes ∂v_i, ∂a_i and ∂f_i together; joints outside
+    the subtree of every block joint carry no nonzero ∂-column and are
+    skipped (``None``). Equals columns [c0:c0+cb) of
+    :func:`rnea_grad_inner_bl` up to the order of its sums."""
+    n = model.n
+    parents = model.topology.parents
+    B = qd.shape[-1]
+    dtype, device = qd.dtype, qd.device
+    if cb is None:
+        cb = n
+    Ib = [_mat(model.inertia[i]) for i in range(n)]
+    S_bl = [_col(model.S[i]) for i in range(n)]
+    gcol = torch.arange(c0, c0 + cb, device=device)[None, :, None]  # (1,cb,1)
+
+    def zeros_cols():
+        return torch.zeros((6, cb, B), dtype=dtype, device=device)
+
+    def sow(D, i, vec):
+        """Add vec (6,B) into the column of D holding direction i; nothing
+        when i lies outside the block."""
+        if not (c0 <= i < c0 + cb):
+            return D
+        return D + (gcol == i).to(dtype) * vec[:, None]
+
+    in_subtree = [False] * n
+    for i in range(n):
+        p = parents[i]
+        in_subtree[i] = (c0 <= i < c0 + cb) or (p >= 0 and in_subtree[p])
+
+    def one_side(side):
+        is_q = side == "q"
+        dv = [None] * n        # None ≡ identically zero
+        da = [None] * n
+        df = [None] * n
+        for i in range(n):
+            p = parents[i]
+            if not in_subtree[i]:
+                continue
+            d = zeros_cols() if (p < 0 or dv[p] is None) \
+                else matmat6(X[i], dv[p])
+            if is_q:
+                Xv = matvec6(X[i], v[p]) if p >= 0 \
+                    else torch.zeros((6, B), dtype=dtype, device=device)
+                seed = -crm_apply_bl(S_bl[i], Xv)
+            else:
+                seed = S_bl[i].expand(6, B)
+            dv[i] = sow(d, i, seed)
+
+            d2 = zeros_cols() if (p < 0 or da[p] is None) \
+                else matmat6(X[i], da[p])
+            d2 = d2 - qd[i:i + 1][:, None] * crm_cols_left(S_bl[i], dv[i])
+            if is_q:
+                Xa = matvec6(X[i], a[p]) if p >= 0 \
+                    else X[i][:, 5] * (-gravity)
+                seed2 = -crm_apply_bl(S_bl[i], Xa)
+            else:
+                seed2 = -crm_apply_bl(S_bl[i], v[i])
+            da[i] = sow(d2, i, seed2)
+
+            Iv = matvec6(Ib[i], v[i])
+            Idv = matmat6(Ib[i], dv[i])
+            df[i] = (crf_cols_right(dv[i], Iv)
+                     + crf_cols_left(v[i], Idv)
+                     + matmat6(Ib[i], da[i]))
+
+        for i in range(n - 1, -1, -1):
+            p = parents[i]
+            if p < 0:
+                continue
+            acc = df[p]
+            if df[i] is not None:
+                contrib = matmat6_T(X[i], df[i])
+                acc = contrib if acc is None else acc + contrib
+            if is_q and c0 <= i < c0 + cb:
+                corr = matvec6_T(X[i], crf_apply_bl(S_bl[i], f[i]))
+                acc = sow(zeros_cols() if acc is None else acc, i, corr)
+            df[p] = acc
+
+        rows = [sum(S_bl[i][r:r + 1] * df[i][r] for r in range(6))
+                if df[i] is not None else None for i in range(n)]
+        if not is_q:
+            # damping on the global diagonal: row j gets damping_j at the
+            # local column holding direction j
+            for i in range(c0, min(c0 + cb, n)):
+                d = (gcol[0] == i).to(dtype) * model.damping[i]
+                d = d.expand(cb, B)
+                rows[i] = d if rows[i] is None else rows[i] + d
+        if as_rows:
+            return rows
+        return torch.stack([r if r is not None
+                            else torch.zeros((cb, B), dtype=dtype,
+                                             device=device)
+                            for r in rows])
+
+    return {side: one_side(side) for side in sides}

@@ -1,13 +1,14 @@
 """Build the CUDA kernels of ``csrc/`` for one robot topology, at first use.
 
-One shared library per topology: ``nvcc`` compiles ``csrc/fused.cu`` for
-``sm_90a`` with the joint count, parent indices and joint types passed as
-``-D`` macros (``csrc/rbd.cuh``), so every joint loop unrolls. The library
-has a plain C interface and is loaded with ``ctypes``; it lands in
-``build/torch_kernels/`` at the repository root, keyed by the topology and a
-hash of the sources, beside a ``.log`` holding nvcc's and ptxas's output
-(registers, spills and local memory per kernel). A failed build raises with
-nvcc's output.
+One shared library per topology and source: ``nvcc`` compiles
+``csrc/fused.cu`` (the single-kernel families) and ``csrc/staged.cu`` (the
+staged large-robot pipeline) for ``sm_90a``, both at once, with the joint
+count, parent indices and joint types passed as ``-D`` macros
+(``csrc/rbd.cuh``). The libraries have a plain C interface and are loaded
+with ``ctypes``; they land in ``build/torch_kernels/`` at the repository
+root, keyed by the topology and a hash of the sources, each beside a
+``.log`` holding nvcc's and ptxas's output (registers, spills and stack
+frame per kernel). A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -23,43 +24,100 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("rbd.cuh", "fused.cu")
+_HEADERS = ("rbd.cuh", "aba.cuh", "staged.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+# The single-thread ∇FD, ∂ID and M⁻¹ kernels keep O(n²) values a state in
+# local memory: ∇FD's frame is ≈ 28·n² values, and the card reserves that
+# frame for every resident thread (2048 a SM, 132 SMs). At 16 joints that
+# is 7168 values a thread, four times the n = 7 frame ptxas reports; past
+# it the frame, the reservation and nvcc's time grow as n² while the staged
+# kernels (staged.cu) hold 18·n·cb + O(n) values. So past this joint count
+# those three families take the staged route; RNEA and ABA, O(n) a state,
+# run on one thread for every robot. The limit is this card's per-thread
+# budget, not the JAX package's VMEM calibration (staged.py:39-62).
+MAX_KERNEL_JOINTS = 16
+# Values of the K5 ∂-tensor arrays (dv, da, df: 18·n·cb) a thread may hold;
+# sets the default column-block width (default_col_block).
+_K5_VALUES = 2048
+
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    # consts, q, qd, u, ddq, ddqd, B, gravity, stream
-    "grid_fd_grad": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                     ctypes.c_double, _P),
-    # consts, q, qd, qdd, dq, dqd, B, gravity, stream
-    "grid_id_grad": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                     ctypes.c_double, _P),
-    # consts, q, M, B, stream
-    "grid_minv": (_P, _P, _P, ctypes.c_longlong, _P),
-    # consts, q, qd, qdd (or NULL), c, B, gravity, stream
-    "grid_rnea": (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_double,
-                  _P),
+_LL = ctypes.c_longlong
+_D = ctypes.c_double
+# unit → entry → argtypes (every entry has an _f32 and an _f64 variant)
+_UNITS = {
+    "fused.cu": {
+        # consts, q, qd, u, ddq, ddqd, B, gravity, stream
+        "grid_fd_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, qdd, dq, dqd, B, gravity, stream
+        "grid_id_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, M, B, stream
+        "grid_minv": (_P, _P, _P, _LL, _P),
+        # consts, q, qd, qdd (or NULL), c, B, gravity, stream
+        "grid_rnea": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, u, qdd, B, gravity, stream
+        "grid_aba": (_P, _P, _P, _P, _P, _LL, _D, _P),
+    },
+    "staged.cu": {
+        # consts, q, qd, c, v, B, gravity, stream
+        "grid_bias_v": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, qdd, v, a, f, B, gravity, stream
+        "grid_af": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, qdd, v, a, f, B, gravity, stream
+        "grid_vaf": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, rhs (or NULL), M, qdd (or NULL), B, stream
+        "grid_minv_dense": (_P, _P, _P, _P, _P, _LL, _P),
+        # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, gravity,
+        # stream
+        "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                           ctypes.c_int, _D, _P),
+    },
 }
+_DENSE_ONLY = ("grid_fd_grad", "grid_id_grad", "grid_minv")
+
+
+def dense_grads(n: int) -> bool:
+    """Whether the single-thread ∇FD, ∂ID and M⁻¹ kernels are built."""
+    return n <= MAX_KERNEL_JOINTS
+
+
+def default_col_block(n: int) -> int:
+    """K5's column-block width: the widest block whose ∂-tensors fit
+    ``_K5_VALUES`` a thread, preferring a width that divides n (uniform
+    blocks) unless that would waste more than half of it."""
+    cb_max = max(1, min(n, _K5_VALUES // (18 * n)))
+    best = max(d for d in range(1, cb_max + 1) if n % d == 0)
+    return best if best * 2 > cb_max else cb_max
 
 
 @dataclass(frozen=True)
 class KernelLibrary:
-    """A loaded per-topology kernel library and how it was built."""
+    """The loaded kernel libraries of one topology and how they were built."""
 
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float   # 0.0 when an earlier build was reused
-    log: str               # nvcc/ptxas output of the build
+    libs: dict             # unit → ctypes.CDLL
+    paths: dict            # unit → Path of the .so
+    build_seconds: dict    # unit → nvcc seconds (0.0 when reused)
+    logs: dict             # unit → nvcc/ptxas output
 
     def entry(self, name: str, dtype_tag: str):
-        return getattr(self.lib, f"{name}_{dtype_tag}")
+        for unit, sigs in _UNITS.items():
+            if name in sigs:
+                fn = getattr(self.libs[unit], f"{name}_{dtype_tag}", None)
+                if fn is None:
+                    raise NotImplementedError(
+                        f"{name} is not built for this robot (the "
+                        "single-thread gradient kernels take at most "
+                        f"{MAX_KERNEL_JOINTS} joints)")
+                return fn
+        raise KeyError(name)
 
     def error_string(self, code: int) -> str:
-        return self.lib.grid_error_string(code).decode()
+        return self.libs["fused.cu"].grid_error_string(code).decode()
 
 
 _LOCK = threading.Lock()
+_KEY_LOCKS: dict[tuple, threading.Lock] = {}
 _LOADED: dict[tuple, KernelLibrary] = {}
 
 
@@ -83,65 +141,96 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(key: tuple) -> str:
-    h = hashlib.sha256(repr(key).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
-
-
-def _compile(key: tuple, out: Path) -> tuple[float, str]:
+def _macros(key: tuple) -> list[str]:
     n, parents, prism = key
-    # build under a private name, then rename: concurrent builds never
-    # load a half-written library
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    return [
         f"-DGRID_N={n}",
         # nvcc splits -D values at commas: lists go as G(a)G(b)...
         "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
         "-DGRID_PRISMATIC=" + "".join(f"G({p})" for p in prism),
-        "-o", str(tmp), str(_CSRC / "fused.cu"),
+        f"-DGRID_DENSE_GRADS={int(dense_grads(n))}",
+        f"-DGRID_CB={default_col_block(n)}",
     ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {out.name}:\n"
-            f"{' '.join(cmd)}\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)
-    return seconds, log
+
+
+def _digest(key: tuple) -> str:
+    h = hashlib.sha256(repr(_macros(key)).encode())
+    for name in _HEADERS + tuple(_UNITS):
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(key: tuple, outs: dict) -> tuple[dict, dict]:
+    """Run one nvcc per unit, all at once; returns (seconds, logs)."""
+    macros = _macros(key)
+    procs = {}
+    for unit, out in outs.items():
+        # build under a private name, then rename: concurrent builds never
+        # load a half-written library
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", *macros,
+               "-o", str(tmp), str(_CSRC / unit)]
+        procs[unit] = (cmd, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    seconds, logs, failed = {}, {}, []
+    for unit, (cmd, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        seconds[unit] = time.perf_counter() - t0
+        logs[unit] = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{outs[unit].name}:\n{' '.join(cmd)}\n{log}")
+            continue
+        outs[unit].with_suffix(".log").write_text(log)
+        os.replace(tmp, outs[unit])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds, logs
+
+
+def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _UNITS[unit].items():
+        if name in _DENSE_ONLY and not dense_grads(n):
+            continue
+        for tag in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{tag}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.grid_num_joints.argtypes = ()
+    lib.grid_num_joints.restype = ctypes.c_int
+    lib.grid_error_string.argtypes = (ctypes.c_int,)
+    lib.grid_error_string.restype = ctypes.c_char_p
+    if lib.grid_num_joints() != n:
+        raise RuntimeError(f"{so} was built for {lib.grid_num_joints()} "
+                           f"joints, not {n}")
+    return lib
 
 
 def library(model) -> KernelLibrary:
-    """The kernel library for ``model``'s topology, built if needed."""
+    """The kernel libraries for ``model``'s topology, built if needed.
+    Different topologies build concurrently."""
     key = topology_key(model)
     with _LOCK:
         if key in _LOADED:
             return _LOADED[key]
+        key_lock = _KEY_LOCKS.setdefault(key, threading.Lock())
+    with key_lock:
+        if key in _LOADED:
+            return _LOADED[key]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"grid_n{key[0]}_{_digest(key)}.so"
-        if so.exists():
-            seconds, log = 0.0, so.with_suffix(".log").read_text()
-        else:
-            seconds, log = _compile(key, so)
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            for tag in ("f32", "f64"):
-                fn = getattr(lib, f"{name}_{tag}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        lib.grid_num_joints.argtypes = ()
-        lib.grid_num_joints.restype = ctypes.c_int
-        lib.grid_error_string.argtypes = (ctypes.c_int,)
-        lib.grid_error_string.restype = ctypes.c_char_p
-        if lib.grid_num_joints() != key[0]:
-            raise RuntimeError(f"{so} was built for "
-                               f"{lib.grid_num_joints()} joints, not {key[0]}")
-        _LOADED[key] = KernelLibrary(lib, so, seconds, log)
-        return _LOADED[key]
+        stem = f"grid_n{key[0]}_{_digest(key)}"
+        outs = {u: BUILD_DIR / f"{stem}_{Path(u).stem}.so" for u in _UNITS}
+        missing = {u: so for u, so in outs.items() if not so.exists()}
+        seconds, logs = _compile(key, missing) if missing else ({}, {})
+        for u, so in outs.items():
+            if u not in missing:
+                seconds[u], logs[u] = 0.0, so.with_suffix(".log").read_text()
+        libs = {u: _load(u, so, key[0]) for u, so in outs.items()}
+        lib = KernelLibrary(libs, outs, seconds, logs)
+        with _LOCK:
+            _LOADED[key] = lib
+        return lib

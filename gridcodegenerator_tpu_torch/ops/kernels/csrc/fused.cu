@@ -1,10 +1,15 @@
-// The four first-order kernels of the port, one thread per state.
+// The single-kernel first-order families of the port, one thread per state.
 //
 // Replaces (gridcodegenerator_tpu/ops/kernels/fused.py):
 //   fd_grad_fused          (fused.py:394)  -> grid_fd_grad_{f32,f64}
 //   id_grad_fused          (fused.py:433)  -> grid_id_grad_{f32,f64}
 //   minv_fused, one tile   (fused.py:290)  -> grid_minv_{f32,f64}
 //   inverse_dynamics_fused (fused.py:270)  -> grid_rnea_{f32,f64}
+//   forward_dynamics_aba_fused (fused.py:357) -> grid_aba_{f32,f64}
+// The first three hold O(n²) values a state and are built only for robots
+// of at most MAX_KERNEL_JOINTS joints (GRID_DENSE_GRADS=1, _build.py);
+// larger robots take the staged kernels of staged.cu. RNEA and ABA are
+// O(n) a state and are built for every robot.
 // Each Pallas kernel ran its blops body on a VMEM tile of (8·k, 128) states;
 // here the same body (rbd.cuh) runs per thread, one state per thread, on
 // the (n, B) batch-last layout at the boundary: a warp's loads of q[i·B + b]
@@ -33,11 +38,21 @@
 // accurate library calls.
 #include <cuda_runtime.h>
 
+#include "aba.cuh"
 #include "rbd.cuh"
+
+#ifndef GRID_DENSE_GRADS
+#error "compile with -DGRID_DENSE_GRADS=0|1"
+#endif
 
 namespace {
 
 constexpr int kThreads = 128;
+
+// 152·n constants a robot; above the 48 KB a block gets without opting in,
+// the build fails here rather than at launch.
+static_assert(grid::kConstCount * sizeof(double) <= 48 * 1024,
+              "robot constants exceed 48 KB of shared memory");
 
 template <typename T>
 __device__ __forceinline__ const T* stage_constants(const T* __restrict__ g) {
@@ -53,6 +68,7 @@ __device__ __forceinline__ long long state_index() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
 
+#if GRID_DENSE_GRADS
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fd_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
@@ -86,6 +102,7 @@ minv_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   if (b >= B) return;
   grid::minv_state(R, q, M, B, b);
 }
+#endif  // GRID_DENSE_GRADS
 
 template <typename T, bool kQdd>
 __global__ void __launch_bounds__(kThreads)
@@ -98,6 +115,17 @@ rnea_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   grid::rnea_state<T, kQdd>(R, q, qd, qdd, c, B, b, minus_g);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+aba_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+           const T* __restrict__ qd, const T* __restrict__ u,
+           T* __restrict__ qdd, long long B, T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::aba_state(R, q, qd, u, qdd, B, b, minus_g);
+}
+
 dim3 blocks_for(long long B) {
   return dim3(static_cast<unsigned>((B + kThreads - 1) / kThreads));
 }
@@ -107,6 +135,7 @@ size_t smem_bytes() {
   return grid::kConstCount * sizeof(T);
 }
 
+#if GRID_DENSE_GRADS
 template <typename T>
 int fd_grad(const void* consts, const void* q, const void* qd, const void* u,
             void* ddq, void* ddqd, long long B, double gravity,
@@ -142,6 +171,7 @@ int minv(const void* consts, const void* q, void* M, long long B,
       static_cast<T*>(M), B);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // GRID_DENSE_GRADS
 
 // qdd == nullptr is the bias-force variant (no S·q̈, no armature term)
 template <typename T>
@@ -162,6 +192,18 @@ int rnea(const void* consts, const void* q, const void* qd, const void* qdd,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_aba(const void* consts, const void* q, const void* qd,
+               const void* u, void* qdd, long long B, double gravity,
+               void* stream) {
+  aba_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(u),
+      static_cast<T*>(qdd), B, static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface for ctypes (ops/kernels/_build.py declares the argtypes).
@@ -175,6 +217,7 @@ const char* grid_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+#if GRID_DENSE_GRADS
 int grid_fd_grad_f32(const void* consts, const void* q, const void* qd,
                      const void* u, void* ddq, void* ddqd, long long B,
                      double gravity, void* stream) {
@@ -205,6 +248,7 @@ int grid_minv_f64(const void* consts, const void* q, void* M, long long B,
                   void* stream) {
   return minv<double>(consts, q, M, B, stream);
 }
+#endif  // GRID_DENSE_GRADS
 
 int grid_rnea_f32(const void* consts, const void* q, const void* qd,
                   const void* qdd, void* c, long long B, double gravity,
@@ -215,6 +259,17 @@ int grid_rnea_f64(const void* consts, const void* q, const void* qd,
                   const void* qdd, void* c, long long B, double gravity,
                   void* stream) {
   return rnea<double>(consts, q, qd, qdd, c, B, gravity, stream);
+}
+
+int grid_aba_f32(const void* consts, const void* q, const void* qd,
+                 const void* u, void* qdd, long long B, double gravity,
+                 void* stream) {
+  return launch_aba<float>(consts, q, qd, u, qdd, B, gravity, stream);
+}
+int grid_aba_f64(const void* consts, const void* q, const void* qd,
+                 const void* u, void* qdd, long long B, double gravity,
+                 void* stream) {
+  return launch_aba<double>(consts, q, qd, u, qdd, B, gravity, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""The port's four first-order kernels and their plain PyTorch versions.
+"""The port's single-kernel first-order families and their plain versions.
 
 Counterparts of ``gridcodegenerator_tpu/ops/kernels/fused.py:270-472`` with
 the same batch-last (n, B) signatures. Each wrapper
@@ -9,8 +9,13 @@ the same batch-last (n, B) signatures. Each wrapper
   built for the robot's topology at first use by :mod:`._build`), or raises.
   There is no fallback from the kernel to the plain version.
 
-``LAUNCHES`` counts the kernel launches of each wrapper; only a successful
-launch adds to it.
+Past ``MAX_KERNEL_JOINTS`` joints, ∇FD, ∂ID and M⁻¹ route to the staged
+pipeline (:mod:`.staged`) on the CPU and on the card alike, as the JAX
+wrappers do (fused.py:294, :421, :454); RNEA and ABA are O(n) a state and
+run on one thread for every robot.
+
+``LAUNCHES`` counts the kernel launches of each wrapper, here and in
+:mod:`.staged`; only a successful launch adds to it.
 """
 
 from __future__ import annotations
@@ -19,15 +24,17 @@ import torch
 
 from ...models.robot import RobotModel
 from .. import blops
+from ..aba import aba_bl
 from . import _build
+from ._build import MAX_KERNEL_JOINTS
 
-LAUNCHES = {"inverse_dynamics": 0, "minv": 0, "id_grad": 0, "fd_grad": 0}
-
-# One thread per state keeps the whole ∇FD working set in local memory
-# (ptxas: 5.7 KB a thread at n=7 in float32, ≈ 28·n² values); past this
-# joint count that reaches tens of KB a thread. Larger robots need the
-# staged pipeline (ROADMAP Queue 1 item 5).
-MAX_KERNEL_JOINTS = 16
+LAUNCHES = {
+    # this module's kernels (csrc/fused.cu)
+    "inverse_dynamics": 0, "minv": 0, "id_grad": 0, "fd_grad": 0, "aba": 0,
+    # the staged pipeline's (csrc/staged.cu, launched from staged.py)
+    "bias_and_v": 0, "minv_dense": 0, "af": 0, "vaf": 0, "grad_cols": 0,
+    "grad_cols_finish": 0,
+}
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -67,6 +74,10 @@ def fd_grad_plain(model: RobotModel, q, qd, u, gravity=-9.81):
     return blops.fd_grad_bl(model, q, qd, u, gravity)
 
 
+def forward_dynamics_aba_plain(model: RobotModel, q, qd, u, gravity=-9.81):
+    return aba_bl(model, q, qd, u, gravity)
+
+
 # --------------------------------------------------------------------------
 # kernel launch
 # --------------------------------------------------------------------------
@@ -85,11 +96,6 @@ def _check(model: RobotModel, states) -> int:
         raise ValueError(
             f"model is on {model.device} in {model.dtype}, states on "
             f"{ref.device} in {ref.dtype}: move it with model.to(...)")
-    if model.n > MAX_KERNEL_JOINTS:
-        raise NotImplementedError(
-            f"robot '{model.name}' has {model.n} joints; the single-state "
-            f"kernels take at most {MAX_KERNEL_JOINTS} (the staged "
-            "large-robot pipeline is ROADMAP Queue 1 item 5)")
     shape = (model.n, ref.shape[-1]) if ref.dim() == 2 else None
     for s in states:
         if s.device != ref.device or s.dtype != ref.dtype:
@@ -138,8 +144,17 @@ def inverse_dynamics_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
     return c
 
 
+def _staged():
+    from . import staged      # staged imports this module's launch helpers
+    return staged
+
+
 def minv_fused(model: RobotModel, q):
-    """Analytic M⁻¹: q (n,B) → dense symmetric (n,n,B)."""
+    """Analytic M⁻¹: q (n,B) → dense symmetric (n,n,B); past
+    ``MAX_KERNEL_JOINTS`` joints, the staged K2′ (CRBA + Cholesky)."""
+    if model.n > MAX_KERNEL_JOINTS:
+        (M,) = _staged().minv_qdd_dense_staged(model, q)
+        return M
     if _on_cpu(q):
         return minv_plain(model, q)
     B = _check(model, [q])
@@ -150,11 +165,14 @@ def minv_fused(model: RobotModel, q):
 
 
 def id_grad_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
-    """∂ID: returns (∂c/∂q, ∂c/∂q̇), each (n,n,B)."""
-    if _on_cpu(q):
-        return id_grad_plain(model, q, qd, qdd, gravity)
+    """∂ID: returns (∂c/∂q, ∂c/∂q̇), each (n,n,B); past
+    ``MAX_KERNEL_JOINTS`` joints, the staged vaf + K5 column blocks."""
     if qdd is None:
         qdd = torch.zeros_like(q)  # S·0 adds nothing: the same as no q̈ term
+    if model.n > MAX_KERNEL_JOINTS:
+        return _staged().id_grad_staged(model, q, qd, qdd, gravity)
+    if _on_cpu(q):
+        return id_grad_plain(model, q, qd, qdd, gravity)
     B = _check(model, [q, qd, qdd])
     dq = _empty(model, model.n, model.n, B)
     dqd = _empty(model, model.n, model.n, B)
@@ -167,7 +185,11 @@ def id_grad_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
 
 def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81):
     """∇FD — the north-star kernel: X → RNEA → M⁻¹ → q̈ → second RNEA sweep
-    → ∂ID → −M⁻¹·∂c in one launch. Returns (∂q̈/∂q, ∂q̈/∂q̇), each (n,n,B)."""
+    → ∂ID → −M⁻¹·∂c in one launch. Returns (∂q̈/∂q, ∂q̈/∂q̇), each (n,n,B).
+    Past ``MAX_KERNEL_JOINTS`` joints, the staged pipeline (K1, K2′, K4,
+    K5 with the fused finish: four launches)."""
+    if model.n > MAX_KERNEL_JOINTS:
+        return _staged().fd_grad_staged(model, q, qd, u, gravity)
     if _on_cpu(q):
         return fd_grad_plain(model, q, qd, u, gravity)
     B = _check(model, [q, qd, u])
@@ -178,3 +200,17 @@ def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81):
                 (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
                  ddqd.data_ptr()), B, float(gravity))
     return ddq, ddqd
+
+
+def forward_dynamics_aba_fused(model: RobotModel, q, qd, u, gravity=-9.81):
+    """Forward dynamics by the articulated-body algorithm: q, q̇, u (n,B) →
+    q̈ (n,B), O(n) a state — one thread per state for every robot."""
+    if _on_cpu(q):
+        return forward_dynamics_aba_plain(model, q, qd, u, gravity)
+    B = _check(model, [q, qd, u])
+    qdd = _empty(model, model.n, B)
+    if B:
+        _launch("aba", "grid_aba", model,
+                (q.data_ptr(), qd.data_ptr(), u.data_ptr(), qdd.data_ptr()),
+                B, float(gravity))
+    return qdd

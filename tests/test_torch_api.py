@@ -29,6 +29,7 @@ FAMILIES = {
     "inverse_dynamics": 3,
     "bias_force": 2,
     "direct_minv": 1,
+    "forward_dynamics": 3,
 }
 
 
@@ -43,7 +44,7 @@ def assert_close(got, ref):
 
 @functools.cache
 def _tmodel(name, dtype=torch.float64):
-    return gt.load_robot(ROBOTS[name], dtype=dtype)
+    return gt.load_robot(ROBOTS[name], dtype=dtype, device="cpu")
 
 
 def _states(name, batch, k):
@@ -53,9 +54,11 @@ def _states(name, batch, k):
 
 # every family on a batch; the north-star op also on leading dims and on a
 # single state (the JAX API runs its vmap tier there)
-CASES = ([(fam, (4,)) for fam in FAMILIES]
+CASES = ([(fam, (4,)) for fam in FAMILIES if fam != "forward_dynamics"]
          + [("forward_dynamics_gradient", (2, 3)),
-            ("forward_dynamics_gradient", ())])
+            ("forward_dynamics_gradient", ()),
+            ("forward_dynamics", (4,)), ("forward_dynamics", (2, 3)),
+            ("forward_dynamics", ())])
 
 
 @pytest.mark.parametrize("fam,batch", CASES)
@@ -82,6 +85,7 @@ def test_api_matches_golden(name):
         "id": gt.inverse_dynamics(m, tq, tqd, tu),
         "bias": gt.bias_force(m, tq, tqd),
         "minv": gt.direct_minv(m, tq),
+        "fd": gt.forward_dynamics(m, tq, tqd, tu),
     }
     for k in range(3):
         ref = {
@@ -90,6 +94,7 @@ def test_api_matches_golden(name):
             "id": gold.rnea(q[k], qd[k], u[k])[0],
             "bias": gold.rnea(q[k], qd[k], None)[0],
             "minv": gold.minv(q[k], True),
+            "fd": gold.fd(q[k], qd[k], u[k]),
         }
         for key, r in ref.items():
             got = out[key][k].numpy()
@@ -108,7 +113,7 @@ def test_f32_parity_head_vs_golden():
                 for k, r in zip(ks, (2.0, 1.0, 8.0)))
     gold = gt.GoldenDynamics(gt.parse_urdf(zoo.iiwa14()))
     J = gt.forward_dynamics_gradient(
-        gt.load_robot(zoo.iiwa14(), dtype=torch.float32),
+        gt.load_robot(zoo.iiwa14(), dtype=torch.float32, device="cpu"),
         *(torch.from_numpy(s) for s in (q, qd, u))).numpy()
     errs = []
     for k in range(P):
@@ -128,7 +133,7 @@ BAD = {
 
 @pytest.mark.parametrize("case", list(BAD))
 @pytest.mark.parametrize("fam", ["forward_dynamics_gradient",
-                                 "inverse_dynamics"])
+                                 "inverse_dynamics", "forward_dynamics"])
 def test_check_states_errors_match_jax(case, fam):
     jm = get_setup("iiwa14")[2]
     shapes = BAD[case](jm.n)
@@ -150,22 +155,37 @@ def test_unported_options_raise():
         gt.inverse_dynamics(m, q, q, q, f_ext=torch.zeros((3, 2, 6)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gt.direct_minv(m, q, dense=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.forward_dynamics(m, q, q, q, f_ext=torch.zeros((3, 2, 6)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.forward_dynamics(m, q, q, q, impl="vmap")
     with pytest.raises(ValueError, match="impl must be one of"):
         gt.forward_dynamics_gradient(m, q, q, q, impl="pallas")
 
 
+PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.kernels._build",
+                "ops.kernels.fused", "ops.kernels.staged",
+                "ops.kernels.contact_fused", "models.robot", "utils.golden")
+
+
 def test_port_imports_no_jax():
-    """The port runs in a process where importing jax fails."""
+    """The port runs in a process where importing jax fails: every module,
+    the single-kernel families on iiwa-14 and the staged ones on Atlas."""
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "import torch\n"
         "import gridcodegenerator_tpu_torch as gt\n"
         "from gridcodegenerator_tpu_torch.models import zoo\n"
-        "m = gt.load_robot(zoo.iiwa14(), dtype=torch.float64)\n"
-        "q = torch.zeros((3, 7), dtype=torch.float64)\n"
-        "J = gt.forward_dynamics_gradient(m, q, q, q)\n"
-        "assert J.shape == (3, 7, 14) and bool(torch.isfinite(J).all())\n"
+        f"for mod in {PORT_MODULES!r}:\n"
+        "    importlib.import_module('gridcodegenerator_tpu_torch.' + mod)\n"
+        "for urdf, n in ((zoo.iiwa14(), 7), (zoo.atlas(), 28)):\n"
+        "    m = gt.load_robot(urdf, dtype=torch.float64, device='cpu')\n"
+        "    q = torch.zeros((3, n), dtype=torch.float64)\n"
+        "    J = gt.forward_dynamics_gradient(m, q, q, q)\n"
+        "    a = gt.forward_dynamics(m, q, q, q)\n"
+        "    assert J.shape == (3, n, 2 * n) and a.shape == (3, n)\n"
+        "    assert bool(torch.isfinite(J).all() & torch.isfinite(a).all())\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"
         "print('ok')\n")

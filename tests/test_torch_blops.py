@@ -51,7 +51,7 @@ def _inputs(name):
 
 @functools.cache
 def _tmodel(name):
-    return gt.load_robot(ROBOTS[name], dtype=torch.float64)
+    return gt.load_robot(ROBOTS[name], dtype=torch.float64, device="cpu")
 
 
 @functools.cache
@@ -182,6 +182,63 @@ def test_fd_grad_bl(name):
     got = tb.fd_grad_bl(_tmodel(name), T(q), T(qd), T(u))
     for g_, r_ in zip(got, _ref(name, "fd_grad_bl")):
         assert_close(g_, r_)
+
+
+# ------------------------------------------- column-blocked (staged) bodies
+COLS_ROBOTS = ["barm", "dpend", "chain5p"]
+
+
+@pytest.mark.parametrize("rname", COLS_ROBOTS)
+def test_crba_bl(rname):
+    """The mass matrix as an ancestor-sparse list of lists: the same
+    entries, and ``None`` exactly where the JAX one has it."""
+    got = tb.crba_bl(_tmodel(rname), Tl(_ref(rname, "X")))
+    ref = jb.crba_bl(get_setup(rname)[2], _ref(rname, "X"))
+    for g_row, r_row in zip(got, ref):
+        for g_, r_ in zip(g_row, r_row):
+            assert (g_ is None) == (r_ is None)
+            if r_ is not None:
+                assert_close(torch.broadcast_to(g_, np.shape(r_)), r_)
+
+
+@functools.cache
+def _cols_ref(rname, c0, w):
+    """The JAX row lists of one block (its stacked form is the same rows,
+    zeros for ``None``)."""
+    v, a, _ = _ref(rname, "fwd")
+    _, fb = _ref(rname, "grad_inner")
+    return jb.rnea_grad_cols_bl(get_setup(rname)[2], _ref(rname, "X"),
+                                jnp.asarray(_inputs(rname)[1]), v, a, fb,
+                                c0=c0, cb=w, as_rows=True)
+
+
+# blocks start at c0 ∈ {0, 1, 4} where the robot has that many joints
+BLOCKS = [(r, c0) for r in COLS_ROBOTS for c0 in (0, 1, 4)
+          if c0 < get_setup(r)[0].n]
+
+
+@pytest.mark.parametrize("as_rows", [False, True])
+@pytest.mark.parametrize("rname,c0", BLOCKS)
+def test_rnea_grad_cols_bl(rname, c0, as_rows):
+    """Ragged column blocks (width 3, the last one cut at n), both sides,
+    stacked or as the row list whose ``None`` rows the staged finish
+    skips."""
+    w = min(3, _tmodel(rname).n - c0)
+    _, qd, _ = _inputs(rname)
+    v, a, _ = (Tl(x) for x in _ref(rname, "fwd"))
+    _, fb = _ref(rname, "grad_inner")
+    got = tb.rnea_grad_cols_bl(_tmodel(rname), Tl(_ref(rname, "X")), T(qd),
+                               v, a, Tl(fb), c0=c0, cb=w, as_rows=as_rows)
+    ref = _cols_ref(rname, c0, w)
+    for side in ("q", "qd"):
+        if not as_rows:
+            assert_close(got[side], np.stack(
+                [np.zeros((w, B)) if r is None else r for r in ref[side]]))
+            continue
+        for g_, r_ in zip(got[side], ref[side]):
+            assert (g_ is None) == (r_ is None)
+            if r_ is not None:
+                assert_close(g_, r_)
 
 
 # ------------------------------------------------------------- primitives

@@ -17,6 +17,7 @@ import gridcodegenerator_tpu_torch as gt
 from conftest import ROBOTS, get_setup, random_state
 from gridcodegenerator_tpu.ops.kernels import fused as jf
 from gridcodegenerator_tpu_torch.ops.kernels import fused as tf
+from gridcodegenerator_tpu_torch.ops.kernels import staged as ts
 
 torch.set_num_threads(1)
 
@@ -36,7 +37,7 @@ def assert_close(got, ref):
 def _case(name):
     desc, _, jm = get_setup(name)
     q, qd, u = (x.T.copy() for x in random_state(desc.n, seed=71, batch=(B,)))
-    tm = gt.load_robot(ROBOTS[name], dtype=torch.float64)
+    tm = gt.load_robot(ROBOTS[name], dtype=torch.float64, device="cpu")
     return jm, tm, q, qd, u
 
 
@@ -94,14 +95,47 @@ def _meta_call(wrapper, tm):
     CUDA device: it must raise, not run the plain version."""
     n = tm.n
     st = torch.empty((n, 3), dtype=torch.float64, device="meta")
-    args = {"minv": (st,), "fd_grad": (st, st, st)}.get(wrapper, (st, st))
-    getattr(tf, f"{wrapper}_fused")(tm, *args)
+    vaf = torch.empty((6, n, 3), dtype=torch.float64, device="meta")
+    M = torch.empty((n, n, 3), dtype=torch.float64, device="meta")
+    calls = {
+        "minv": lambda: tf.minv_fused(tm, st),
+        "fd_grad": lambda: tf.fd_grad_fused(tm, st, st, st),
+        "id_grad": lambda: tf.id_grad_fused(tm, st, st),
+        "inverse_dynamics": lambda: tf.inverse_dynamics_fused(tm, st, st),
+        "aba": lambda: tf.forward_dynamics_aba_fused(tm, st, st, st),
+        "bias_and_v": lambda: ts.bias_and_v_staged(tm, st, st),
+        "minv_dense": lambda: ts.minv_qdd_dense_staged(tm, st, st),
+        "af": lambda: ts.af_staged(tm, st, st, st, vaf),
+        "vaf": lambda: ts.vaf_staged(tm, st, st, st),
+        "grad_cols": lambda: ts.grad_cols_staged(tm, st, st, vaf, vaf, vaf),
+        "grad_cols_finish": lambda: ts.grad_cols_staged(
+            tm, st, st, vaf, vaf, vaf, Minv=M),
+        "id_grad_staged": lambda: ts.id_grad_staged(tm, st, st, st),
+        "fd_grad_staged": lambda: ts.fd_grad_staged(tm, st, st, st),
+    }
+    calls[wrapper]()
 
 
+# every wrapper of both modules
 @pytest.mark.parametrize("wrapper",
-                         ["inverse_dynamics", "minv", "id_grad", "fd_grad"])
+                         ["inverse_dynamics", "minv", "id_grad", "fd_grad",
+                          "aba", "bias_and_v", "minv_dense", "af", "vaf",
+                          "grad_cols", "grad_cols_finish", "id_grad_staged",
+                          "fd_grad_staged"])
 def test_no_fallback_off_cpu(wrapper):
-    tm = gt.load_robot(ROBOTS["dpend"], dtype=torch.float64)
+    tm = gt.load_robot(ROBOTS["dpend"], dtype=torch.float64, device="cpu")
+    before = dict(tf.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        _meta_call(wrapper, tm)
+    assert tf.LAUNCHES == before
+
+
+@pytest.mark.parametrize("wrapper", ["minv", "id_grad", "fd_grad", "aba",
+                                     "inverse_dynamics"])
+def test_no_fallback_off_cpu_atlas(wrapper):
+    """On Atlas the ∇FD, ∂ID and M⁻¹ wrappers route to the staged ones
+    first; neither route falls back to a plain version."""
+    tm = gt.load_robot(ROBOTS["atlas"], dtype=torch.float64, device="cpu")
     before = dict(tf.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         _meta_call(wrapper, tm)
@@ -113,13 +147,15 @@ def test_cpu_runs_plain_without_launch():
     before = dict(tf.LAUNCHES)
     tf.fd_grad_fused(tm, *_t(q, qd, u))
     tf.minv_fused(tm, torch.from_numpy(q))
+    tf.forward_dynamics_aba_fused(tm, *_t(q, qd, u))
+    ts.fd_grad_staged(tm, *_t(q, qd, u))
     assert tf.LAUNCHES == before
 
 
 @pytest.mark.parametrize("fn", ["forward_dynamics_gradient",
                                 "inverse_dynamics_gradient",
                                 "inverse_dynamics", "bias_force",
-                                "direct_minv"])
+                                "direct_minv", "forward_dynamics"])
 def test_impl_cuda_on_cpu_raises(fn):
     _, tm, q, qd, u = _case("dpend")
     states = {"direct_minv": (q.T,), "bias_force": (q.T, qd.T)}.get(

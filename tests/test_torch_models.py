@@ -56,7 +56,7 @@ def test_parse_urdf_identical(name):
 @pytest.mark.parametrize("name", SLICE_ROBOTS)
 def test_robot_model_constants_identical(name):
     _, _, jm = get_setup(name)  # JAX model, float64
-    tm = gt.load_robot(ROBOTS[name], dtype=torch.float64)
+    tm = gt.load_robot(ROBOTS[name], dtype=torch.float64, device="cpu")
     assert tm.n == jm.n
     assert tm.topology.parents == jm.topology.parents
     assert tm.joint_types == jm.joint_types
@@ -68,13 +68,15 @@ def test_robot_model_constants_identical(name):
                                   np.asarray(jm.prismatic))
 
 
-@pytest.mark.parametrize("name", SLICE_ROBOTS)
+@pytest.mark.parametrize("name", SLICE_ROBOTS + ["atlas"])
 def test_from_jax_arrays_matches_load_robot(name):
+    """The JAX model's leaves carry across: on Atlas (a 28-joint forest)
+    as on the small robots."""
     _, _, jm = get_setup(name)
     arrays = {f: np.asarray(getattr(jm, f)) for f in MODEL_FIELDS}
     conv = gt.from_jax_arrays(arrays, jm.topology.parents, jm.joint_types,
-                              jm.name)
-    own = gt.load_robot(ROBOTS[name], dtype=torch.float64)
+                              jm.name, device="cpu")
+    own = gt.load_robot(ROBOTS[name], dtype=torch.float64, device="cpu")
     assert conv.dtype == torch.float64
     assert conv.topology.parents == own.topology.parents
     assert conv.joint_types == own.joint_types
@@ -83,7 +85,7 @@ def test_from_jax_arrays_matches_load_robot(name):
 
 
 def test_model_to_and_packed_layout():
-    m = gt.load_robot(ROBOTS["barm"], dtype=torch.float64)
+    m = gt.load_robot(ROBOTS["barm"], dtype=torch.float64, device="cpu")
     m32 = m.to(dtype=torch.float32)
     assert m32.dtype == torch.float32 and m.dtype == torch.float64
     assert m32.prismatic.dtype == torch.bool
@@ -95,6 +97,30 @@ def test_model_to_and_packed_layout():
     for f, off in offsets.items():
         t = getattr(m, f).reshape(-1)
         assert torch.equal(m.packed[off:off + t.numel()], t), f
+
+
+@pytest.mark.parametrize("build", ["load_robot", "from_description",
+                                   "from_jax_arrays"])
+def test_default_device_is_the_card(build):
+    """Models are built on the card unless the caller names the CPU: on a
+    host without CUDA the default raises instead of returning a CPU
+    model (and on a host with one it builds there)."""
+    urdf = ROBOTS["iiwa14"]
+    _, _, jm = get_setup("iiwa14")
+    calls = {
+        "load_robot": lambda **kw: gt.load_robot(urdf, **kw),
+        "from_description": lambda **kw: gt.robot_model_from_description(
+            gt.parse_urdf(urdf), **kw),
+        "from_jax_arrays": lambda **kw: gt.from_jax_arrays(
+            {f: np.asarray(getattr(jm, f)) for f in MODEL_FIELDS},
+            jm.topology.parents, jm.joint_types, jm.name, **kw),
+    }
+    if torch.cuda.is_available():
+        assert calls[build]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            calls[build]()
+    assert calls[build](device="cpu").device.type == "cpu"
 
 
 def test_accurate_trig_not_ported():
