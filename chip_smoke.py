@@ -8,8 +8,8 @@ kernels/csrc`` and runs, on ``cuda:0``:
 
 0. a toolchain probe: the card's name and power limit, torch and its CUDA,
    nvcc, whether triton imports; then the kernel builds of iiwa-14, the
-   branched arm and Atlas, all at once (nvcc seconds and ptxas's register /
-   stack frame / spill report per kernel);
+   branched arm, Atlas, HyQ and a 16-joint tree, all at once (nvcc
+   seconds and ptxas's register / stack frame / spill report per kernel);
 1. every kernel against its plain PyTorch version at B = 4096 and a ragged
    B = 1000, in float64 and float32: the single-kernel families on iiwa-14
    (a chain) and the branched arm (siblings under a moving parent); ABA on
@@ -32,7 +32,9 @@ A. path A, Atlas at B = 2¹⁸, float32: ``forward_dynamics_gradient``
    plain version at its path's shape, the API times, and a profiler
    breakdown of the Atlas ∇FD call; each kernel's bound (the larger of its
    operations over the card's float32 rate and its bytes over its memory
-   rate).
+   rate; operations as :class:`OpCount` counts them); ∇FD of HyQ (n = 12)
+   and a 16-joint tree on both routes, the single-thread kernel and the
+   staged pipeline, each held to its plain version first.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -55,7 +57,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import gridcodegenerator_tpu_torch as gt
 from gridcodegenerator_tpu_torch.models import zoo
-from gridcodegenerator_tpu_torch.ops.kernels import _build, fused, staged
+from gridcodegenerator_tpu_torch.ops.kernels import (_build, _launch, fused,
+                                                    staged)
 
 SEED = 0
 MAIN_B = 1 << 18
@@ -88,6 +91,11 @@ TPU = "gridcodegenerator_tpu/ops/kernels/"
 ROBOTS = {"iiwa14": zoo.iiwa14(), "branched_arm": zoo.branched_arm(),
           "atlas": zoo.atlas()}
 FORCED_CB = 4   # the branched arm (n = 9) through K5: blocks of 4, 4 and 1
+# robots at and under MAX_KERNEL_JOINTS whose ∇FD is timed on both routes:
+# a forest of four 3-joint legs, and a seeded 16-joint forest of three
+# trees, one a 10-joint chain (a 16-joint serial chain's M(q) is too
+# ill-conditioned for the float64 check's 1e-11)
+ROUTE_ROBOTS = {"hyq": zoo.hyq(), "tree16": zoo.random_tree(16, seed=0)}
 
 
 def log(*a):
@@ -200,7 +208,7 @@ def check_finite(name, outs):
 
 
 def expect_launch(key, before, name):
-    if fused.LAUNCHES[key] != before + 1:
+    if _launch.LAUNCHES[key] != before + 1:
         raise RuntimeError(f"{name}: kernel not launched")
 
 
@@ -310,12 +318,12 @@ def phase1_kernels_vs_plain(gen):
                 # past MAX_KERNEL_JOINTS, ∇FD, ∂ID and M⁻¹ are the staged
                 # kernels checked below; RNEA and ABA run on one thread
                 pairs = {k: v for k, v in PAIRS.items()
-                         if m.n <= fused.MAX_KERNEL_JOINTS
+                         if _build.dense_grads(m.n)
                          or k in ("inverse_dynamics", "bias_force")}
                 pairs["aba"] = ABA
                 for name, (key, kern, plain, k) in pairs.items():
                     args = (q, qd, u)[:k]
-                    before = fused.LAUNCHES[key]
+                    before = _launch.LAUNCHES[key]
                     got = kern(m, *args)
                     torch.cuda.synchronize()
                     expect_launch(key, before, name)
@@ -330,7 +338,7 @@ def phase1_kernels_vs_plain(gen):
                 x = up(m, q, qd, u)
                 for name, (key, kern, plain, inputs) in spairs.items():
                     args = inputs((q, qd, u), x)
-                    before = fused.LAUNCHES[key]
+                    before = _launch.LAUNCHES[key]
                     got = kern(m, *args)
                     torch.cuda.synchronize()
                     expect_launch(key, before, name)
@@ -385,7 +393,7 @@ def phase2_main_path(gen):
                                         device="cuda")
     n = m.n
     q, qd, u = uniform_states(n, MAIN_B, torch.float32, gen, layout="Bn")
-    fused.reset_launches()
+    _launch.reset_launches()
     t0 = time.perf_counter()
     J = gt.forward_dynamics_gradient(m, q, qd, u)
     c = gt.inverse_dynamics(m, q, qd, u)
@@ -393,7 +401,7 @@ def phase2_main_path(gen):
     Minv = gt.direct_minv(m, q)
     G = gt.inverse_dynamics_gradient(m, q, qd, u)
     torch.cuda.synchronize()
-    launches = dict(fused.LAUNCHES)
+    launches = dict(_launch.LAUNCHES)
     log(f"phase2 main path B={MAIN_B} (five API calls, first run): "
         f"{time.perf_counter() - t0:.3f} s; launches {launches}")
     for name in ("fd_grad", "id_grad", "minv", "inverse_dynamics"):
@@ -413,10 +421,10 @@ def phase2_main_path(gen):
     max_abs = api_vs_plain("phase2", outs, plains, m, (q, qd, u))
 
     # path B: forward_dynamics (ABA) on iiwa-14
-    fused.reset_launches()
+    _launch.reset_launches()
     qdd = gt.forward_dynamics(m, q, qd, u)
     torch.cuda.synchronize()
-    b_launches = dict(fused.LAUNCHES)
+    b_launches = dict(_launch.LAUNCHES)
     log(f"phase2 path B forward_dynamics B={MAIN_B}: launches {b_launches}")
     if b_launches["aba"] < 1:
         raise RuntimeError("path B never launched aba")
@@ -434,7 +442,7 @@ def phaseA_atlas(gen):
                                         device="cuda")
     n = m.n
     q, qd, u = uniform_states(n, MAIN_B, torch.float32, gen, layout="Bn")
-    fused.reset_launches()
+    _launch.reset_launches()
     t0 = time.perf_counter()
     outs = {
         "fd_grad": gt.forward_dynamics_gradient(m, q, qd, u),
@@ -445,7 +453,7 @@ def phaseA_atlas(gen):
         "aba": gt.forward_dynamics(m, q, qd, u),
     }
     torch.cuda.synchronize()
-    launches = dict(fused.LAUNCHES)
+    launches = dict(_launch.LAUNCHES)
     log(f"phaseA Atlas (n={n}) path B={MAIN_B} (six API calls, first run): "
         f"{time.perf_counter() - t0:.3f} s; launches {launches}; peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
@@ -526,29 +534,55 @@ def time_plain_ms(fn, args):
 
 
 class OpCount(TorchDispatchMode):
-    """Counts the arithmetic of a plain version: one operation per output
-    element of every elementwise add, sub, mul, div, neg, reciprocal, sqrt,
-    sin and cos (an FMA is two). The kernels run the same sums in the same
-    order, so this is their operation count, up to the plain version's mask
-    products (a small overcount) and sin/cos counted as one each."""
+    """Counts the arithmetic a plain version's function needs, element by
+    element of each output. An add, sub, mul or div counts only where every
+    operand is neither 0 nor (for a factor or divisor) ±1: a term that is a
+    structural zero — of the robot's constants, of a ∂-column outside a
+    joint's root path, the 0 Python's ``sum`` starts from, or a 0/1 mask
+    and the blends made with it — is one a code specialised on the topology
+    skips. sqrt, reciprocal, sin and cos count every element; a negation is
+    free (a sign flip folds into the operation that uses it), and so are
+    copies, selects and stacks. An FMA is two."""
 
-    _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal",
-              "sqrt", "sin", "cos"}
+    _BINARY = {"add", "sub", "rsub", "mul", "div"}
+    _UNARY = {"reciprocal", "sqrt", "sin", "cos"}
 
     def __init__(self):
         super().__init__()
         self.ops = 0
 
+    @staticmethod
+    def _live(x, unit):
+        """Where ``x`` is a real term: nonzero, and not ±1 if ``unit``."""
+        live = x != 0
+        if unit:
+            live = live & (x != 1) & (x != -1)
+        return live if isinstance(live, torch.Tensor) else torch.tensor(live)
+
+    def _needed(self, name, args):
+        a, b = args[0], args[1]
+        if name == "div":          # a / b: free where a = 0 or b = ±1
+            terms = [self._live(a, False), self._live(b, True)]
+        elif name == "mul":        # free where a factor is 0 or ±1
+            terms = [self._live(a, True), self._live(b, True)]
+        else:                      # a ± b: free where either is 0
+            terms = [self._live(a, False), self._live(b, False)]
+        shape = torch.broadcast_shapes(*(t.shape for t in terms))
+        return int((terms[0] & terms[1]).expand(shape).sum())
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in self._BINARY:
+            self.ops += self._needed(name, args)   # before an in-place op
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__.rstrip("_") in self._ARITH:
+        if name in self._UNARY:
             self.ops += out.numel()
         return out
 
 
 def ops_per_state(plain, m, make_args):
     """Operations a state: the count at B = 2 less the count at B = 1 (the
-    constant-only work drops out), on CPU tensors."""
+    constant-only work drops out), on CPU tensors of random states."""
     mc = m.to(device="cpu", dtype=torch.float64)
     counts = []
     for B in (1, 2):
@@ -571,9 +605,12 @@ def bound(ops, bytes_):
 
 
 def _cpu_states(k, extra=None):
-    """make_args for ops_per_state: k zero (n, B) states [+ staged ones]."""
+    """make_args for ops_per_state: k random (n, B) states in bench.py's
+    ranges, from SEED [+ the staged inputs built from them]."""
     def make(mc, B):
-        st = [torch.zeros((mc.n, B), dtype=torch.float64) for _ in range(k)]
+        gen = torch.Generator().manual_seed(SEED)
+        st = [(torch.rand((mc.n, B), generator=gen, dtype=torch.float64)
+               * 2 - 1) * r for r in (2.0, 1.0, 8.0)[:k]]
         return st if extra is None else extra(mc, B, st)
     return make
 
@@ -688,6 +725,35 @@ def phase3_times(m, mA, atlas_states, gen):
     return times
 
 
+def phase3_routes(gen):
+    """∇FD of robots at and under MAX_KERNEL_JOINTS on both routes — the
+    single-thread kernel and the staged pipeline — each held to its plain
+    version, then timed single, staged, staged, single: where the routes
+    cross over."""
+    name_limit = card()
+    for label, urdf in ROUTE_ROBOTS.items():
+        m = gt.load_robot(urdf, dtype=torch.float32, device="cuda")
+        q, qd, u = uniform_states(m.n, MAIN_B, torch.float32, gen)
+        # checked in float64: the float32 rule's plain error is itself
+        # conditioning at these depths
+        m64 = m.to(dtype=torch.float64)
+        s = [x[:, :COMPARE_STATES].double().contiguous() for x in (q, qd, u)]
+        routes = {"single": (fused.fd_grad_fused, fused.fd_grad_plain),
+                  "staged": (staged.fd_grad_staged, staged.fd_grad_plain)}
+        for route, (kern, plain) in routes.items():
+            check_against_plain(
+                f"phase3 routes {label} (n={m.n}) {route} ∇FD f64 "
+                f"({COMPARE_STATES} states)", kern(m64, *s), plain, m64, s)
+        ms = {r: [] for r in routes}
+        for r in ("single", "staged", "staged", "single"):
+            ms[r].append(time_ms(routes[r][0], (m, q, qd, u)))
+        log(f"phase3 routes {label} (n={m.n}, K5 cb "
+            f"{_build.default_col_block(m.n)}) ∇FD f32 B={MAIN_B}: "
+            + "; ".join(f"{r} {a:.3f}/{b:.3f} ms" for r, (a, b) in ms.items())
+            + f"; card {name_limit}")
+        del q, qd, u
+
+
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
 RECORD = [
     ("fd_grad", "fd_grad", "iiwa14", FUSED_SRC, TPU + "fused.py:394"),
@@ -716,7 +782,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase0_toolchain()
     build_all({label: gt.load_robot(u, device="cuda")
-               for label, u in ROBOTS.items()})
+               for label, u in {**ROBOTS, **ROUTE_ROBOTS}.items()})
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     phase1_kernels_vs_plain(gen)
@@ -725,6 +791,7 @@ def main():
         phaseA_atlas(gen)
     max_abs.update(a_max_abs)
     times = phase3_times(m, mA, atlas_states, gen)
+    phase3_routes(gen)
     path_launches = {"iiwa14": launches, "atlas": a_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -235,19 +235,18 @@ def minv_bl(model: RobotModel, X):
             UDU = Ui[:, None] * (Di[:, None] * Ui[None])
             Ia = IA[i] - UDU
             IA[p] = IA[p] + matmat6_T(X[i], matmat6(Ia, X[i]))
-    # serial forward sweep over the columns j ≥ i
-    iota = torch.arange(n, device=like.device)[:, None]
+    # serial forward sweep over the columns j ≥ i (the rest stay as they are)
     for i in range(n):
         p = parents[i]
-        geq = (iota >= i).to(like.dtype)                         # (n,1)
         if p >= 0:
             UX = matvec6_T(X[i], U[i])                           # Uᵀ·X (6,B)
-            corr = sum(UX[c:c + 1] * F[p][c] for c in range(6))  # (n,B)
-            rows[i] = rows[i] - geq * (Dinv[i] * corr)
-        new_cols = torch.stack([Sb[i][r:r + 1] * rows[i] for r in range(6)])
+            corr = sum(UX[c:c + 1] * F[p][c, i:] for c in range(6))
+            rows[i] = torch.cat([rows[i][:i], rows[i][i:] - Dinv[i] * corr])
+        new_cols = torch.stack([Sb[i][r:r + 1] * rows[i][i:]
+                                for r in range(6)])              # (6,n-i,B)
         if p >= 0:
-            new_cols = new_cols + matmat6(X[i], F[p])
-        F[i] = geq[None] * new_cols + (1 - geq)[None] * F[i]
+            new_cols = new_cols + matmat6(X[i], F[p][:, i:])
+        F[i] = torch.cat([F[i][:, :i], new_cols], dim=1)
     return rows, U, Dinv
 
 
@@ -461,10 +460,8 @@ def rnea_grad_cols_bl(model: RobotModel, X, qd, v, a, f, gravity=-9.81,
         return torch.zeros((6, cb, B), dtype=dtype, device=device)
 
     def sow(D, i, vec):
-        """Add vec (6,B) into the column of D holding direction i; nothing
-        when i lies outside the block."""
-        if not (c0 <= i < c0 + cb):
-            return D
+        """Add vec (6,B) into the column of D holding direction i, a joint
+        of the block."""
         return D + (gcol == i).to(dtype) * vec[:, None]
 
     in_subtree = [False] * n
@@ -481,26 +478,32 @@ def rnea_grad_cols_bl(model: RobotModel, X, qd, v, a, f, gravity=-9.81,
             p = parents[i]
             if not in_subtree[i]:
                 continue
+            # the seeds enter only at a joint of the block
+            in_block = c0 <= i < c0 + cb
             d = zeros_cols() if (p < 0 or dv[p] is None) \
                 else matmat6(X[i], dv[p])
-            if is_q:
-                Xv = matvec6(X[i], v[p]) if p >= 0 \
-                    else torch.zeros((6, B), dtype=dtype, device=device)
-                seed = -crm_apply_bl(S_bl[i], Xv)
-            else:
-                seed = S_bl[i].expand(6, B)
-            dv[i] = sow(d, i, seed)
+            if in_block:
+                if is_q:
+                    Xv = matvec6(X[i], v[p]) if p >= 0 \
+                        else torch.zeros((6, B), dtype=dtype, device=device)
+                    seed = -crm_apply_bl(S_bl[i], Xv)
+                else:
+                    seed = S_bl[i].expand(6, B)
+                d = sow(d, i, seed)
+            dv[i] = d
 
             d2 = zeros_cols() if (p < 0 or da[p] is None) \
                 else matmat6(X[i], da[p])
             d2 = d2 - qd[i:i + 1][:, None] * crm_cols_left(S_bl[i], dv[i])
-            if is_q:
-                Xa = matvec6(X[i], a[p]) if p >= 0 \
-                    else X[i][:, 5] * (-gravity)
-                seed2 = -crm_apply_bl(S_bl[i], Xa)
-            else:
-                seed2 = -crm_apply_bl(S_bl[i], v[i])
-            da[i] = sow(d2, i, seed2)
+            if in_block:
+                if is_q:
+                    Xa = matvec6(X[i], a[p]) if p >= 0 \
+                        else X[i][:, 5] * (-gravity)
+                    seed2 = -crm_apply_bl(S_bl[i], Xa)
+                else:
+                    seed2 = -crm_apply_bl(S_bl[i], v[i])
+                d2 = sow(d2, i, seed2)
+            da[i] = d2
 
             Iv = matvec6(Ib[i], v[i])
             Idv = matmat6(Ib[i], dv[i])

@@ -36,10 +36,13 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # kernels (staged.cu) hold 18·n·cb + O(n) values. So past this joint count
 # those three families take the staged route; RNEA and ABA, O(n) a state,
 # run on one thread for every robot. The limit is this card's per-thread
-# budget, not the JAX package's VMEM calibration (staged.py:39-62).
+# budget, not the JAX package's VMEM calibration (staged.py:39-62); where
+# the two routes' times cross is what chip_smoke.py's routes phase times
+# (∇FD of HyQ, n = 12, and a seeded 16-joint tree on both).
 MAX_KERNEL_JOINTS = 16
 # Values of the K5 ∂-tensor arrays (dv, da, df: 18·n·cb) a thread may hold;
-# sets the default column-block width (default_col_block).
+# sets the default column-block width (default_col_block). Chosen from the
+# ptxas frame (no spills), not from a timing of other widths.
 _K5_VALUES = 2048
 
 _P = ctypes.c_void_p
@@ -74,11 +77,11 @@ _UNITS = {
                            ctypes.c_int, _D, _P),
     },
 }
-_DENSE_ONLY = ("grid_fd_grad", "grid_id_grad", "grid_minv")
 
 
 def dense_grads(n: int) -> bool:
-    """Whether the single-thread ∇FD, ∂ID and M⁻¹ kernels are built."""
+    """Whether ∇FD, ∂ID and M⁻¹ run as single-thread kernels (else as the
+    staged pipeline) — the one place the routing and the build decide it."""
     return n <= MAX_KERNEL_JOINTS
 
 
@@ -106,9 +109,7 @@ class KernelLibrary:
                 fn = getattr(self.libs[unit], f"{name}_{dtype_tag}", None)
                 if fn is None:
                     raise NotImplementedError(
-                        f"{name} is not built for this robot (the "
-                        "single-thread gradient kernels take at most "
-                        f"{MAX_KERNEL_JOINTS} joints)")
+                        f"{name} is not in this robot's kernel library")
                 return fn
         raise KeyError(name)
 
@@ -192,14 +193,15 @@ def _compile(key: tuple, outs: dict) -> tuple[dict, dict]:
 
 
 def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
+    """Load a library and bind the entries it exports (one built past
+    ``MAX_KERNEL_JOINTS`` has no single-thread gradient entries)."""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _UNITS[unit].items():
-        if name in _DENSE_ONLY and not dense_grads(n):
-            continue
         for tag in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{tag}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"{name}_{tag}", None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
     lib.grid_num_joints.argtypes = ()
     lib.grid_num_joints.restype = ctypes.c_int
     lib.grid_error_string.argtypes = (ctypes.c_int,)

@@ -1,0 +1,73 @@
+"""Launch bookkeeping shared by the kernel wrappers (:mod:`.fused`,
+:mod:`.staged`): input checks, output allocation, the ctypes launch and the
+per-kernel ``LAUNCHES`` counters. A counter rises only on a successful
+launch, never on a CPU tensor's plain version."""
+
+from __future__ import annotations
+
+import torch
+
+from ...models.robot import RobotModel
+from . import _build
+
+LAUNCHES = {
+    # csrc/fused.cu: the single-kernel families
+    "inverse_dynamics": 0, "minv": 0, "id_grad": 0, "fd_grad": 0, "aba": 0,
+    # csrc/staged.cu: the staged pipeline
+    "bias_and_v": 0, "minv_dense": 0, "af": 0, "vaf": 0, "grad_cols": 0,
+    "grad_cols_finish": 0,
+}
+
+_DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(x) -> bool:
+    return x.device.type == "cpu"
+
+
+def check(model: RobotModel, states) -> int:
+    """Validate (n, B) states for a kernel launch; returns B."""
+    ref = states[0]
+    if ref.device.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {ref.device}")
+    if ref.dtype not in _DTYPE_TAGS:
+        raise TypeError(f"kernels take float32 or float64, got {ref.dtype}")
+    if model.device != ref.device or model.dtype != ref.dtype:
+        raise ValueError(
+            f"model is on {model.device} in {model.dtype}, states on "
+            f"{ref.device} in {ref.dtype}: move it with model.to(...)")
+    shape = (model.n, ref.shape[-1]) if ref.dim() == 2 else None
+    for s in states:
+        if s.device != ref.device or s.dtype != ref.dtype:
+            raise ValueError("states must share one device and dtype")
+        if tuple(s.shape) != shape:
+            raise ValueError(f"states must be (n={model.n}, B), got "
+                             f"{tuple(s.shape)}")
+        if not s.is_contiguous():
+            raise ValueError("states must be contiguous")
+    return shape[1]
+
+
+def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
+           *scalars) -> None:
+    """Call ``entry`` of the model's kernel library on the current stream
+    and count the launch under ``name``."""
+    lib = _build.library(model)
+    device = model.device
+    fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(model.packed.data_ptr(), *ptrs, B, *scalars, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: {lib.error_string(rc)} "
+                           f"({rc})")
+    LAUNCHES[name] += 1
+
+
+def empty(model, *shape):
+    return torch.empty(shape, dtype=model.dtype, device=model.device)

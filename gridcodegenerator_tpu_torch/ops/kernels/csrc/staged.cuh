@@ -257,9 +257,10 @@ GRID_ROLLED
     const T* I = R.I + 36 * i;
     const bool has_p = p >= 0 && in_sub[p];
     const int ki = i - c0;  // direction i's column; in the block if < w
+    const bool in_block = ki >= 0 && ki < w;  // the seeds enter only there
     // ---- ∂v_i = X_i·∂v_p, + seed into column i
     T seed[6];
-    if (kQ) {
+    if (in_block && kQ) {
       T Xv[6];
       if (p >= 0) {
         matvec6(X[i], v[p], Xv);
@@ -271,7 +272,7 @@ GRID_ROLLED
       crm_apply(S, Xv, t);
 #pragma unroll
       for (int r = 0; r < 6; ++r) seed[r] = -t[r];
-    } else {
+    } else if (in_block) {
 #pragma unroll
       for (int r = 0; r < 6; ++r) seed[r] = S[r];
     }
@@ -290,7 +291,7 @@ GRID_ROLLED
       }
     // ---- ∂a_i = X_i·∂a_p − q̇_i·(S×∂v_i), + seed into column i
     T seed2[6];
-    {
+    if (in_block) {
       T base[6], t[6];
       if (kQ) {
         if (p >= 0) {

@@ -9,13 +9,11 @@ the same batch-last (n, B) signatures. Each wrapper
   built for the robot's topology at first use by :mod:`._build`), or raises.
   There is no fallback from the kernel to the plain version.
 
-Past ``MAX_KERNEL_JOINTS`` joints, ∇FD, ∂ID and M⁻¹ route to the staged
-pipeline (:mod:`.staged`) on the CPU and on the card alike, as the JAX
-wrappers do (fused.py:294, :421, :454); RNEA and ABA are O(n) a state and
-run on one thread for every robot.
-
-``LAUNCHES`` counts the kernel launches of each wrapper, here and in
-:mod:`.staged`; only a successful launch adds to it.
+Where ``_build.dense_grads(n)`` is false (past ``MAX_KERNEL_JOINTS``
+joints), ∇FD, ∂ID and M⁻¹ route to the staged pipeline (:mod:`.staged`) on
+the CPU and on the card alike, as the JAX wrappers do (fused.py:294, :421,
+:454); RNEA and ABA are O(n) a state and run on one thread for every robot.
+Launches are counted in :mod:`._launch`.
 """
 
 from __future__ import annotations
@@ -25,23 +23,9 @@ import torch
 from ...models.robot import RobotModel
 from .. import blops
 from ..aba import aba_bl
-from . import _build
-from ._build import MAX_KERNEL_JOINTS
-
-LAUNCHES = {
-    # this module's kernels (csrc/fused.cu)
-    "inverse_dynamics": 0, "minv": 0, "id_grad": 0, "fd_grad": 0, "aba": 0,
-    # the staged pipeline's (csrc/staged.cu, launched from staged.py)
-    "bias_and_v": 0, "minv_dense": 0, "af": 0, "vaf": 0, "grad_cols": 0,
-    "grad_cols_finish": 0,
-}
-
-_DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+from . import staged
+from ._build import dense_grads
+from ._launch import check, empty, launch, on_cpu
 
 
 # --------------------------------------------------------------------------
@@ -79,88 +63,35 @@ def forward_dynamics_aba_plain(model: RobotModel, q, qd, u, gravity=-9.81):
 
 
 # --------------------------------------------------------------------------
-# kernel launch
-# --------------------------------------------------------------------------
-def _on_cpu(x) -> bool:
-    return x.device.type == "cpu"
-
-
-def _check(model: RobotModel, states) -> int:
-    """Validate (n, B) states for a kernel launch; returns B."""
-    ref = states[0]
-    if ref.device.type != "cuda":
-        raise ValueError(f"kernel launch needs CUDA tensors, got {ref.device}")
-    if ref.dtype not in _DTYPE_TAGS:
-        raise TypeError(f"kernels take float32 or float64, got {ref.dtype}")
-    if model.device != ref.device or model.dtype != ref.dtype:
-        raise ValueError(
-            f"model is on {model.device} in {model.dtype}, states on "
-            f"{ref.device} in {ref.dtype}: move it with model.to(...)")
-    shape = (model.n, ref.shape[-1]) if ref.dim() == 2 else None
-    for s in states:
-        if s.device != ref.device or s.dtype != ref.dtype:
-            raise ValueError("states must share one device and dtype")
-        if tuple(s.shape) != shape:
-            raise ValueError(f"states must be (n={model.n}, B), got "
-                             f"{tuple(s.shape)}")
-        if not s.is_contiguous():
-            raise ValueError("states must be contiguous")
-    return shape[1]
-
-
-def _launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
-            *scalars) -> None:
-    lib = _build.library(model)
-    device = model.device
-    fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(model.packed.data_ptr(), *ptrs, B, *scalars, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: {lib.error_string(rc)} "
-                           f"({rc})")
-    LAUNCHES[name] += 1
-
-
-def _empty(model, *shape):
-    return torch.empty(shape, dtype=model.dtype, device=model.device)
-
-
-# --------------------------------------------------------------------------
 # public wrappers (batch-last signatures: states are (n, B))
 # --------------------------------------------------------------------------
 def inverse_dynamics_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
     """RNEA: q, q̇[, q̈] (n,B) → c (n,B); ``qdd=None`` is the bias force."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return inverse_dynamics_plain(model, q, qd, qdd, gravity)
     states = [q, qd] if qdd is None else [q, qd, qdd]
-    B = _check(model, states)
-    c = _empty(model, model.n, B)
+    B = check(model, states)
+    c = empty(model, model.n, B)
     if B:
-        _launch("inverse_dynamics", "grid_rnea", model,
+        launch("inverse_dynamics", "grid_rnea", model,
                 (q.data_ptr(), qd.data_ptr(),
                  None if qdd is None else qdd.data_ptr(), c.data_ptr()),
                 B, float(gravity))
     return c
 
 
-def _staged():
-    from . import staged      # staged imports this module's launch helpers
-    return staged
-
-
 def minv_fused(model: RobotModel, q):
     """Analytic M⁻¹: q (n,B) → dense symmetric (n,n,B); past
     ``MAX_KERNEL_JOINTS`` joints, the staged K2′ (CRBA + Cholesky)."""
-    if model.n > MAX_KERNEL_JOINTS:
-        (M,) = _staged().minv_qdd_dense_staged(model, q)
+    if not dense_grads(model.n):
+        (M,) = staged.minv_qdd_dense_staged(model, q)
         return M
-    if _on_cpu(q):
+    if on_cpu(q):
         return minv_plain(model, q)
-    B = _check(model, [q])
-    M = _empty(model, model.n, model.n, B)
+    B = check(model, [q])
+    M = empty(model, model.n, model.n, B)
     if B:
-        _launch("minv", "grid_minv", model, (q.data_ptr(), M.data_ptr()), B)
+        launch("minv", "grid_minv", model, (q.data_ptr(), M.data_ptr()), B)
     return M
 
 
@@ -169,15 +100,15 @@ def id_grad_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
     ``MAX_KERNEL_JOINTS`` joints, the staged vaf + K5 column blocks."""
     if qdd is None:
         qdd = torch.zeros_like(q)  # S·0 adds nothing: the same as no q̈ term
-    if model.n > MAX_KERNEL_JOINTS:
-        return _staged().id_grad_staged(model, q, qd, qdd, gravity)
-    if _on_cpu(q):
+    if not dense_grads(model.n):
+        return staged.id_grad_staged(model, q, qd, qdd, gravity)
+    if on_cpu(q):
         return id_grad_plain(model, q, qd, qdd, gravity)
-    B = _check(model, [q, qd, qdd])
-    dq = _empty(model, model.n, model.n, B)
-    dqd = _empty(model, model.n, model.n, B)
+    B = check(model, [q, qd, qdd])
+    dq = empty(model, model.n, model.n, B)
+    dqd = empty(model, model.n, model.n, B)
     if B:
-        _launch("id_grad", "grid_id_grad", model,
+        launch("id_grad", "grid_id_grad", model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), dq.data_ptr(),
                  dqd.data_ptr()), B, float(gravity))
     return dq, dqd
@@ -188,15 +119,15 @@ def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81):
     → ∂ID → −M⁻¹·∂c in one launch. Returns (∂q̈/∂q, ∂q̈/∂q̇), each (n,n,B).
     Past ``MAX_KERNEL_JOINTS`` joints, the staged pipeline (K1, K2′, K4,
     K5 with the fused finish: four launches)."""
-    if model.n > MAX_KERNEL_JOINTS:
-        return _staged().fd_grad_staged(model, q, qd, u, gravity)
-    if _on_cpu(q):
+    if not dense_grads(model.n):
+        return staged.fd_grad_staged(model, q, qd, u, gravity)
+    if on_cpu(q):
         return fd_grad_plain(model, q, qd, u, gravity)
-    B = _check(model, [q, qd, u])
-    ddq = _empty(model, model.n, model.n, B)
-    ddqd = _empty(model, model.n, model.n, B)
+    B = check(model, [q, qd, u])
+    ddq = empty(model, model.n, model.n, B)
+    ddqd = empty(model, model.n, model.n, B)
     if B:
-        _launch("fd_grad", "grid_fd_grad", model,
+        launch("fd_grad", "grid_fd_grad", model,
                 (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
                  ddqd.data_ptr()), B, float(gravity))
     return ddq, ddqd
@@ -205,12 +136,12 @@ def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81):
 def forward_dynamics_aba_fused(model: RobotModel, q, qd, u, gravity=-9.81):
     """Forward dynamics by the articulated-body algorithm: q, q̇, u (n,B) →
     q̈ (n,B), O(n) a state — one thread per state for every robot."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return forward_dynamics_aba_plain(model, q, qd, u, gravity)
-    B = _check(model, [q, qd, u])
-    qdd = _empty(model, model.n, B)
+    B = check(model, [q, qd, u])
+    qdd = empty(model, model.n, B)
     if B:
-        _launch("aba", "grid_aba", model,
+        launch("aba", "grid_aba", model,
                 (q.data_ptr(), qd.data_ptr(), u.data_ptr(), qdd.data_ptr()),
                 B, float(gravity))
     return qdd

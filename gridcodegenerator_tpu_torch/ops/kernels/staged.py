@@ -31,7 +31,7 @@ from ...models.robot import RobotModel
 from .. import blops
 from . import _build
 from .contact_fused import _chol_factor_act, _chol_minv_sym
-from .fused import _check, _empty, _launch, _on_cpu
+from ._launch import check, empty, launch, on_cpu
 
 
 def _as_list(stacked, n):
@@ -149,12 +149,12 @@ def _check_staged(model, name, t, shape):
 
 def bias_and_v_staged(model: RobotModel, q, qd, gravity=-9.81):
     """K1: c (n, B) and v (6, n, B)."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return bias_and_v_plain(model, q, qd, gravity)
-    B = _check(model, [q, qd])
-    c, v = _empty(model, model.n, B), _empty(model, 6, model.n, B)
+    B = check(model, [q, qd])
+    c, v = empty(model, model.n, B), empty(model, 6, model.n, B)
     if B:
-        _launch("bias_and_v", "grid_bias_v", model,
+        launch("bias_and_v", "grid_bias_v", model,
                 (q.data_ptr(), qd.data_ptr(), c.data_ptr(), v.data_ptr()),
                 B, float(gravity))
     return c, v
@@ -163,27 +163,27 @@ def bias_and_v_staged(model: RobotModel, q, qd, gravity=-9.81):
 def minv_qdd_dense_staged(model: RobotModel, q, rhs=None):
     """K2′: (M⁻¹,) dense symmetric (n, n, B), or (M⁻¹, q̈ = M⁻¹·rhs) when a
     right-hand side (n, B) is given."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return minv_qdd_dense_plain(model, q, rhs)
-    B = _check(model, [q] + ([] if rhs is None else [rhs]))
+    B = check(model, [q] + ([] if rhs is None else [rhs]))
     n = model.n
-    Minv = _empty(model, n, n, B)
-    qdd = None if rhs is None else _empty(model, n, B)
+    Minv = empty(model, n, n, B)
+    qdd = None if rhs is None else empty(model, n, B)
     if B:
-        _launch("minv_dense", "grid_minv_dense", model,
+        launch("minv_dense", "grid_minv_dense", model,
                 (q.data_ptr(), _ptr(rhs), Minv.data_ptr(), _ptr(qdd)), B)
     return (Minv,) if rhs is None else (Minv, qdd)
 
 
 def af_staged(model: RobotModel, q, qd, qdd, v, gravity=-9.81):
     """K4: a, f (6, n, B) at the true q̈, v (6, n, B) reused."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return af_plain(model, q, qd, qdd, v, gravity)
-    B = _check(model, [q, qd, qdd])
+    B = check(model, [q, qd, qdd])
     _check_staged(model, "v", v, (6, model.n, B))
-    a, f = _empty(model, 6, model.n, B), _empty(model, 6, model.n, B)
+    a, f = empty(model, 6, model.n, B), empty(model, 6, model.n, B)
     if B:
-        _launch("af", "grid_af", model,
+        launch("af", "grid_af", model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, float(gravity))
     return a, f
@@ -191,12 +191,12 @@ def af_staged(model: RobotModel, q, qd, qdd, v, gravity=-9.81):
 
 def vaf_staged(model: RobotModel, q, qd, qdd, gravity=-9.81):
     """∂ID's sweep: v, a, f (6, n, B), f summed to the root."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return vaf_plain(model, q, qd, qdd, gravity)
-    B = _check(model, [q, qd, qdd])
-    v, a, f = (_empty(model, 6, model.n, B) for _ in range(3))
+    B = check(model, [q, qd, qdd])
+    v, a, f = (empty(model, 6, model.n, B) for _ in range(3))
     if B:
-        _launch("vaf", "grid_vaf", model,
+        launch("vaf", "grid_vaf", model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, float(gravity))
     return v, a, f
@@ -206,18 +206,18 @@ def grad_cols_staged(model: RobotModel, q, qd, v, a, f, gravity=-9.81,
                      cb=None, Minv=None):
     """K5: every column block of both sides in one launch — (∂c/∂q,
     ∂c/∂q̇), or with ``Minv`` (n, n, B) the fused −M⁻¹·∂c finish."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return grad_cols_plain(model, q, qd, v, a, f, gravity, cb, Minv)
-    B = _check(model, [q, qd])
+    B = check(model, [q, qd])
     n = model.n
     for name, t in (("v", v), ("a", a), ("f", f)):
         _check_staged(model, name, t, (6, n, B))
     if Minv is not None:
         _check_staged(model, "Minv", Minv, (n, n, B))
     cb = _col_block(model, cb)
-    dq, dqd = _empty(model, n, n, B), _empty(model, n, n, B)
+    dq, dqd = empty(model, n, n, B), empty(model, n, n, B)
     if B:
-        _launch("grad_cols" if Minv is None else "grad_cols_finish",
+        launch("grad_cols" if Minv is None else "grad_cols_finish",
                 "grid_grad_cols", model,
                 (q.data_ptr(), qd.data_ptr(), v.data_ptr(), a.data_ptr(),
                  f.data_ptr(), _ptr(Minv), dq.data_ptr(), dqd.data_ptr()),

@@ -164,7 +164,7 @@ def test_unported_options_raise():
 
 
 PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.kernels._build",
-                "ops.kernels.fused", "ops.kernels.staged",
+                "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
                 "ops.kernels.contact_fused", "models.robot", "utils.golden")
 
 

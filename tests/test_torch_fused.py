@@ -16,6 +16,7 @@ import torch
 import gridcodegenerator_tpu_torch as gt
 from conftest import ROBOTS, get_setup, random_state
 from gridcodegenerator_tpu.ops.kernels import fused as jf
+from gridcodegenerator_tpu_torch.ops.kernels import _launch
 from gridcodegenerator_tpu_torch.ops.kernels import fused as tf
 from gridcodegenerator_tpu_torch.ops.kernels import staged as ts
 
@@ -124,10 +125,10 @@ def _meta_call(wrapper, tm):
                           "fd_grad_staged"])
 def test_no_fallback_off_cpu(wrapper):
     tm = gt.load_robot(ROBOTS["dpend"], dtype=torch.float64, device="cpu")
-    before = dict(tf.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         _meta_call(wrapper, tm)
-    assert tf.LAUNCHES == before
+    assert _launch.LAUNCHES == before
 
 
 @pytest.mark.parametrize("wrapper", ["minv", "id_grad", "fd_grad", "aba",
@@ -136,20 +137,20 @@ def test_no_fallback_off_cpu_atlas(wrapper):
     """On Atlas the ∇FD, ∂ID and M⁻¹ wrappers route to the staged ones
     first; neither route falls back to a plain version."""
     tm = gt.load_robot(ROBOTS["atlas"], dtype=torch.float64, device="cpu")
-    before = dict(tf.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         _meta_call(wrapper, tm)
-    assert tf.LAUNCHES == before
+    assert _launch.LAUNCHES == before
 
 
 def test_cpu_runs_plain_without_launch():
     _, tm, q, qd, u = _case("dpend")
-    before = dict(tf.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     tf.fd_grad_fused(tm, *_t(q, qd, u))
     tf.minv_fused(tm, torch.from_numpy(q))
     tf.forward_dynamics_aba_fused(tm, *_t(q, qd, u))
     ts.fd_grad_staged(tm, *_t(q, qd, u))
-    assert tf.LAUNCHES == before
+    assert _launch.LAUNCHES == before
 
 
 @pytest.mark.parametrize("fn", ["forward_dynamics_gradient",

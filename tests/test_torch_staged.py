@@ -5,8 +5,8 @@ its dense factor helpers (``ops/kernels/contact_fused.py``) on CPU tensors
 * the ``_chol_*`` helpers against the JAX ones on a CRBA mass matrix;
 * each stage and the two pipelines against the JAX ``staged.py`` in
   interpret mode, forced on small robots (``block_b=4``, 5 states): K1, K2′
-  with and without a right-hand side, ∂ID and ∇FD at a column block that
-  leaves a ragged last block;
+  with and without a right-hand side, ∂ID and ∇FD on ``barm`` and ``dpend``
+  at a column block that leaves a ragged last block on ``barm``;
 * the slice as a whole on Atlas (n = 28, a forest of three trees), through
   the public API, against the float64 golden model. Compiling the JAX
   ``bl`` path at n = 28 is too slow for this suite on one core, so the
@@ -133,11 +133,17 @@ def test_fd_grad_staged(name):
 
 
 def test_id_grad_staged_branched_blocks():
-    """∂ID's K5 without the finish, ragged blocks on the branched arm,
-    against the unblocked ∂ID of the single-kernel route (the JAX
-    interpret run of this path is covered on dpend above)."""
-    _, tm, q, qd, u = _case("barm")
-    got = ts.id_grad_staged(tm, *_t(q, qd, u), cb=FORCED_CB["barm"])
+    """∂ID's vaf sweep and K5 without the finish on the branched arm — a
+    block spanning both sibling arms, then a ragged one — against the JAX
+    staged ∂ID in interpret mode and against the unblocked ∂ID of the
+    single-kernel route."""
+    jm, tm, q, qd, u = _case("barm")
+    cb = FORCED_CB["barm"]
+    got = ts.id_grad_staged(tm, *_t(q, qd, u), cb=cb)
+    ref = js.id_grad_staged(jm, *_j(q, qd, u), block_b=4, cb=cb,
+                            interpret=True)
+    for g_, r_ in zip(got, ref):
+        assert_close(g_, r_)
     for g_, r_ in zip(got, tf.id_grad_plain(tm, *_t(q, qd, u))):
         assert_close(g_, r_.numpy())
 
@@ -204,11 +210,11 @@ def test_atlas_slice_matches_golden(fam):
 
 
 def test_atlas_routes_through_staged(monkeypatch):
-    """Past MAX_KERNEL_JOINTS the ∇FD, ∂ID and M⁻¹ wrappers run the staged
-    structure — here on its plain stages — and never the single-kernel
-    plain versions."""
+    """Past MAX_KERNEL_JOINTS (``_build.dense_grads`` false) the ∇FD, ∂ID
+    and M⁻¹ wrappers run the staged structure — here on its plain stages —
+    and never the single-kernel plain versions."""
     _, tm, q, qd, u = _atlas()
-    assert tm.n > tf.MAX_KERNEL_JOINTS
+    assert not _build.dense_grads(tm.n)
     called = []
     for name in ("bias_and_v_plain", "minv_qdd_dense_plain", "af_plain",
                  "vaf_plain", "grad_cols_plain"):
