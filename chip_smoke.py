@@ -48,6 +48,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -57,7 +58,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import gridcodegenerator_tpu_torch as gt
 from gridcodegenerator_tpu_torch.models import zoo
+from gridcodegenerator_tpu_torch.ops import blops
+from gridcodegenerator_tpu_torch.ops import so as tso
 from gridcodegenerator_tpu_torch.ops.kernels import (_build, _launch, fused,
+                                                    so_fused, so_staged,
                                                     staged)
 
 SEED = 0
@@ -87,15 +91,55 @@ PEAK_BYTES = 3.35e12
 
 FUSED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/fused.cu"
 STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/staged.cu"
+SO_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/so.cu"
+# second order: 2¹⁶ states (e.g. 512 DDP rollouts × 128 knots); the plain
+# versions are timed at a quarter of it and scaled
+HESS_B = 1 << 16
+PLAIN_SO_DIV = 4
+HEAD_STATES = 4096       # second-order outputs held to their plain versions
+ATLAS_SO_HEAD = 1024     # the staged λᵀ·H's plain pipeline at n = 28
+SYM_MAX = 1e-3           # max|H − Hᵀ| / max(1, |H|): a layout fault is O(1)
 TPU = "gridcodegenerator_tpu/ops/kernels/"
 ROBOTS = {"iiwa14": zoo.iiwa14(), "branched_arm": zoo.branched_arm(),
           "atlas": zoo.atlas()}
-FORCED_CB = 4   # the branched arm (n = 9) through K5: blocks of 4, 4 and 1
-# robots at and under MAX_KERNEL_JOINTS whose ∇FD is timed on both routes:
-# a forest of four 3-joint legs, and a seeded 16-joint forest of three
-# trees, one a 10-joint chain (a 16-joint serial chain's M(q) is too
-# ill-conditioned for the float64 check's 1e-11)
-ROUTE_ROBOTS = {"hyq": zoo.hyq(), "tree16": zoo.random_tree(16, seed=0)}
+FORCED_CB = 4   # the branched arm (n = 9) through K5 and T5: blocks 4, 4, 1
+# robots whose ∇FD is timed on both routes, to place MAX_KERNEL_JOINTS: the
+# branched arm, seeded 10- and 11-joint trees (branched, M(q) condition
+# ≤ 4e3 on random states), a forest of four 3-joint legs, and a seeded
+# 16-joint forest of three trees, one a 10-joint chain (a 16-joint serial
+# chain's M(q) is too ill-conditioned for the float64 check's 1e-11). HyQ's
+# λᵀ·H is timed on both routes, to place MAX_HESSIAN_JOINTS.
+ROUTE_ROBOTS = {"branched_arm": zoo.branched_arm(),
+                "tree10": zoo.random_tree(10, seed=3),
+                "tree11": zoo.random_tree(11, seed=3), "hyq": zoo.hyq(),
+                "tree16": zoo.random_tree(16, seed=0)}
+# while the routes are built, checked and timed, the single-thread kernels
+# exist up to these joint counts whatever the routing limits are
+ROUTE_LIMITS = {"MAX_KERNEL_JOINTS": 16, "MAX_HESSIAN_JOINTS": 12,
+                "MAX_HESSIAN_VP_JOINTS": 12}
+# λᵀ·H on both routes: the double pendulum, a 5-joint chain, iiwa-14 (a
+# 7-joint chain) and the ∇FD route robots up to 12 joints
+HESS_ROUTE_ROBOTS = {"dpend": zoo.double_pendulum(),
+                     "chain5": zoo.serial_chain(5),
+                     "iiwa14": ROBOTS["iiwa14"],
+                     **{k: ROUTE_ROBOTS[k] for k in ("branched_arm", "tree10",
+                                                     "tree11", "hyq")}}
+# the robot whose λᵀ·H phase H and phase 3 run on the single-thread kernel
+# (the largest one under MAX_HESSIAN_VP_JOINTS)
+SMALL_SO_ROBOT = "dpend"
+ROUTE_SO_STATES = 1024   # the route checks' float64 states
+
+
+@contextmanager
+def route_limits():
+    saved = {k: getattr(_build, k) for k in ROUTE_LIMITS}
+    for k, v in ROUTE_LIMITS.items():
+        setattr(_build, k, max(v, saved[k]))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(_build, k, v)
 
 
 def log(*a):
@@ -182,6 +226,103 @@ def staged_pairs(cb=None):
     }
 
 
+def uniform_lam(n, B, dtype, gen, layout="nB"):
+    """λ ∈ [−1, 1] (a DDP value gradient's scale)."""
+    shape = (n, B) if layout == "nB" else (B, n)
+    return torch.rand(shape, generator=gen, device="cuda", dtype=dtype) * 2 - 1
+
+
+# the single-thread second-order kernels: name → (LAUNCHES key, kernel,
+# plain, inputs from (q, q̇, u, λ))
+HESS_PAIRS = {
+    "hessian_vp": ("hessian_vp", so_fused.fd_hessian_vp_fused,
+                   so_fused.fd_hessian_vp_plain, 4),
+    "hessian": ("hessian", so_fused.fd_hessian_fused,
+                so_fused.fd_hessian_plain, 3),
+}
+
+
+def so_stage_pairs(cb=None):
+    """The staged λᵀ·H's tangent stages as (LAUNCHES key, kernel, plain,
+    inputs): each stage's inputs are (q, q̇, u, λ) and the plain upstream
+    stages' outputs, so every kernel is held to its plain version on
+    identical inputs. The variants of T1, T4 (q- or q̇-directions) and T5
+    (and the side of ∂c) are those the pipeline runs."""
+    def up(m, q, qd, u, lam):
+        c, v = staged.bias_and_v_plain(m, q, qd)
+        Minv, qdd = staged.minv_qdd_dense_plain(m, q, u - c)
+        a, f = staged.af_plain(m, q, qd, qdd, v)
+        x = dict(v=v, a=a, f=f, Minv=Minv, qdd=qdd,
+                 lamM=torch.einsum("ijb,jb->ib", Minv, lam))
+        for w in (0, 1):
+            x[f"dc{w}"], x[f"dv{w}"] = so_staged.t1_plain(m, q, qd, w)
+        x["dlamM"], x["dqdd0"] = so_staged.t2_plain(m, q, x["lamM"], qdd,
+                                                    Minv, x["dc0"])
+        x["dqdd1"] = -torch.einsum("ijb,djb->dib", Minv, x["dc1"])
+        for w in (0, 1):
+            x[f"da{w}"], x[f"df{w}"] = so_staged.t4_plain(
+                m, q, qd, qdd, v, x[f"dv{w}"], x[f"dqdd{w}"], w)
+        return {k: t.contiguous() for k, t in x.items()}
+
+    def t1(w):
+        return ("t1", lambda m, q, qd: so_staged.t1_staged(m, q, qd, w),
+                lambda m, q, qd: so_staged.t1_plain(m, q, qd, w),
+                lambda s, x: (s[0], s[1]))
+
+    def t4(w):
+        return ("t4", lambda m, *a: so_staged.t4_staged(m, *a, w),
+                lambda m, *a: so_staged.t4_plain(m, *a, w),
+                lambda s, x: (s[0], s[1], x["qdd"], x["v"], x[f"dv{w}"],
+                              x[f"dqdd{w}"]))
+
+    def t5(w, side):
+        return ("t5",
+                lambda m, *a: so_staged.t5_staged(m, *a, w, side, cb=cb),
+                lambda m, *a: so_staged.t5_plain(m, *a, w, side, cb=cb),
+                lambda s, x: (s[0], s[1], x["v"], x["a"], x["f"], x["lamM"],
+                              x[f"dv{w}"], x[f"da{w}"], x[f"df{w}"]))
+
+    return up, {
+        "t1_q": t1(0), "t1_qd": t1(1),
+        "t2": ("t2", so_staged.t2_staged, so_staged.t2_plain,
+               lambda s, x: (s[0], x["lamM"], x["qdd"], x["Minv"],
+                             x["dc0"])),
+        "t4_q": t4(0), "t4_qd": t4(1),
+        "t5_q_q": t5(0, "q"), "t5_q_qd": t5(0, "qd"), "t5_qd_qd": t5(1, "qd"),
+    }
+
+
+def _t5_primal(side, cb=None):
+    """One side's ∂c rows of every column block contracted with lamM: the
+    function T5 differentiates, for its bound."""
+    def primal(m, q, qd, v, a, f, lamM, *_):
+        X = blops.joint_transforms_bl(m, q)
+        vl, al, fl = (staged._as_list(t, m.n) for t in (v, a, f))
+        width = so_staged._so_col_block(m, cb)
+        for c0, w in staged._blocks(m.n, width):
+            rows = blops.rnea_grad_cols_bl(m, X, qd, vl, al, fl, c0=c0, cb=w,
+                                           sides=(side,), as_rows=True)[side]
+            sum(lamM[i:i + 1] * r for i, r in enumerate(rows)
+                if r is not None)
+    return primal
+
+
+# the function each second-order kernel differentiates, once per state (its
+# operations are counted once in the bound, not once per direction): name →
+# (primal, directions a state)
+SO_PRIMALS = {
+    "hessian_vp": (lambda m, q, qd, u, lam: tso.fd_grad_full_bl(m, q, qd, u),
+                   3),
+    "hessian": (tso.fd_grad_full_bl, 3),
+    "t1_q": (staged.bias_and_v_plain, 1),
+    "t2": (lambda m, q, lamM, qdd, *_: so_staged.crba_matvecs(
+        m, blops.joint_transforms_bl(m, q), (lamM, qdd)), 1),
+    "t4_q": (lambda m, q, qd, qdd, v, *_: staged.af_plain(m, q, qd, qdd, v),
+             1),
+    "t5_q_q": (_t5_primal("q"), 1),
+}
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -231,10 +372,10 @@ def phase0_toolchain():
 
 
 _PTXAS_NAME = re.compile(
-    r"(fd_grad|id_grad|minv_dense|minv|rnea|aba|vaf|grad_cols)_kernelI([fd])"
-    r"(?:L([bi])(\d+)E)?")
+    r"(fd_grad|id_grad|minv_dense|minv|rnea|aba|vaf|grad_cols|hessian|t1|t2"
+    r"|t4|t5)_kernelI([fd])(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
-                 "grad_cols": "finish"}
+                 "grad_cols": "finish", "hessian": "lam", "t5": "q"}
 
 
 def ptxas_report(log_text):
@@ -276,7 +417,8 @@ def build_all(models):
             log(f"build {label} (n={m.n}) {unit}: nvcc "
                 f"{lib.build_seconds[unit]:.1f} s -> "
                 f"{lib.paths[unit].relative_to(_build.BUILD_DIR.parents[1])}"
-                f" (K5 column block {_build.default_col_block(m.n)})")
+                f" (K5 column block {_build.default_col_block(m.n)}, T5 "
+                f"{_build.so_col_block(m.n)})")
             for line in ptxas_report(lib.logs[unit]):
                 log(line)
 
@@ -294,8 +436,10 @@ def check_against_plain(tag, got, plain, m, args):
         extra = ""
     else:
         ref = plain(m.to(dtype=torch.float64), *(x.double() for x in args))
-        p_rel, p_st, _ = compare(plain(m, *args), ref)
-        k_rel, k_st, _ = compare(got, plain(m, *args))
+        plain32 = plain(m, *args)
+        p_rel, p_st, _ = compare(plain32, ref)
+        k_rel, k_st, _ = compare(got, plain32)
+        del plain32
         tol = max(REL_TOL[m.dtype], F32_PLAIN_FACTOR * p_rel)
         extra = (f"; plain f32 vs f64 plain: rel {p_rel:.3e} (per-state "
                  f"{p_st:.3e}); kernel vs plain f32: rel {k_rel:.3e} "
@@ -307,6 +451,36 @@ def check_against_plain(tag, got, plain, m, args):
     if not ok:
         raise RuntimeError(f"{tag}: kernel disagrees with its plain version")
     return ab, rel
+
+
+def run_pair(tag, key, kern, plain, m, args):
+    """Launch a kernel once, check that it launched and is finite, and
+    hold it to its plain version; returns (max abs error, relative)."""
+    before = _launch.LAUNCHES[key]
+    got = kern(m, *args)
+    torch.cuda.synchronize()
+    expect_launch(key, before, tag)
+    check_finite(tag, got)
+    return check_against_plain(tag, got, plain, m, args)
+
+
+def phase1_second_order(label, m, q, qd, u, gen):
+    """The single-thread Hessian kernels (iiwa-14, the branched arm) and the
+    staged λᵀ·H's tangent stages (Atlas, and the branched arm at a forced
+    ragged column block) against their plain versions."""
+    lam = uniform_lam(m.n, q.shape[-1], m.dtype, gen)
+    s = (q, qd, u, lam)
+    tag = f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]}"
+    if label != "atlas":
+        for name, (key, kern, plain, k) in HESS_PAIRS.items():
+            run_pair(f"{tag} {name}", key, kern, plain, m, s[:k])
+    if label != "iiwa14":
+        cb = FORCED_CB if label == "branched_arm" else None
+        up, pairs = so_stage_pairs(cb)
+        x = up(m, *s)
+        for name, (key, kern, plain, inputs) in pairs.items():
+            run_pair(f"{tag} staged {name}{'' if cb is None else f' cb={cb}'}",
+                     key, kern, plain, m, inputs(s, x))
 
 
 def phase1_kernels_vs_plain(gen):
@@ -331,6 +505,8 @@ def phase1_kernels_vs_plain(gen):
                     check_against_plain(
                         f"phase1 {label} {str(dtype)[6:]} B={B} {name}",
                         got, plain, m, args)
+                if B == 1000:
+                    phase1_second_order(label, m, q, qd, u, gen)
                 if label == "iiwa14":
                     continue
                 cb = FORCED_CB if label == "branched_arm" else None
@@ -506,6 +682,158 @@ def phaseA_atlas(gen):
     return m, (q, qd, u), launches, max_abs, parity, plain_parity
 
 
+# ---------------------------------------------------------------- phase H
+def symmetry(H):
+    """max over states of max|H − Hᵀ| / max(1, max|H|), the last two
+    structure axes transposed; H is batch first."""
+    d = (H - H.transpose(-1, -2)).abs().reshape(H.shape[0], -1).amax(1)
+    s = H.abs().reshape(H.shape[0], -1).amax(1).clamp(min=1.0)
+    return float((d / s).max())
+
+
+def check_symmetry(tag, H):
+    sym = symmetry(H)
+    log(f"{tag} symmetry max|H − Hᵀ|/max(1,|H|) {sym:.3e} (bound "
+        f"{SYM_MAX:.0e}) {'ok' if sym <= SYM_MAX else 'FAIL'}")
+    if sym > SYM_MAX:
+        raise RuntimeError(f"{tag}: Hessian not symmetric")
+
+
+def head_vs_plain(tag, out, plain, m, states, k=HEAD_STATES):
+    """An API output's first k states (batch first) against its plain
+    version on the same states (batch last)."""
+    cols = [x[:k].T.contiguous() for x in states]
+    ab, _ = check_against_plain(f"{tag} ({k} states)", out[:k].movedim(0, -1),
+                                plain, m, cols)
+    return ab
+
+
+def vp_route(n):
+    """(the λᵀ·H route's launch keys, its plain version) for n joints."""
+    if _build.dense_hessian_vp(n):
+        return ("hessian_vp",), so_fused.fd_hessian_vp_plain
+    return ("t1", "t2", "t4", "t5"), so_staged.fd_hessian_vp_staged_plain
+
+
+def phaseH_second_order(gen, mA):
+    """Second order at B = 2¹⁶, float32, through the public API: iiwa-14's
+    λᵀ·H (on its route), H and [∂q̈/∂q | ∂q̈/∂q̇ | M⁻¹] on the single-thread
+    kernels; the λᵀ·H of SMALL_SO_ROBOT on the single-thread kernel; Atlas's
+    λᵀ·H through the staged pipeline."""
+    m = gt.load_robot(ROBOTS["iiwa14"], dtype=torch.float32, device="cuda")
+    n = m.n
+    vp_keys, vp_plain = vp_route(n)
+    q, qd, u = uniform_states(n, HESS_B, torch.float32, gen, layout="Bn")
+    lam = uniform_lam(n, HESS_B, torch.float32, gen, layout="Bn")
+    torch.cuda.reset_peak_memory_stats()
+    _launch.reset_launches()
+    t0 = time.perf_counter()
+    Hv = gt.forward_dynamics_hessian_vp(m, q, qd, u, lam)
+    H = gt.forward_dynamics_hessian(m, q, qd, u)
+    J = gt.forward_dynamics_gradient_full(m, q, qd, u)
+    torch.cuda.synchronize()
+    launches = dict(_launch.LAUNCHES)
+    log(f"phaseH iiwa14 B={HESS_B} (three API calls, first run): "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    for key in ("hessian", "fd_grad", "minv") + vp_keys:
+        if launches[key] < 1:
+            raise RuntimeError(f"iiwa second-order path never launched {key}")
+    for key in {"hessian_vp", "t1", "t2", "t4", "t5"} - set(vp_keys):
+        if launches[key] != 0:
+            raise RuntimeError(f"iiwa second-order path launched {key}")
+    shapes = {"hessian_vp": (Hv, (HESS_B, 3 * n, 3 * n)),
+              "hessian": (H, (HESS_B, n, 3 * n, 3 * n)),
+              "gradient_full": (J, (HESS_B, n, 3 * n))}
+    for name, (out, shape) in shapes.items():
+        if out.device.type != "cuda" or tuple(out.shape) != shape:
+            raise RuntimeError(f"{name}: {out.device} {tuple(out.shape)}")
+        check_finite(name, out)
+    check_symmetry("phaseH iiwa14 λᵀ·H", Hv)
+    check_symmetry("phaseH iiwa14 H", H)
+    max_abs = {
+        "hessian_vp[iiwa14]": head_vs_plain(
+            "phaseH iiwa14 λᵀ·H API vs plain", Hv, vp_plain, m,
+            (q, qd, u, lam)),
+        "hessian": head_vs_plain("phaseH iiwa14 H API vs plain", H,
+                                 so_fused.fd_hessian_plain, m, (q, qd, u)),
+        "gradient_full": head_vs_plain(
+            "phaseH iiwa14 gradient_full API vs plain", J, tso.fd_grad_full_bl,
+            m, (q, qd, u)),
+    }
+    del H, Hv, J
+
+    # λᵀ·H on the single-thread kernel
+    m = gt.load_robot(HESS_ROUTE_ROBOTS[SMALL_SO_ROBOT], dtype=torch.float32,
+                      device="cuda")
+    if not _build.dense_hessian_vp(m.n):
+        raise RuntimeError(f"{SMALL_SO_ROBOT} (n={m.n}) routes λᵀ·H to the "
+                           f"staged pipeline")
+    s = uniform_states(m.n, HESS_B, torch.float32, gen, layout="Bn")
+    s.append(uniform_lam(m.n, HESS_B, torch.float32, gen, layout="Bn"))
+    _launch.reset_launches()
+    Hv = gt.forward_dynamics_hessian_vp(m, *s)
+    torch.cuda.synchronize()
+    s_launches = dict(_launch.LAUNCHES)
+    log(f"phaseH {SMALL_SO_ROBOT} (n={m.n}) λᵀ·H B={HESS_B}: launches "
+        f"{s_launches}")
+    if s_launches["hessian_vp"] < 1:
+        raise RuntimeError(f"{SMALL_SO_ROBOT} λᵀ·H never launched hessian_vp")
+    if tuple(Hv.shape) != (HESS_B, 3 * m.n, 3 * m.n):
+        raise RuntimeError(f"{SMALL_SO_ROBOT} λᵀ·H: {tuple(Hv.shape)}")
+    check_finite("λᵀ·H", Hv)
+    check_symmetry(f"phaseH {SMALL_SO_ROBOT} λᵀ·H", Hv)
+    max_abs["hessian_vp"] = head_vs_plain(
+        f"phaseH {SMALL_SO_ROBOT} λᵀ·H API vs plain", Hv,
+        so_fused.fd_hessian_vp_plain, m, s)
+    del Hv, s
+
+    # Atlas: λᵀ·H through the staged pipeline
+    n = mA.n
+    sA = uniform_states(n, HESS_B, torch.float32, gen, layout="Bn")
+    sA.append(uniform_lam(n, HESS_B, torch.float32, gen, layout="Bn"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch.reset_launches()
+    t0 = time.perf_counter()
+    HA = gt.forward_dynamics_hessian_vp(mA, *sA)
+    torch.cuda.synchronize()
+    a_launches = dict(_launch.LAUNCHES)
+    log(f"phaseH Atlas (n={n}) λᵀ·H B={HESS_B} (one API call, first run): "
+        f"{time.perf_counter() - t0:.3f} s; launches {a_launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    expect = {"bias_and_v": 1, "minv_dense": 1, "af": 1, "grad_cols": 1,
+              "t1": 2, "t2": 1, "t4": 2, "t5": 3, "hessian_vp": 0}
+    for key, count in expect.items():
+        if a_launches[key] != count:
+            raise RuntimeError(f"Atlas λᵀ·H launched {key} "
+                               f"{a_launches[key]} times, not {count}")
+    if HA.device.type != "cuda" or tuple(HA.shape) != (HESS_B, 3 * n, 3 * n):
+        raise RuntimeError(f"Atlas λᵀ·H: {HA.device} {tuple(HA.shape)}")
+    check_finite("Atlas λᵀ·H", HA)
+    zeros = (float(HA[:, n:2 * n, 2 * n:].abs().max()),
+             float(HA[:, 2 * n:, n:].abs().max()))
+    log(f"phaseH Atlas λᵀ·H max|(q̇,u)| {zeros[0]} max|(u,q̇ u)| {zeros[1]} "
+        f"(exact zeros) {'ok' if zeros == (0.0, 0.0) else 'FAIL'}")
+    if zeros != (0.0, 0.0):
+        raise RuntimeError("Atlas λᵀ·H: the (q̇, u) or (u, u) block is not 0")
+    check_symmetry("phaseH Atlas λᵀ·H", HA)
+    max_abs["hessian_vp[atlas]"] = head_vs_plain(
+        "phaseH Atlas λᵀ·H API vs the plain staged pipeline", HA,
+        so_staged.fd_hessian_vp_staged_plain, mA, sA, ATLAS_SO_HEAD)
+    del HA
+    # each tangent stage on the head states, against its plain version
+    s = [x[:ATLAS_SO_HEAD].T.contiguous() for x in sA]
+    up, pairs = so_stage_pairs()
+    x = up(mA, *s)
+    for name, (key, kern, plain, inputs) in pairs.items():
+        max_abs[name], _ = run_pair(
+            f"phaseH Atlas stage {name} ({ATLAS_SO_HEAD} states)", key, kern,
+            plain, mA, inputs(s, x))
+    return ({"iiwa14H": launches, "smallH": s_launches,
+             "atlasH": a_launches}, max_abs, sA)
+
+
 # ---------------------------------------------------------------- phase 3
 def time_ms(fn, args, calls=TIMED_CALLS, warmup=2):
     for _ in range(warmup):
@@ -542,7 +870,9 @@ class OpCount(TorchDispatchMode):
     and the blends made with it — is one a code specialised on the topology
     skips. sqrt, reciprocal, sin and cos count every element; a negation is
     free (a sign flip folds into the operation that uses it), and so are
-    copies, selects and stacks. An FMA is two."""
+    copies, selects and stacks. An FMA is two. Under forward-mode AD
+    (``ops.so.jvp``) the tangent arithmetic runs as aten operations too and
+    is counted alike, a zero tangent's terms skipped."""
 
     _BINARY = {"add", "sub", "rsub", "mul", "div"}
     _UNARY = {"reciprocal", "sqrt", "sin", "cos"}
@@ -572,6 +902,11 @@ class OpCount(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__.rstrip("_")
+        if any(isinstance(a, torch.Tensor) and a.device.type == "meta"
+               for a in args):
+            # shape propagation (forward AD runs some on meta tensors): no
+            # arithmetic
+            return func(*args, **(kwargs or {}))
         if name in self._BINARY:
             self.ops += self._needed(name, args)   # before an in-place op
         out = func(*args, **(kwargs or {}))
@@ -725,6 +1060,193 @@ def phase3_times(m, mA, atlas_states, gen):
     return times
 
 
+def _so_cpu_args(name, cache):
+    """make_args for ops_per_state of a second-order kernel: random CPU
+    states (q, q̇, u, λ) and, for a tangent stage, the plain upstream
+    stages' outputs on them (kept in ``cache`` for the next stage)."""
+    def make(mc, B):
+        key = (mc.n, B)
+        if key not in cache:
+            gen = torch.Generator().manual_seed(SEED)
+            s = [(torch.rand((mc.n, B), generator=gen, dtype=torch.float64)
+                  * 2 - 1) * r for r in (2.0, 1.0, 8.0, 1.0)]
+            cache[key] = (s, None if name in HESS_PAIRS
+                          else so_stage_pairs()[0](mc, *s))
+        s, x = cache[key]
+        if name in HESS_PAIRS:
+            return s[:HESS_PAIRS[name][3]]
+        return list(so_stage_pairs()[1][name][3](s, x))
+    return make
+
+
+def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
+    """Time a second-order kernel (twice) and its plain version (once, on
+    the first B / PLAIN_SO_DIV states, scaled to B), and its bound: the
+    plain version's operations less the primal's repeats (both versions
+    recompute the primal for every direction; the least work does it once
+    a state)."""
+    B = args[0].shape[-1]
+    Bp = B // PLAIN_SO_DIV
+    pargs = tuple(a[..., :Bp].contiguous() for a in args)
+    t0 = time.perf_counter()
+    plain(m, *pargs)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    calls = int(max(1, min(3, PLAIN_BUDGET_MS // max(first, 1e-3))))
+    p = time_ms(plain, (m, *pargs), calls=calls, warmup=0) * PLAIN_SO_DIV
+    k1 = time_ms(kern, (m, *args))
+    k2 = time_ms(kern, (m, *args))
+    outs = _as_tuple(kern(m, *args))
+    make = _so_cpu_args(name, cache)
+    primal, dirs = SO_PRIMALS[name]
+    total = ops_per_state(plain, m, make)
+    once = ops_per_state(primal, m, make)
+    ops = (total - (dirs * m.n - 1) * once) * B
+    b_ms, b_by = bound(ops, nbytes(*args, *outs))
+    k = min(k1, k2)
+    log(f"phase3 {name} {label} f32 B={B}: kernel {k1:.3f}/{k2:.3f} ms "
+        f"(median of {TIMED_CALLS}), plain {p:.3f} ms (scaled ×"
+        f"{PLAIN_SO_DIV} from B={Bp}, median of {calls}); bound {b_ms:.3f} ms"
+        f" by {b_by} ({ops:.3e} ops = ({total} − ({dirs * m.n} − 1)·{once}) "
+        f"a state, {nbytes(*args, *outs):.3e} B; roofline share "
+        f"{b_ms / k:.1%}); card {name_limit}")
+    return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by)
+
+
+def api_ms(fn, args, label, name_limit):
+    """An API call's median time: 10 calls, or 3 where one takes over 1 s."""
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    calls = TIMED_CALLS if time.perf_counter() - t0 < 1.0 else 3
+    ms = time_ms(fn, args, calls=calls, warmup=1)
+    B = args[1].shape[0]
+    log(f"phase3 {fn.__name__} API {label} B={B}: {ms:.3f} ms (median of "
+        f"{calls}; {B / ms * 1e3:.3e} evals/s); card {name_limit}")
+    return ms
+
+
+def phase3_second_order(mA, sA, gen):
+    """Times of the second-order kernels at phase H's shapes, the API times,
+    and a profiler breakdown of Atlas's λᵀ·H by stage."""
+    name_limit = card()
+    times, cache = {}, {}
+    for name, label in (("hessian_vp", SMALL_SO_ROBOT),
+                        ("hessian", "iiwa14")):
+        _, kern, plain, k = HESS_PAIRS[name]
+        m = gt.load_robot(HESS_ROUTE_ROBOTS[label], dtype=torch.float32,
+                          device="cuda")
+        s = uniform_states(m.n, HESS_B, torch.float32, gen)
+        s.append(uniform_lam(m.n, HESS_B, torch.float32, gen))
+        times[name] = time_so_entry(label, name, kern, plain, m, s[:k],
+                                    name_limit, cache)
+        sb = [x.T.contiguous() for x in s]
+        api_ms(gt.forward_dynamics_hessian_vp, (m, *sb), label, name_limit)
+    for fn in (gt.forward_dynamics_hessian, gt.forward_dynamics_gradient_full):
+        api_ms(fn, (m, *sb[:3]), "iiwa14", name_limit)
+    del s, sb
+
+    # Atlas: each tangent stage at its pipeline shape, on the pipeline's
+    # own kernel intermediates
+    sc = [x.T.contiguous() for x in sA]
+    q, qd, u, lam = sc
+    x = {}
+    c, x["v"] = staged.bias_and_v_staged(mA, q, qd)
+    x["Minv"], x["qdd"] = staged.minv_qdd_dense_staged(mA, q, u - c)
+    x["a"], x["f"] = staged.af_staged(mA, q, qd, x["qdd"], x["v"])
+    x["lamM"] = torch.einsum("ijb,jb->ib", x["Minv"], lam).contiguous()
+    x["dc0"], x["dv0"] = so_staged.t1_staged(mA, q, qd, 0)
+    x["dlamM"], x["dqdd0"] = so_staged.t2_staged(mA, q, x["lamM"], x["qdd"],
+                                                 x["Minv"], x["dc0"])
+    x["da0"], x["df0"] = so_staged.t4_staged(mA, q, qd, x["qdd"], x["v"],
+                                             x["dv0"], x["dqdd0"], 0)
+    _, pairs = so_stage_pairs()
+    for name in ("t1_q", "t2", "t4_q", "t5_q_q"):
+        _, kern, plain, inputs = pairs[name]
+        times[name] = time_so_entry("atlas", name, kern, plain, mA,
+                                    tuple(inputs(sc, x)), name_limit, cache)
+    del x
+    api_ms(gt.forward_dynamics_hessian_vp, (mA, *sA), "atlas", name_limit)
+    profile_breakdown(gt.forward_dynamics_hessian_vp, (mA, *sA),
+                      "forward_dynamics_hessian_vp atlas", name_limit)
+    return times
+
+
+def phase3_hessian_routes(gen):
+    """λᵀ·H of the robots in HESS_ROUTE_ROBOTS on both routes — the
+    single-thread kernel and the staged pipeline — each held to its plain
+    version in float64, then timed single, staged, staged, single: where
+    MAX_HESSIAN_VP_JOINTS goes. At iiwa-14 and HyQ the full H too (the
+    staged route's is n λᵀ·H calls): where MAX_HESSIAN_JOINTS goes."""
+    name_limit = card()
+    for label, urdf in HESS_ROUTE_ROBOTS.items():
+        m = gt.load_robot(urdf, dtype=torch.float32, device="cuda")
+        s = uniform_states(m.n, HESS_B, torch.float32, gen)
+        s.append(uniform_lam(m.n, HESS_B, torch.float32, gen))
+        m64 = m.to(dtype=torch.float64)
+        s64 = [x[:, :ROUTE_SO_STATES].double().contiguous() for x in s]
+        routes = {"single": (so_fused.fd_hessian_vp_fused,
+                             so_fused.fd_hessian_vp_plain),
+                  "staged": (so_staged.fd_hessian_vp_staged,
+                             so_staged.fd_hessian_vp_staged_plain)}
+        for route, (kern, plain) in routes.items():
+            check_against_plain(
+                f"phase3 routes {label} (n={m.n}) {route} λᵀ·H f64 "
+                f"({ROUTE_SO_STATES} states)", kern(m64, *s64), plain, m64,
+                s64)
+        ms = {r: [] for r in routes}
+        for r in ("single", "staged", "staged", "single"):
+            ms[r].append(time_ms(routes[r][0], (m, *s), calls=5))
+        log(f"phase3 routes {label} (n={m.n}, T5 cb "
+            f"{_build.so_col_block(m.n)}) λᵀ·H f32 B={HESS_B}: "
+            + "; ".join(f"{r} {a:.3f}/{b:.3f} ms"
+                        for r, (a, b) in ms.items())
+            + f"; card {name_limit}")
+        if label in ("iiwa14", "hyq"):
+            full = {"single": so_fused.fd_hessian_fused,
+                    "staged": so_staged.fd_hessian_staged}
+            t = {r: time_ms(full[r], (m, *s[:3]), calls=3, warmup=1)
+                 for r in ("single", "staged")}
+            log(f"phase3 routes {label} full H f32 B={HESS_B}: single "
+                f"{t['single']:.3f} ms; staged ({m.n} λᵀ·H calls) "
+                f"{t['staged']:.3f} ms (median of 3); card {name_limit}")
+        del s, s64
+
+
+def phase3_k5_width(mA, atlas_states):
+    """Atlas's K5 with the finish at column blocks of 2 and 4 (the built
+    width) and, from a second build whose arrays are 7 wide, of 7."""
+    name_limit = card()
+    q, qd, u = (x.T.contiguous() for x in atlas_states)
+    c, v = staged.bias_and_v_staged(mA, q, qd)
+    Minv, qdd = staged.minv_qdd_dense_staged(mA, q, u - c)
+    a, f = staged.af_staged(mA, q, qd, qdd, v)
+
+    def k5(cb):
+        return time_ms(lambda: staged.grad_cols_staged(
+            mA, q, qd, v, a, f, cb=cb, Minv=Minv), ())
+
+    ms = [(f"cb {cb}", k5(cb)) for cb in (4, 2)]
+    key = _build.topology_key(mA)
+    built = _build._LOADED.pop(key)
+    saved = _build._K5_VALUES
+    _build._K5_VALUES = 18 * mA.n * 7
+    try:
+        lib7 = _build.library(mA)
+        log(f"phase3 K5 width 7 build: nvcc "
+            f"{lib7.build_seconds['staged.cu']:.1f} s")
+        for line in ptxas_report(lib7.logs["staged.cu"]):
+            if "grad_cols" in line:
+                log(line)
+        ms += [("cb 7", k5(7)), ("cb 4 in the 7-wide build", k5(4))]
+    finally:
+        _build._K5_VALUES = saved
+        _build._LOADED[key] = built
+    log(f"phase3 K5 with the finish, Atlas f32 B={q.shape[-1]}: "
+        + "; ".join(f"{w} {t:.3f} ms" for w, t in ms)
+        + f"; card {name_limit}")
+
+
 def phase3_routes(gen):
     """∇FD of robots at and under MAX_KERNEL_JOINTS on both routes — the
     single-thread kernel and the staged pipeline — each held to its plain
@@ -772,6 +1294,12 @@ RECORD = [
      TPU + "staged.py:470"),
     ("vaf", "vaf", "atlas", STAGED_SRC, TPU + "staged.py:341"),
     ("grad_cols", "grad_cols", "atlas", STAGED_SRC, TPU + "staged.py:356"),
+    ("hessian_vp", "hessian_vp", "smallH", SO_SRC, TPU + "so_fused.py:195"),
+    ("hessian", "hessian", "iiwa14H", SO_SRC, TPU + "so_fused.py:220"),
+    ("t1_q", "t1", "atlasH", SO_SRC, TPU + "so_staged.py:264"),
+    ("t2", "t2", "atlasH", SO_SRC, TPU + "so_staged.py:277"),
+    ("t4_q", "t4", "atlasH", SO_SRC, TPU + "so_staged.py:289"),
+    ("t5_q_q", "t5", "atlasH", SO_SRC, TPU + "so_staged.py:304"),
 ]
 
 
@@ -780,19 +1308,43 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"-- {phase} done at {time.perf_counter() - t0:.1f} s")
+
     phase0_toolchain()
-    build_all({label: gt.load_robot(u, device="cuda")
-               for label, u in {**ROBOTS, **ROUTE_ROBOTS}.items()})
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    phase1_kernels_vs_plain(gen)
+    # phase 1 and the routes hold the single-thread kernels of robots past
+    # the routing limits too
+    with route_limits():
+        build_all({label: gt.load_robot(u, device="cuda")
+                   for label, u in {**ROBOTS, **ROUTE_ROBOTS,
+                                    **HESS_ROUTE_ROBOTS}.items()})
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        done("builds")
+        phase1_kernels_vs_plain(gen)
+    done("phase 1")
     m, launches, max_abs, parity = phase2_main_path(gen)
+    done("phase 2")
     mA, atlas_states, a_launches, a_max_abs, a_parity, a_plain = \
         phaseA_atlas(gen)
     max_abs.update(a_max_abs)
+    done("phase A")
+    h_launches, h_max_abs, sA = phaseH_second_order(gen, mA)
+    max_abs.update(h_max_abs)
+    done("phase H")
     times = phase3_times(m, mA, atlas_states, gen)
-    phase3_routes(gen)
-    path_launches = {"iiwa14": launches, "atlas": a_launches}
+    done("phase 3 first order")
+    times.update(phase3_second_order(mA, sA, gen))
+    done("phase 3 second order")
+    with route_limits():
+        phase3_routes(gen)
+        phase3_hessian_routes(gen)
+    done("phase 3 routes")
+    phase3_k5_width(mA, atlas_states)
+    done("phase 3 K5 widths")
+    path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": path_launches[path][key], "max_abs_err": max_abs[name],

@@ -6,13 +6,19 @@ batch-last versions on any device, and hand-written CUDA kernels for the
 NVIDIA H100 (``ops/kernels/csrc``), built per robot topology at first use.
 This package imports torch and never jax.
 
-The five first-order families, for every fixed-base robot (past 16 joints
+The five first-order families, for every fixed-base robot (past 11 joints
 ∇FD, ∂ID and M⁻¹ run through the staged pipeline, ``ops/kernels/staged``):
   * inverse dynamics (RNEA)              → :func:`inverse_dynamics`, :func:`bias_force`
   * forward dynamics (ABA)               → :func:`forward_dynamics`
   * analytical mass-matrix inverse       → :func:`direct_minv`
   * analytical ∂ID (∂c/∂q, ∂c/∂q̇)        → :func:`inverse_dynamics_gradient`
   * analytical ∇FD (−M⁻¹·∂c/∂u)          → :func:`forward_dynamics_gradient`
+
+Second order (forward mode over the analytic ∇FD; λᵀ·H past 2 joints and H
+past 12 run through the staged pipeline, ``ops/kernels/so_staged``):
+  * [∂q̈/∂q | ∂q̈/∂q̇ | M⁻¹]                → :func:`forward_dynamics_gradient_full`
+  * ∂²q̈/∂x∂x, x = (q, q̇, u)              → :func:`forward_dynamics_hessian`
+  * λᵀ·∂²q̈/∂x∂x (the DDP curvature term) → :func:`forward_dynamics_hessian_vp`
 """
 
 from .api import (
@@ -20,6 +26,9 @@ from .api import (
     direct_minv,
     forward_dynamics,
     forward_dynamics_gradient,
+    forward_dynamics_gradient_full,
+    forward_dynamics_hessian,
+    forward_dynamics_hessian_vp,
     inverse_dynamics,
     inverse_dynamics_gradient,
 )
@@ -37,4 +46,6 @@ __all__ = [
     "from_jax_arrays",
     "inverse_dynamics", "bias_force", "direct_minv", "forward_dynamics",
     "inverse_dynamics_gradient", "forward_dynamics_gradient",
+    "forward_dynamics_gradient_full", "forward_dynamics_hessian",
+    "forward_dynamics_hessian_vp",
 ]

@@ -1,4 +1,4 @@
-"""Public API: batched first-order dynamics on torch tensors.
+"""Public API: batched first- and second-order dynamics on torch tensors.
 
 The port's counterpart of ``gridcodegenerator_tpu/api.py``. Every function
 takes a single state ``(n,)`` or any batch ``(..., n)`` of states, moves it
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .models.robot import RobotModel
-from .ops.kernels import fused
+from .ops.kernels import fused, so_fused
 
 _IMPLS = ("auto", "cuda")
 _PER_STATE_TIER = "ROADMAP Queue 1 item 6 (the per-state tier)"
@@ -144,3 +144,43 @@ def forward_dynamics_gradient(model: RobotModel, q, qd, u, *,
     _check_impl(impl, q)
     return _run(model, (q, qd, u), lambda m, *s: torch.cat(
         fused.fd_grad_fused(m, *s, gravity=gravity), dim=1))
+
+
+# --------------------------------------------------------------------------
+# Second order
+# --------------------------------------------------------------------------
+def forward_dynamics_gradient_full(model: RobotModel, q, qd, u, *,
+                                   gravity: float = -9.81,
+                                   impl: str = "auto"):
+    """[∂q̈/∂q | ∂q̈/∂q̇ | ∂q̈/∂u] as (..., n, 3n): the ∇FD route's two
+    blocks and the M⁻¹ route's ∂q̈/∂u = M⁻¹."""
+    _check_states(model, (q, qd, u), ("q", "qd", "u"))
+    _check_impl(impl, q)
+    return _run(model, (q, qd, u), lambda m, q_, qd_, u_: torch.cat(
+        [*fused.fd_grad_fused(m, q_, qd_, u_, gravity=gravity),
+         fused.minv_fused(m, q_)], dim=1))
+
+
+def forward_dynamics_hessian(model: RobotModel, q, qd, u, *,
+                             gravity: float = -9.81, impl: str = "auto"):
+    """∂²q̈/∂x∂x, x = (q, q̇, u), as (..., n, 3n, 3n), symmetric in the
+    trailing pair: the single-thread Hessian kernel while
+    ``_build.dense_hessian(n)``, else n staged λᵀ·H calls (λ = e_i)."""
+    _check_states(model, (q, qd, u), ("q", "qd", "u"))
+    _check_impl(impl, q)
+    return _run(model, (q, qd, u),
+                lambda m, *s: so_fused.fd_hessian_fused(m, *s,
+                                                        gravity=gravity))
+
+
+def forward_dynamics_hessian_vp(model: RobotModel, q, qd, u, lam, *,
+                                gravity: float = -9.81, impl: str = "auto"):
+    """λᵀ·∂²q̈/∂x∂x as (..., 3n, 3n) — the DDP backward pass's curvature
+    term Σᵢ λᵢ·f_zz[i]. ``lam`` is (..., n), batched like the states. The
+    single-thread kernel while ``_build.dense_hessian_vp(n)``, else the
+    staged pipeline."""
+    _check_states(model, (q, qd, u, lam), ("q", "qd", "u", "lam"))
+    _check_impl(impl, q)
+    return _run(model, (q, qd, u, lam),
+                lambda m, *s: so_fused.fd_hessian_vp_fused(m, *s,
+                                                           gravity=gravity))

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``csrc/`` for one robot topology, at first use.
 
 One shared library per topology and source: ``nvcc`` compiles
-``csrc/fused.cu`` (the single-kernel families) and ``csrc/staged.cu`` (the
-staged large-robot pipeline) for ``sm_90a``, both at once, with the joint
+``csrc/fused.cu`` (the single-kernel families), ``csrc/staged.cu`` (the
+staged large-robot pipeline) and ``csrc/so.cu`` (the second-order kernels)
+for ``sm_90a``, all at once, with the joint
 count, parent indices and joint types passed as ``-D`` macros
 (``csrc/rbd.cuh``). The libraries have a plain C interface and are loaded
 with ``ctypes``; they land in ``build/torch_kernels/`` at the repository
@@ -24,30 +25,41 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("rbd.cuh", "aba.cuh", "staged.cuh")
+_HEADERS = ("rbd.cuh", "aba.cuh", "staged.cuh", "dual.cuh", "so.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # The single-thread ∇FD, ∂ID and M⁻¹ kernels keep O(n²) values a state in
-# local memory: ∇FD's frame is ≈ 28·n² values, and the card reserves that
-# frame for every resident thread (2048 a SM, 132 SMs). At 16 joints that
-# is 7168 values a thread, four times the n = 7 frame ptxas reports; past
-# it the frame, the reservation and nvcc's time grow as n² while the staged
-# kernels (staged.cu) hold 18·n·cb + O(n) values. So past this joint count
-# those three families take the staged route; RNEA and ABA, O(n) a state,
-# run on one thread for every robot. The limit is this card's per-thread
-# budget, not the JAX package's VMEM calibration (staged.py:39-62); where
-# the two routes' times cross is what chip_smoke.py's routes phase times
-# (∇FD of HyQ, n = 12, and a seeded 16-joint tree on both).
-MAX_KERNEL_JOINTS = 16
+# local memory (∇FD's frame is ≈ 28·n² values) while the staged kernels
+# (staged.cu) hold 18·n·cb + O(n). Past this joint count those three
+# families take the staged route; RNEA and ABA, O(n) a state, run on one
+# thread for every robot. Set where the two routes' ∇FD times cross on an
+# H100 (chip_smoke.py's routes phase, f32, 2¹⁸ states): the single-thread
+# kernel is faster at 9, 10 and 11 joints, the staged pipeline at 12 and 16.
+MAX_KERNEL_JOINTS = 11
 # Values of the K5 ∂-tensor arrays (dv, da, df: 18·n·cb) a thread may hold;
-# sets the default column-block width (default_col_block). Chosen from the
-# ptxas frame (no spills), not from a timing of other widths.
+# sets the default column-block width (default_col_block): cb = 4 at Atlas,
+# which chip_smoke.py times faster than blocks of 2 and than a build 7
+# wide.
 _K5_VALUES = 2048
+# The single-thread Hessian kernel (csrc/so.cu) runs the ∇FD body and M⁻¹
+# in dual numbers along one direction a thread. It is built, and the full
+# Hessian takes it, up to MAX_HESSIAN_JOINTS; past it the full Hessian is
+# n calls of the staged λᵀ·H pipeline (T1/T2/T4/T5), 5.2× the single-thread
+# kernel's time at 7 joints and 4.1× at 12 on an H100 (chip_smoke.py's
+# routes phase, f32, 2¹⁶ states). λᵀ·H takes the single-thread kernel only
+# up to MAX_HESSIAN_VP_JOINTS: the staged pipeline sweeps 2n directions,
+# not 3n, and stages no n×n tangent; the single-thread kernel was faster
+# at 2 joints (2.6×), the staged one at every count timed from 5 to 12
+# (1.09× at 5, 1.35× at 7, 2.9× at 12). The two limits are the JAX
+# package's two gates (so_fused.full_block and vp_block, api.py:499, :525).
+MAX_HESSIAN_JOINTS = 12
+MAX_HESSIAN_VP_JOINTS = 2
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _D = ctypes.c_double
+_I = ctypes.c_int
 # unit → entry → argtypes (every entry has an _f32 and an _f64 variant)
 _UNITS = {
     "fused.cu": {
@@ -73,8 +85,23 @@ _UNITS = {
         "grid_minv_dense": (_P, _P, _P, _P, _P, _LL, _P),
         # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, gravity,
         # stream
-        "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                           ctypes.c_int, _D, _P),
+        "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _D,
+                           _P),
+    },
+    "so.cu": {
+        # consts, q, qd, u, lam (or NULL: the full tensor), out, B, gravity,
+        # stream
+        "grid_hessian": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, dc, dv, B, which, gravity, stream
+        "grid_t1": (_P, _P, _P, _P, _P, _LL, _I, _D, _P),
+        # consts, q, lamM, qdd, Minv, dc, dlamM, dqdd, B, stream
+        "grid_t2": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _P),
+        # consts, q, qd, qdd, v, dv, dqdd, da, df, B, which, gravity, stream
+        "grid_t4": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _D, _P),
+        # consts, q, qd, v, a, f, lamM, dv, da, df, out, B, which, side_q,
+        # cb, gravity, stream
+        "grid_t5": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                    _I, _D, _P),
     },
 }
 
@@ -85,13 +112,36 @@ def dense_grads(n: int) -> bool:
     return n <= MAX_KERNEL_JOINTS
 
 
-def default_col_block(n: int) -> int:
-    """K5's column-block width: the widest block whose ∂-tensors fit
-    ``_K5_VALUES`` a thread, preferring a width that divides n (uniform
-    blocks) unless that would waste more than half of it."""
-    cb_max = max(1, min(n, _K5_VALUES // (18 * n)))
+def dense_hessian(n: int) -> bool:
+    """Whether the full Hessian runs as the single-thread kernel (else as n
+    staged λᵀ·H calls) — read by its routing and by the build."""
+    return n <= MAX_HESSIAN_JOINTS
+
+
+def dense_hessian_vp(n: int) -> bool:
+    """Whether λᵀ·H runs as the single-thread kernel (else as the staged
+    pipeline)."""
+    return dense_hessian(n) and n <= MAX_HESSIAN_VP_JOINTS
+
+
+def _widest_block(n: int, values_per_col: int) -> int:
+    """The widest column block whose ∂-tensors fit ``_K5_VALUES`` a thread,
+    preferring a width that divides n (uniform blocks) unless that would
+    waste more than half of it."""
+    cb_max = max(1, min(n, _K5_VALUES // (values_per_col * n)))
     best = max(d for d in range(1, cb_max + 1) if n % d == 0)
     return best if best * 2 > cb_max else cb_max
+
+
+def default_col_block(n: int) -> int:
+    """K5's column-block width (dv, da, df: 18·n values a column)."""
+    return _widest_block(n, 18)
+
+
+def so_col_block(n: int) -> int:
+    """T5's column-block width: K5's ∂-tensors in dual numbers, 36·n values
+    a column."""
+    return _widest_block(n, 36)
 
 
 @dataclass(frozen=True)
@@ -151,6 +201,8 @@ def _macros(key: tuple) -> list[str]:
         "-DGRID_PRISMATIC=" + "".join(f"G({p})" for p in prism),
         f"-DGRID_DENSE_GRADS={int(dense_grads(n))}",
         f"-DGRID_CB={default_col_block(n)}",
+        f"-DGRID_DENSE_HESSIAN={int(dense_hessian(n))}",
+        f"-DGRID_SO_CB={so_col_block(n)}",
     ]
 
 

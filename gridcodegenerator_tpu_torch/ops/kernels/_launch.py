@@ -1,5 +1,5 @@
 """Launch bookkeeping shared by the kernel wrappers (:mod:`.fused`,
-:mod:`.staged`): input checks, output allocation, the ctypes launch and the
+:mod:`.staged`, :mod:`.so_fused`, :mod:`.so_staged`): input checks, output allocation, the ctypes launch and the
 per-kernel ``LAUNCHES`` counters. A counter rises only on a successful
 launch, never on a CPU tensor's plain version."""
 
@@ -16,6 +16,8 @@ LAUNCHES = {
     # csrc/staged.cu: the staged pipeline
     "bias_and_v": 0, "minv_dense": 0, "af": 0, "vaf": 0, "grad_cols": 0,
     "grad_cols_finish": 0,
+    # csrc/so.cu: the single-thread Hessians and the staged tangent stages
+    "hessian_vp": 0, "hessian": 0, "t1": 0, "t2": 0, "t4": 0, "t5": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}

@@ -19,6 +19,14 @@
 // Every sum runs in the order of the plain PyTorch version
 // (gridcodegenerator_tpu_torch/ops/blops.py); nvcc's FMA contraction is the
 // only difference in rounding.
+//
+// The recursions are templates on the value type T, and the robot's
+// constants are of its base type base_t<T>: T itself for float and double,
+// and the underlying float or double for the dual numbers of dual.cuh,
+// whose instances of the same bodies are their forward-mode derivatives
+// (the second-order kernels, so.cu). The 6-vector helpers take each operand
+// in its own type, so a constant times a dual number costs two products,
+// not four.
 #pragma once
 
 #ifndef GRID_N
@@ -48,6 +56,15 @@ __host__ __device__ constexpr bool prismatic(int i) {
 }
 #undef G
 
+// The type of the robot's constants for values of type T (dual.cuh
+// specialises it for its dual numbers).
+template <typename T>
+struct Base {
+  using type = T;
+};
+template <typename T>
+using base_t = typename Base<T>::type;
+
 // Views into the packed constants (shared memory in the kernels).
 template <typename T>
 struct Robot {
@@ -73,8 +90,8 @@ __device__ __forceinline__ void sincos_t(double x, double* s, double* c) {
 
 // ---------------------------------------------------------------- 6-vectors
 // out[r] = Σ_c X[r][c]·v[c]
-template <typename T>
-__device__ __forceinline__ void matvec6(const T* X, const T* v, T* out) {
+template <typename A, typename V, typename T>
+__device__ __forceinline__ void matvec6(const A* X, const V* v, T* out) {
 #pragma unroll
   for (int r = 0; r < 6; ++r) {
     T acc = X[r * 6] * v[0];
@@ -85,8 +102,8 @@ __device__ __forceinline__ void matvec6(const T* X, const T* v, T* out) {
 }
 
 // out[r] = Σ_c X[c][r]·v[c]  (Xᵀ·v)
-template <typename T>
-__device__ __forceinline__ void matvec6_T(const T* X, const T* v, T* out) {
+template <typename A, typename V, typename T>
+__device__ __forceinline__ void matvec6_T(const A* X, const V* v, T* out) {
 #pragma unroll
   for (int r = 0; r < 6; ++r) {
     T acc = X[r] * v[0];
@@ -96,16 +113,16 @@ __device__ __forceinline__ void matvec6_T(const T* X, const T* v, T* out) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
+template <typename A, typename V, typename T>
+__device__ __forceinline__ void cross3(const A* a, const V* b, T* out) {
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];
 }
 
 // m × x = [ω_m×x_ω ; ω_m×x_v + v_m×x_ω]
-template <typename T>
-__device__ __forceinline__ void crm_apply(const T* m, const T* x, T* out) {
+template <typename A, typename V, typename T>
+__device__ __forceinline__ void crm_apply(const A* m, const V* x, T* out) {
   T t1[3], t2[3];
   cross3(m, x, out);
   cross3(m, x + 3, t1);
@@ -115,8 +132,8 @@ __device__ __forceinline__ void crm_apply(const T* m, const T* x, T* out) {
 }
 
 // m ×* x = [ω_m×x_ω + v_m×x_v ; ω_m×x_v]
-template <typename T>
-__device__ __forceinline__ void crf_apply(const T* m, const T* x, T* out) {
+template <typename A, typename V, typename T>
+__device__ __forceinline__ void crf_apply(const A* m, const V* x, T* out) {
   T t1[3], t2[3];
   cross3(m, x, t1);
   cross3(m + 3, x + 3, t2);
@@ -128,7 +145,7 @@ __device__ __forceinline__ void crf_apply(const T* m, const T* x, T* out) {
 // -------------------------------------------------------- joint transforms
 // X_i = Xb_i + f1·Xs_i (+ f2·Xc_i): (sin, cos) for revolute, q for prismatic
 template <typename T>
-__device__ __forceinline__ void joint_transforms(const Robot<T>& R,
+__device__ __forceinline__ void joint_transforms(const Robot<base_t<T>>& R,
                                                  const T* q, T X[N][36]) {
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
@@ -150,14 +167,14 @@ GRID_ROLLED
 // -------------------------------------------------------------------- RNEA
 // Forward sweep (rnea_fwd_bl). kQdd adds S·q̈; kVKnown reuses v.
 template <typename T, bool kQdd, bool kVKnown>
-__device__ __forceinline__ void rnea_fwd(const Robot<T>& R,
+__device__ __forceinline__ void rnea_fwd(const Robot<base_t<T>>& R,
                                          const T X[N][36], const T* qd,
                                          const T* qdd, T minus_g,
                                          T v[N][6], T a[N][6], T f[N][6]) {
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
     const int p = parent(i);
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
     T Sqd[6], t[6];
 #pragma unroll
     for (int r = 0; r < 6; ++r) Sqd[r] = S[r] * qd[i];
@@ -191,7 +208,7 @@ GRID_ROLLED
   }
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const T* I = R.I + 36 * i;
+    const auto* I = R.I + 36 * i;
     T Iv[6], Ia[6], t[6];
     matvec6(I, v[i], Iv);
     matvec6(I, a[i], Ia);
@@ -204,7 +221,7 @@ GRID_ROLLED
 // Backward sweep (rnea_bwd_bl): wrenches to the root; with kTorque also
 // c_i = S_iᵀf_i + damping_i·q̇_i (+ armature_i·q̈_i with kQdd).
 template <typename T, bool kTorque, bool kQdd>
-__device__ __forceinline__ void rnea_bwd(const Robot<T>& R,
+__device__ __forceinline__ void rnea_bwd(const Robot<base_t<T>>& R,
                                          const T X[N][36], T f[N][6],
                                          const T* qd, const T* qdd, T* c) {
 GRID_ROLLED
@@ -220,7 +237,7 @@ GRID_ROLLED
   if (kTorque) {
 GRID_ROLLED
     for (int i = 0; i < N; ++i) {
-      const T* S = R.S + 6 * i;
+      const auto* S = R.S + 6 * i;
       T acc = S[0] * f[i][0];
 #pragma unroll
       for (int r = 1; r < 6; ++r) acc += S[r] * f[i][r];
@@ -235,7 +252,8 @@ GRID_ROLLED
 // The articulated recursion (minv_bl), then densify_rows: M is the dense
 // symmetric M⁻¹ on return.
 template <typename T>
-__device__ __forceinline__ void minv(const Robot<T>& R, const T X[N][36],
+__device__ __forceinline__ void minv(const Robot<base_t<T>>& R,
+                                     const T X[N][36],
                                      T M[N][N]) {
   T IA[N][36];
   T F[N][6][N];
@@ -253,7 +271,7 @@ GRID_ROLLED
 GRID_ROLLED
   for (int i = N - 1; i >= 0; --i) {
     const int p = parent(i);
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
       T acc = IA[i][r * 6] * S[0];
@@ -320,7 +338,7 @@ GRID_ROLLED
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
     const int p = parent(i);
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
     if (p >= 0) {
       T UX[6];
       matvec6_T(X[i], U[i], UX);
@@ -357,7 +375,7 @@ GRID_ROLLED
 // (with damping on the diagonal). v, a, f are the RNEA sweep at the q̈ the
 // gradient is taken at, f already summed to the root.
 template <typename T, bool kQ>
-__device__ __forceinline__ void id_grad_side(const Robot<T>& R,
+__device__ __forceinline__ void id_grad_side(const Robot<base_t<T>>& R,
                                              const T X[N][36], const T* qd,
                                              const T v[N][6],
                                              const T a[N][6],
@@ -371,8 +389,8 @@ __device__ __forceinline__ void id_grad_side(const Robot<T>& R,
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
     const int p = parent(i);
-    const T* S = R.S + 6 * i;
-    const T* I = R.I + 36 * i;
+    const auto* S = R.S + 6 * i;
+    const auto* I = R.I + 36 * i;
     // ---- ∂v_i = X_i·∂v_p, plus the seed column i
     T seed[6];
     if (kQ) {
@@ -496,7 +514,7 @@ GRID_ROLLED
   // ---- dc_i = S_iᵀ·∂f_i
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
 GRID_ROLLED
     for (int j = 0; j < N; ++j) {
       T acc = S[0] * df[i][0][j];

@@ -93,8 +93,8 @@ GRID_ROLLED
 // CRBA (blops.crba_bl): M + diag(armature) into the lower triangle of A,
 // zero where two joints share no root path (other trees of a forest too).
 template <typename T>
-__device__ __forceinline__ void crba(const Robot<T>& R, const T X[N][36],
-                                     T A[N][N]) {
+__device__ __forceinline__ void crba(const Robot<base_t<T>>& R,
+                                     const T X[N][36], T A[N][N]) {
   T IC[N][36];
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
@@ -130,7 +130,7 @@ GRID_ROLLED
   }
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
     T F[6];
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
@@ -151,7 +151,7 @@ GRID_ROLLED
 #pragma unroll
       for (int r = 0; r < 6; ++r) F[r] = t[r];
       j = parent(j);
-      const T* Sj = R.S + 6 * j;
+      const auto* Sj = R.S + 6 * j;
       T val = Sj[0] * F[0];
 #pragma unroll
       for (int c = 1; c < 6; ++c) val += Sj[c] * F[c];
@@ -238,23 +238,24 @@ GRID_ROLLED
 }
 
 // ------------------------------------------------------------------- K5
-// One side of rnea_grad_cols_bl for the columns [c0, c0 + w), w ≤ CB:
+// One side of rnea_grad_cols_bl for the columns [c0, c0 + w), w ≤ W (the
+// arrays' width: CB for K5, SO_CB for the dual-number T5 of so.cuh):
 // kQ → ∂c/∂q, else ∂c/∂q̇ (damping on the diagonal). Writes the rows
 // dc[i][k] and has_df[i] (false where the row is structurally zero: joint
 // i outside ancestors ∪ subtree of the block). dv, da, df are scratch.
-template <typename T, bool kQ>
+template <typename T, bool kQ, int W = CB>
 __device__ __forceinline__ void grad_cols_side(
-    const Robot<T>& R, const T X[N][36], const T* qd, const T v[N][6],
-    const T a[N][6], const T f[N][6], T minus_g, int c0, int w,
-    const bool in_sub[N], T dv[N][6][CB], T da[N][6][CB], T df[N][6][CB],
-    bool has_df[N], T dc[N][CB]) {
+    const Robot<base_t<T>>& R, const T X[N][36], const T* qd,
+    const T v[N][6], const T a[N][6], const T f[N][6], T minus_g, int c0,
+    int w, const bool in_sub[N], T dv[N][6][W], T da[N][6][W],
+    T df[N][6][W], bool has_df[N], T dc[N][W]) {
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
     has_df[i] = in_sub[i];
     if (!in_sub[i]) continue;
     const int p = parent(i);
-    const T* S = R.S + 6 * i;
-    const T* I = R.I + 36 * i;
+    const auto* S = R.S + 6 * i;
+    const auto* I = R.I + 36 * i;
     const bool has_p = p >= 0 && in_sub[p];
     const int ki = i - c0;  // direction i's column; in the block if < w
     const bool in_block = ki >= 0 && ki < w;  // the seeds enter only there
@@ -382,7 +383,7 @@ GRID_ROLLED
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
     if (!has_df[i]) continue;
-    const T* S = R.S + 6 * i;
+    const auto* S = R.S + 6 * i;
 GRID_ROLLED
     for (int k = 0; k < w; ++k) {
       T acc = S[0] * df[i][0][k];

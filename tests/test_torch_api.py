@@ -163,14 +163,17 @@ def test_unported_options_raise():
         gt.forward_dynamics_gradient(m, q, q, q, impl="pallas")
 
 
-PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.kernels._build",
+PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
+                "ops.kernels.so_fused", "ops.kernels.so_staged",
                 "ops.kernels.contact_fused", "models.robot", "utils.golden")
 
 
 def test_port_imports_no_jax():
     """The port runs in a process where importing jax fails: every module,
-    the single-kernel families on iiwa-14 and the staged ones on Atlas."""
+    the single-kernel families on iiwa-14 and the staged ones on Atlas, and
+    the three second-order entries (on the double pendulum, to stay
+    quick)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -186,6 +189,15 @@ def test_port_imports_no_jax():
         "    a = gt.forward_dynamics(m, q, q, q)\n"
         "    assert J.shape == (3, n, 2 * n) and a.shape == (3, n)\n"
         "    assert bool(torch.isfinite(J).all() & torch.isfinite(a).all())\n"
+        "m = gt.load_robot(zoo.double_pendulum(), dtype=torch.float64, "
+        "device='cpu')\n"
+        "q = torch.full((3, 2), 0.3, dtype=torch.float64)\n"
+        "outs = (gt.forward_dynamics_gradient_full(m, q, q, q),\n"
+        "        gt.forward_dynamics_hessian(m, q, q, q),\n"
+        "        gt.forward_dynamics_hessian_vp(m, q, q, q, q))\n"
+        "assert [tuple(o.shape) for o in outs] == [(3, 2, 6), (3, 2, 6, 6), "
+        "(3, 6, 6)]\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"
         "print('ok')\n")
