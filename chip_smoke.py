@@ -7,8 +7,10 @@ Builds the port's CUDA kernels from ``gridcodegenerator_tpu_torch/ops/
 kernels/csrc`` and runs, on ``cuda:0``:
 
 0. a toolchain probe: the card's name and power limit, torch and its CUDA,
-   nvcc, whether triton imports; then the kernel builds of iiwa-14, the
-   branched arm, Atlas, HyQ and a 16-joint tree, all at once (nvcc
+   nvcc, whether triton imports; then the kernel builds of seven
+   single-dof robots (iiwa-14, the branched arm, Atlas, the route robots)
+   and five multi-dof ones (the ball arm, free-joint iiwa-14, a mixed
+   revolute/prismatic chain, free HyQ, free Atlas), all at once (nvcc
    seconds and ptxas's register / stack frame / spill report per kernel);
 1. every kernel against its plain PyTorch version at B = 4096 and a ragged
    B = 1000, in float64 and float32: the single-kernel families on iiwa-14
@@ -16,7 +18,9 @@ kernels/csrc`` and runs, on ``cuda:0``:
    both and on Atlas; the staged kernels (K1, K2′ with and without a
    right-hand side, K4, the ∂ID vaf sweep, K5 with and without the finish)
    on Atlas (n = 28, a forest) and forced on the branched arm at a column
-   block that leaves a ragged last block;
+   block that leaves a ragged last block; the second-order kernels; the
+   four multi-dof kernels on the ball arm, free iiwa-14, the mixed chain
+   and free HyQ, and on the ball arm with armature;
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -28,13 +32,21 @@ A. path A, Atlas at B = 2¹⁸, float32: ``forward_dynamics_gradient``
    ``forward_dynamics``; launch counts, the 256-state ∇FD parity head beside
    the plain float32 version's head, each output and each stage kernel
    against its plain version;
+H. the second-order paths at B = 2¹⁶ (iiwa-14, the double pendulum,
+   Atlas's staged λᵀ·H);
 3. times: the median of CUDA-event-timed calls of each kernel and of its
-   plain version at its path's shape, the API times, and a profiler
-   breakdown of the Atlas ∇FD call; each kernel's bound (the larger of its
-   operations over the card's float32 rate and its bytes over its memory
-   rate; operations as :class:`OpCount` counts them); ∇FD of HyQ (n = 12)
-   and a 16-joint tree on both routes, the single-thread kernel and the
-   staged pipeline, each held to its plain version first.
+   plain version at its path's shape, the API times, and profiler
+   breakdowns; each kernel's bound (the larger of its operations over the
+   card's float32 rate and its bytes over its memory rate; operations as
+   :class:`OpCount` counts them); ∇FD and λᵀ·H on both routes on either
+   side of their joint-count limits;
+M. the multi-dof paths at B = 2¹⁸, float32: free iiwa-14's tangent-space
+   ∇FD (the main path), free HyQ's ∇FD and ∂ID, the ball arm's four
+   families, free Atlas's ID and ABA — one launch a call, each output's
+   head against its plain version, and on the ∇FD robots ∂q̈/∂u·(u − c)
+   against ABA and ∂q̈/∂δq, ∂q̈/∂q̇ against central differences of ABA;
+   then their kernels' times and bounds, and free Atlas's ∇FD on the
+   single-thread kernel at 2¹⁶.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -42,6 +54,7 @@ there is no CUDA device or any check fails. The second-to-last line is the
 kernels' JSON record; the last is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import re
 import shutil
@@ -63,6 +76,7 @@ from gridcodegenerator_tpu_torch.ops import so as tso
 from gridcodegenerator_tpu_torch.ops.kernels import (_build, _launch, fused,
                                                     so_fused, so_staged,
                                                     staged)
+from gridcodegenerator_tpu_torch.ops.kernels import multidof_fused as mdf
 
 SEED = 0
 MAIN_B = 1 << 18
@@ -92,6 +106,7 @@ PEAK_BYTES = 3.35e12
 FUSED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/fused.cu"
 STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/staged.cu"
 SO_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/so.cu"
+MD_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md.cu"
 # second order: 2¹⁶ states (e.g. 512 DDP rollouts × 128 knots); the plain
 # versions are timed at a quarter of it and scaled
 HESS_B = 1 << 16
@@ -103,31 +118,43 @@ TPU = "gridcodegenerator_tpu/ops/kernels/"
 ROBOTS = {"iiwa14": zoo.iiwa14(), "branched_arm": zoo.branched_arm(),
           "atlas": zoo.atlas()}
 FORCED_CB = 4   # the branched arm (n = 9) through K5 and T5: blocks 4, 4, 1
-# robots whose ∇FD is timed on both routes, to place MAX_KERNEL_JOINTS: the
-# branched arm, seeded 10- and 11-joint trees (branched, M(q) condition
-# ≤ 4e3 on random states), a forest of four 3-joint legs, and a seeded
-# 16-joint forest of three trees, one a 10-joint chain (a 16-joint serial
-# chain's M(q) is too ill-conditioned for the float64 check's 1e-11). HyQ's
-# λᵀ·H is timed on both routes, to place MAX_HESSIAN_JOINTS.
-ROUTE_ROBOTS = {"branched_arm": zoo.branched_arm(),
-                "tree10": zoo.random_tree(10, seed=3),
-                "tree11": zoo.random_tree(11, seed=3), "hyq": zoo.hyq(),
-                "tree16": zoo.random_tree(16, seed=0)}
+# robots whose ∇FD is timed on both routes, on either side of
+# MAX_KERNEL_JOINTS (11): a seeded 11-joint tree (branched, M(q) condition
+# ≤ 4e3 on random states) and HyQ, a forest of four 3-joint legs (the
+# branched arm and seeded 10- and 16-joint trees, timed when the limit was
+# placed, are in PERF.md). HyQ's λᵀ·H is timed on both routes too, and its
+# full H at MAX_HESSIAN_JOINTS (12).
+ROUTE_ROBOTS = {"tree11": zoo.random_tree(11, seed=3), "hyq": zoo.hyq()}
 # while the routes are built, checked and timed, the single-thread kernels
 # exist up to these joint counts whatever the routing limits are
 ROUTE_LIMITS = {"MAX_KERNEL_JOINTS": 16, "MAX_HESSIAN_JOINTS": 12,
-                "MAX_HESSIAN_VP_JOINTS": 12}
-# λᵀ·H on both routes: the double pendulum, a 5-joint chain, iiwa-14 (a
-# 7-joint chain) and the ∇FD route robots up to 12 joints
+                "MAX_HESSIAN_VP_JOINTS": 12, "MAX_MD_GRAD_NV": 34}
+# λᵀ·H on both routes, on either side of MAX_HESSIAN_VP_JOINTS (2): the
+# double pendulum and a 5-joint chain; and HyQ for the full H
 HESS_ROUTE_ROBOTS = {"dpend": zoo.double_pendulum(),
-                     "chain5": zoo.serial_chain(5),
-                     "iiwa14": ROBOTS["iiwa14"],
-                     **{k: ROUTE_ROBOTS[k] for k in ("branched_arm", "tree10",
-                                                     "tree11", "hyq")}}
+                     "chain5": zoo.serial_chain(5), "hyq": ROUTE_ROBOTS["hyq"]}
 # the robot whose λᵀ·H phase H and phase 3 run on the single-thread kernel
 # (the largest one under MAX_HESSIAN_VP_JOINTS)
 SMALL_SO_ROBOT = "dpend"
 ROUTE_SO_STATES = 1024   # the route checks' float64 states
+# multi-dof: ball joints (the ball arm, nq 9, nv 7), a true 6-dof free joint
+# at the root of iiwa-14 (n 8, nq 14, nv 13: the main path), of HyQ (n 13,
+# nv 18) and of Atlas (n 29, nq 35, nv 34), and a mixed revolute /
+# prismatic chain; damping 0.1 as in the JAX package's multi-dof tests
+MD_ROBOTS = {
+    "ball_arm": zoo.ball_arm(damping=0.1),
+    "free_iiwa14": zoo.with_free_joint(zoo.iiwa14(damping=0.1)),
+    "mixed_chain": zoo.serial_chain(5, damping=0.1, prismatic_every=2),
+    "free_hyq": zoo.with_free_joint(zoo.hyq(damping=0.1)),
+    "free_atlas": zoo.with_free_joint(zoo.atlas(damping=0.1)),
+}
+MD_CHECK = ("ball_arm", "free_iiwa14", "mixed_chain", "free_hyq")
+MD_ARMATURE = 0.05       # the phase-1 armature case (the ball arm)
+MD_ATLAS_FD_B = 1 << 16  # free Atlas ∇FD on the single-thread kernel
+MD_FD_STATES = 64        # states of the finite-difference checks
+MD_FD_STEP = 1e-6        # central-difference step (float64)
+MD_FD_TOL = 1e-6         # ∇FD vs central differences, relative
+MD_SOLVE_TOL = 1e-8      # ∂q̈/∂u·(u − c) vs ABA's q̈, relative
 
 
 @contextmanager
@@ -323,6 +350,58 @@ SO_PRIMALS = {
 }
 
 
+# the multi-dof kernels: name → (LAUNCHES key, kernel, plain, number of
+# (q, q̇, u) inputs); u stands for q̈ in ID and ∂ID, and two inputs are the
+# qdd=None variants (the bias force; ∂ID at q̈ = 0)
+MD_PAIRS = {
+    "md_id": ("md_id", mdf.md_id_fused, mdf.md_id_plain, 3),
+    "md_bias": ("md_id", mdf.md_id_fused, mdf.md_id_plain, 2),
+    "md_aba": ("md_aba", mdf.md_aba_fused, mdf.md_aba_plain, 3),
+    "md_id_grad": ("md_id_grad", mdf.md_id_grad_fused, mdf.md_id_grad_plain,
+                   3),
+    "md_id_grad_noqdd": ("md_id_grad", mdf.md_id_grad_fused,
+                         mdf.md_id_grad_plain, 2),
+    "md_fd_grad": ("md_fd_grad", mdf.md_fd_grad_fused, mdf.md_fd_grad_plain,
+                   3),
+}
+# the batched entry points: family → (entry, LAUNCHES key, plain, inputs)
+MD_API = {
+    "id": (gt.md_inverse_dynamics_batched, "md_id", mdf.md_id_plain, 3),
+    "aba": (gt.md_forward_dynamics_batched, "md_aba", mdf.md_aba_plain, 3),
+    "id_grad": (gt.md_id_grad_batched, "md_id_grad", mdf.md_id_grad_plain,
+                3),
+    "fd_grad": (gt.md_forward_dynamics_gradient_batched, "md_fd_grad",
+                mdf.md_fd_grad_plain, 3),
+}
+# phase M: robot → the families driven through the API at MAIN_B
+MD_PATHS = {
+    "free_iiwa14": ("fd_grad",),
+    "free_hyq": ("fd_grad", "id_grad"),
+    "ball_arm": ("id", "aba", "id_grad", "fd_grad"),
+    "free_atlas": ("id", "aba"),
+}
+
+
+def md_model(label, dtype=torch.float32, armature=None):
+    desc = gt.parse_urdf(MD_ROBOTS[label])
+    if armature is not None:
+        desc = dataclasses.replace(desc, armature=np.full(desc.n, armature))
+    return gt.multidof_model_from_description(desc, dtype=dtype,
+                                              device="cuda")
+
+
+def md_states(m, B, gen, layout="nB"):
+    """The JAX package's multi-dof states: neutral_q ⊕ a tangent step in
+    [−0.6, 0.6], q̇ ∈ [−0.8, 0.8], u ∈ [−5, 5]; q (nq, B), the others
+    (nv, B), or batch first."""
+    def uni(r):
+        return (torch.rand((B, m.nv), generator=gen, device="cuda",
+                           dtype=m.dtype) * (2 * r) - r)
+    q = gt.md_tangent_apply(m, gt.neutral_q(m).expand(B, -1), uni(0.6))
+    out = [q, uni(0.8), uni(5.0)]
+    return out if layout == "Bn" else [x.T.contiguous() for x in out]
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -372,10 +451,12 @@ def phase0_toolchain():
 
 
 _PTXAS_NAME = re.compile(
-    r"(fd_grad|id_grad|minv_dense|minv|rnea|aba|vaf|grad_cols|hessian|t1|t2"
-    r"|t4|t5)_kernelI([fd])(?:L([bi])(\d+)E)?")
+    r"(md_rnea|md_aba|md_id_grad|md_fd_grad|fd_grad|id_grad|minv_dense|minv"
+    r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
+    r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
-                 "grad_cols": "finish", "hessian": "lam", "t5": "q"}
+                 "grad_cols": "finish", "hessian": "lam", "t5": "q",
+                 "md_rnea": "qdd", "md_id_grad": "qdd"}
 
 
 def ptxas_report(log_text):
@@ -413,12 +494,17 @@ def build_all(models):
         f"{time.perf_counter() - t0:.1f} s wall")
     for label, m in models.items():
         lib = _build.library(m)     # raises here if its build failed
+        if hasattr(m, "nv"):
+            what = (f"nq={m.nq}, nv={m.nv}, gradient kernels "
+                    f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}")
+        else:
+            what = (f"K5 column block {_build.default_col_block(m.n)}, T5 "
+                    f"{_build.so_col_block(m.n)}")
         for unit in lib.paths:
             log(f"build {label} (n={m.n}) {unit}: nvcc "
                 f"{lib.build_seconds[unit]:.1f} s -> "
                 f"{lib.paths[unit].relative_to(_build.BUILD_DIR.parents[1])}"
-                f" (K5 column block {_build.default_col_block(m.n)}, T5 "
-                f"{_build.so_col_block(m.n)})")
+                f" ({what})")
             for line in ptxas_report(lib.logs[unit]):
                 log(line)
 
@@ -523,6 +609,23 @@ def phase1_kernels_vs_plain(gen):
                         f"phase1 {label} {str(dtype)[6:]} B={B} staged "
                         f"{name}{'' if cb is None else f' cb={cb}'}",
                         got, plain, m, args)
+
+
+def phase1_multidof(gen):
+    """The four multi-dof kernels (and the qdd=None variants) against their
+    plain versions at B = 1000, float64 and float32, on the ball arm, free
+    iiwa-14, the mixed chain and free HyQ, and on the ball arm with
+    armature."""
+    cases = [(label, None) for label in MD_CHECK] + [("ball_arm",
+                                                      MD_ARMATURE)]
+    for label, arm in cases:
+        for dtype in (torch.float64, torch.float32):
+            m = md_model(label, dtype, arm)
+            s = md_states(m, 1000, gen)
+            tag = (f"phase1 {label}{'' if arm is None else f' armature {arm}'}"
+                   f" {str(dtype)[6:]} B=1000")
+            for name, (key, kern, plain, k) in MD_PAIRS.items():
+                run_pair(f"{tag} {name}", key, kern, plain, m, s[:k])
 
 
 # ---------------------------------------------------------------- phase 2
@@ -834,6 +937,110 @@ def phaseH_second_order(gen, mA):
              "atlasH": a_launches}, max_abs, sA)
 
 
+# ---------------------------------------------------------------- phase M
+def md_solve_check(tag, m64, s64):
+    """∂q̈/∂u·(u − c) against the ABA kernel's q̈, c from the ID kernel with
+    qdd=None: M⁻¹ from the ∇FD kernel's Cholesky against ABA's recursion,
+    neither through the ∂ID recursion."""
+    q, qd, u = s64
+    Du = mdf.md_fd_grad_fused(m64, q, qd, u)[2]
+    c = mdf.md_id_fused(m64, q, qd)
+    qdd = mdf.md_aba_fused(m64, q, qd, u)
+    got = torch.einsum("ijb,jb->ib", Du, u - c)
+    err = float(((got - qdd).abs().amax(0)
+                 / qdd.abs().amax(0).clamp(min=1.0)).max())
+    log(f"{tag} ∂q̈/∂u·(u − c) vs ABA q̈ (f64, {q.shape[-1]} states): rel "
+        f"{err:.3e} (bound {MD_SOLVE_TOL:.0e}) "
+        f"{'ok' if err <= MD_SOLVE_TOL else 'FAIL'}")
+    if err > MD_SOLVE_TOL:
+        raise RuntimeError(f"{tag}: ∂q̈/∂u·(u − c) disagrees with ABA")
+
+
+def md_fd_check(tag, m64, s64):
+    """∂q̈/∂δq and ∂q̈/∂q̇ of the ∇FD kernel against central differences of
+    the ABA kernel along md_tangent_apply (float64, every direction of every
+    state in one ABA launch a side)."""
+    q, qd, u = s64
+    nv, B = m64.nv, q.shape[-1]
+    Dq, Dqd, _ = mdf.md_fd_grad_fused(m64, q, qd, u)
+    h = MD_FD_STEP
+    step = torch.eye(nv, dtype=q.dtype, device=q.device) * h  # (nv dirs, nv)
+    rep = lambda x: x.T[None].expand(nv, B, x.shape[0])        # (nv, B, k)
+    dirs = step[:, None, :].expand(nv, B, nv)
+    worst = 0.0
+    for side, D in (("q", Dq), ("qd", Dqd)):
+        outs = []
+        for sign in (1.0, -1.0):
+            qq, qqd = rep(q), rep(qd)
+            if side == "q":
+                qq = gt.md_tangent_apply(m64, qq, sign * dirs)
+            else:
+                qqd = qqd + sign * dirs
+            flat = [x.reshape(nv * B, -1).T.contiguous()
+                    for x in (qq, qqd, rep(u))]
+            outs.append(mdf.md_aba_fused(m64, *flat).reshape(nv, nv, B))
+        fd = (outs[0] - outs[1]) / (2 * h)          # (row, direction, B)
+        err = float(((D - fd).abs().amax((0, 1))
+                     / D.abs().amax((0, 1)).clamp(min=1.0)).max())
+        worst = max(worst, err)
+        log(f"{tag} ∂q̈/∂{'δq' if side == 'q' else 'q̇'} vs central "
+            f"differences of ABA (f64, h {h:.0e}, {B} states): rel {err:.3e} "
+            f"(bound {MD_FD_TOL:.0e}) {'ok' if err <= MD_FD_TOL else 'FAIL'}")
+    if worst > MD_FD_TOL:
+        raise RuntimeError(f"{tag}: ∇FD disagrees with central differences")
+
+
+def phaseM_multidof(gen):
+    """The multi-dof entry points at B = 2¹⁸, float32: free iiwa-14's ∇FD
+    (the main path), free HyQ's ∇FD and ∂ID, all four on the ball arm, ID
+    and ABA on free Atlas. Each call runs with the counts set to 0 just
+    before it and read just after, and must launch its kernel once and
+    nothing else; a 256-state head of each output is held to its plain
+    version; on the ∇FD robots, two checks that do not go through the ∂ID
+    recursion, in float64 on a head of states."""
+    launches, max_abs, states, models = {}, {}, {}, {}
+    for label, fams in MD_PATHS.items():
+        m = md_model(label)
+        s = md_states(m, MAIN_B, gen, layout="Bn")
+        models[label], states[label] = m, s
+        for fam in fams:
+            fn, key, plain, k = MD_API[fam]
+            _launch.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(m, *s[:k])
+            torch.cuda.synchronize()
+            got = dict(_launch.LAUNCHES)
+            tag = f"phaseM {label} (n={m.n}, nq={m.nq}, nv={m.nv}) {fam}"
+            log(f"{tag} B={MAIN_B} (first call): "
+                f"{time.perf_counter() - t0:.3f} s; launches "
+                f"{ {k_: v for k_, v in got.items() if v} }")
+            others = {k_: v for k_, v in got.items() if k_ != key and v}
+            if got[key] != 1 or others:
+                raise RuntimeError(f"{tag}: launched {got[key]} × {key} and "
+                                   f"{others}, not one {key}")
+            launches[f"{label}:{fam}"] = got
+            shape = ((MAIN_B, m.nv) if fam in ("id", "aba")
+                     else (MAIN_B, m.nv, m.nv))
+            for o in _as_tuple(out):
+                if o.device.type != "cuda" or tuple(o.shape) != shape:
+                    raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+            check_finite(tag, out)
+            cols = [x[:PARITY_STATES].T.contiguous() for x in s[:k]]
+            got_head = tuple(o[:PARITY_STATES].movedim(0, -1)
+                             for o in _as_tuple(out))
+            max_abs[f"{label}:{fam}"], _ = check_against_plain(
+                f"{tag} API vs plain ({PARITY_STATES} states)",
+                got_head if len(got_head) > 1 else got_head[0], plain, m,
+                cols)
+            del out
+        if "fd_grad" in fams:
+            m64 = m.to(dtype=torch.float64)
+            s64 = [x[:MD_FD_STATES].double().T.contiguous() for x in s]
+            md_solve_check(f"phaseM {label}", m64, s64)
+            md_fd_check(f"phaseM {label}", m64, s64)
+    return launches, max_abs, models, states
+
+
 # ---------------------------------------------------------------- phase 3
 def time_ms(fn, args, calls=TIMED_CALLS, warmup=2):
     for _ in range(warmup):
@@ -978,32 +1185,44 @@ def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit):
 
 def profile_breakdown(fn, args, label, name_limit, calls=3):
     """Device time by kernel over ``calls`` calls (torch.profiler), and the
-    busy share of the window."""
+    busy share of the window. A trace that holds fewer launches of its
+    longest kernel than there were calls has lost events: it is taken once
+    more, and if it is short again its shares are not measured."""
     fn(*args)
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        a.record()
-        for _ in range(calls):
-            fn(*args)
-        b.record()
-        b.synchronize()
-    window = a.elapsed_time(b)
-    # device kernels only: an aten op's row repeats its kernels' time
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total",
-                      getattr(e, "self_cuda_time_total", 0))
-        if dev > 0 and (getattr(e, "device_type", None) == DeviceType.CUDA
-                        or not e.key.startswith(("aten::", "cuda"))):
-            rows.append((e.key, dev / 1e3, e.count))
-    busy = sum(r[1] for r in rows)
-    if not rows:
-        log(f"phase3 profile {label}: no device time in the trace (not "
-            f"measured)")
+    for attempt in (1, 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            a.record()
+            for _ in range(calls):
+                fn(*args)
+            b.record()
+            b.synchronize()
+        window = a.elapsed_time(b)
+        # device kernels only: an aten op's row repeats its kernels' time
+        rows = []
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            if dev > 0 and (getattr(e, "device_type", None) == DeviceType.CUDA
+                            or not e.key.startswith(("aten::", "cuda"))):
+                rows.append((e.key, dev / 1e3, e.count))
+        if not rows:
+            log(f"phase3 profile {label}: no device time in the trace (not "
+                f"measured)")
+            return
+        top = max(rows, key=lambda r: r[1])
+        if top[2] >= calls:
+            break
+        log(f"phase3 profile {label}: the trace holds {top[2]} launches of "
+            f"its longest kernel for {calls} calls (attempt {attempt}: "
+            f"events lost)")
+    else:
+        log(f"phase3 profile {label}: breakdown not measured")
         return
+    busy = sum(r[1] for r in rows)
     log(f"phase3 profile {label} ({calls} calls, window {window:.3f} ms, "
         f"device busy {busy:.3f} ms = {busy / window:.1%}; card "
         f"{name_limit}):")
@@ -1134,8 +1353,8 @@ def phase3_second_order(mA, sA, gen):
     for name, label in (("hessian_vp", SMALL_SO_ROBOT),
                         ("hessian", "iiwa14")):
         _, kern, plain, k = HESS_PAIRS[name]
-        m = gt.load_robot(HESS_ROUTE_ROBOTS[label], dtype=torch.float32,
-                          device="cuda")
+        m = gt.load_robot({**HESS_ROUTE_ROBOTS, **ROBOTS}[label],
+                          dtype=torch.float32, device="cuda")
         s = uniform_states(m.n, HESS_B, torch.float32, gen)
         s.append(uniform_lam(m.n, HESS_B, torch.float32, gen))
         times[name] = time_so_entry(label, name, kern, plain, m, s[:k],
@@ -1176,8 +1395,8 @@ def phase3_hessian_routes(gen):
     """λᵀ·H of the robots in HESS_ROUTE_ROBOTS on both routes — the
     single-thread kernel and the staged pipeline — each held to its plain
     version in float64, then timed single, staged, staged, single: where
-    MAX_HESSIAN_VP_JOINTS goes. At iiwa-14 and HyQ the full H too (the
-    staged route's is n λᵀ·H calls): where MAX_HESSIAN_JOINTS goes."""
+    MAX_HESSIAN_VP_JOINTS goes. At HyQ the full H too (the staged route's
+    is n λᵀ·H calls): MAX_HESSIAN_JOINTS."""
     name_limit = card()
     for label, urdf in HESS_ROUTE_ROBOTS.items():
         m = gt.load_robot(urdf, dtype=torch.float32, device="cuda")
@@ -1202,7 +1421,7 @@ def phase3_hessian_routes(gen):
             + "; ".join(f"{r} {a:.3f}/{b:.3f} ms"
                         for r, (a, b) in ms.items())
             + f"; card {name_limit}")
-        if label in ("iiwa14", "hyq"):
+        if label == "hyq":
             full = {"single": so_fused.fd_hessian_fused,
                     "staged": so_staged.fd_hessian_staged}
             t = {r: time_ms(full[r], (m, *s[:3]), calls=3, warmup=1)
@@ -1214,36 +1433,18 @@ def phase3_hessian_routes(gen):
 
 
 def phase3_k5_width(mA, atlas_states):
-    """Atlas's K5 with the finish at column blocks of 2 and 4 (the built
-    width) and, from a second build whose arrays are 7 wide, of 7."""
+    """Atlas's K5 with the finish at column blocks of 4 (the built width)
+    and 2 (the 7-wide build timed when the width was chosen is in
+    PERF.md)."""
     name_limit = card()
     q, qd, u = (x.T.contiguous() for x in atlas_states)
     c, v = staged.bias_and_v_staged(mA, q, qd)
     Minv, qdd = staged.minv_qdd_dense_staged(mA, q, u - c)
     a, f = staged.af_staged(mA, q, qd, qdd, v)
-
-    def k5(cb):
-        return time_ms(lambda: staged.grad_cols_staged(
-            mA, q, qd, v, a, f, cb=cb, Minv=Minv), ())
-
-    ms = [(f"cb {cb}", k5(cb)) for cb in (4, 2)]
-    key = _build.topology_key(mA)
-    built = _build._LOADED.pop(key)
-    saved = _build._K5_VALUES
-    _build._K5_VALUES = 18 * mA.n * 7
-    try:
-        lib7 = _build.library(mA)
-        log(f"phase3 K5 width 7 build: nvcc "
-            f"{lib7.build_seconds['staged.cu']:.1f} s")
-        for line in ptxas_report(lib7.logs["staged.cu"]):
-            if "grad_cols" in line:
-                log(line)
-        ms += [("cb 7", k5(7)), ("cb 4 in the 7-wide build", k5(4))]
-    finally:
-        _build._K5_VALUES = saved
-        _build._LOADED[key] = built
+    ms = [(cb, time_ms(lambda: staged.grad_cols_staged(
+        mA, q, qd, v, a, f, cb=cb, Minv=Minv), ())) for cb in (4, 2)]
     log(f"phase3 K5 with the finish, Atlas f32 B={q.shape[-1]}: "
-        + "; ".join(f"{w} {t:.3f} ms" for w, t in ms)
+        + "; ".join(f"cb {w} {t:.3f} ms" for w, t in ms)
         + f"; card {name_limit}")
 
 
@@ -1276,6 +1477,75 @@ def phase3_routes(gen):
         del q, qd, u
 
 
+def _md_cpu_states(k):
+    """make_args for ops_per_state of a multi-dof kernel: k random states
+    (q on the manifold (nq, B), then q̇ and u (nv, B)) from SEED."""
+    def make(mc, B):
+        gen = torch.Generator().manual_seed(SEED)
+        def uni(r):
+            return (torch.rand((B, mc.nv), generator=gen,
+                               dtype=torch.float64) * (2 * r) - r)
+        q = gt.md_tangent_apply(mc, gt.neutral_q(mc).expand(B, -1), uni(0.6))
+        return [x.T.contiguous() for x in (q, uni(0.8), uni(5.0))][:k]
+    return make
+
+
+# JSON name → (phase-M robot, family): where each kernel is timed
+MD_TIMED = {"md_fd_grad": ("free_iiwa14", "fd_grad"),
+            "md_id_grad": ("free_hyq", "id_grad"),
+            "md_id": ("free_atlas", "id"), "md_aba": ("free_atlas", "aba")}
+
+
+def phase3_multidof(models, states, gen):
+    """Times of the four multi-dof kernels and their plain versions at
+    phase M's shapes, their bounds, the API times, a profiler breakdown of
+    free iiwa-14's ∇FD, and free Atlas's ∇FD on the single-thread kernel
+    (past the route limit, raised for it) at 2¹⁶."""
+    name_limit = card()
+    times = {}
+    for name, (label, fam) in MD_TIMED.items():
+        _, _, plain, k = MD_API[fam]
+        kern = MD_PAIRS[name][1]
+        m, s = models[label], states[label]
+        cols = tuple(x.T.contiguous() for x in s[:k])
+        times[name] = time_entry(label, name, kern, plain, m, cols,
+                                 _md_cpu_states(k), name_limit)
+        del cols
+    for label, fams in MD_PATHS.items():
+        for fam in fams:
+            fn, _, _, k = MD_API[fam]
+            api_ms(fn, (models[label], *states[label][:k]), label,
+                   name_limit)
+    m, s = models["free_iiwa14"], states["free_iiwa14"]
+    profile_breakdown(gt.md_forward_dynamics_gradient_batched, (m, *s),
+                      "md_forward_dynamics_gradient free_iiwa14", name_limit)
+
+    # free Atlas's ∇FD on the single-thread kernel: the baseline the staged
+    # multi-dof pipeline has to beat
+    m = models["free_atlas"]
+    cols = [x[:MD_ATLAS_FD_B].T.contiguous() for x in states["free_atlas"]]
+    with route_limits():
+        try:
+            out = mdf.md_fd_grad_fused(m, *cols)
+            torch.cuda.synchronize()
+        except RuntimeError as e:   # the launch's error, recorded
+            log(f"phase3 md_fd_grad free_atlas (nv={m.nv}) single-thread "
+                f"B={MD_ATLAS_FD_B}: launch failed: {e}")
+            return times
+        check_finite("free Atlas ∇FD", out)
+        head = [x[:, :PARITY_STATES].contiguous() for x in cols]
+        check_against_plain(
+            f"phase3 md_fd_grad free_atlas single-thread ({PARITY_STATES} "
+            f"states)", tuple(o[..., :PARITY_STATES] for o in out),
+            mdf.md_fd_grad_plain, m, head)
+        del out
+        ms = time_ms(mdf.md_fd_grad_fused, (m, *cols), calls=3, warmup=1)
+    log(f"phase3 md_fd_grad free_atlas (n={m.n}, nv={m.nv}) single-thread "
+        f"f32 B={MD_ATLAS_FD_B}: {ms:.3f} ms (median of 3; "
+        f"{MD_ATLAS_FD_B / ms * 1e3:.3e} evals/s); card {name_limit}")
+    return times
+
+
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
 RECORD = [
     ("fd_grad", "fd_grad", "iiwa14", FUSED_SRC, TPU + "fused.py:394"),
@@ -1300,6 +1570,13 @@ RECORD = [
     ("t2", "t2", "atlasH", SO_SRC, TPU + "so_staged.py:277"),
     ("t4_q", "t4", "atlasH", SO_SRC, TPU + "so_staged.py:289"),
     ("t5_q_q", "t5", "atlasH", SO_SRC, TPU + "so_staged.py:304"),
+    ("md_fd_grad", "md_fd_grad", "free_iiwa14:fd_grad", MD_SRC,
+     TPU + "multidof_fused.py:791"),
+    ("md_id_grad", "md_id_grad", "free_hyq:id_grad", MD_SRC,
+     TPU + "multidof_fused.py:771"),
+    ("md_id", "md_id", "free_atlas:id", MD_SRC, TPU + "multidof_fused.py:879"),
+    ("md_aba", "md_aba", "free_atlas:aba", MD_SRC,
+     TPU + "multidof_fused.py:377"),
 ]
 
 
@@ -1317,13 +1594,16 @@ def main():
     # phase 1 and the routes hold the single-thread kernels of robots past
     # the routing limits too
     with route_limits():
-        build_all({label: gt.load_robot(u, device="cuda")
-                   for label, u in {**ROBOTS, **ROUTE_ROBOTS,
-                                    **HESS_ROUTE_ROBOTS}.items()})
+        build_all({**{label: gt.load_robot(u, device="cuda")
+                      for label, u in {**ROBOTS, **ROUTE_ROBOTS,
+                                       **HESS_ROUTE_ROBOTS}.items()},
+                   **{f"{label} (multi-dof)": md_model(label)
+                      for label in MD_ROBOTS}})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
         phase1_kernels_vs_plain(gen)
+    phase1_multidof(gen)
     done("phase 1")
     m, launches, max_abs, parity = phase2_main_path(gen)
     done("phase 2")
@@ -1344,7 +1624,15 @@ def main():
     done("phase 3 routes")
     phase3_k5_width(mA, atlas_states)
     done("phase 3 K5 widths")
-    path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches}
+    del mA, atlas_states, sA
+    md_launches, md_max_abs, md_models, md_st = phaseM_multidof(gen)
+    done("phase M")
+    times.update(phase3_multidof(md_models, md_st, gen))
+    done("phase 3 multi-dof")
+    max_abs.update({name: md_max_abs[f"{label}:{fam}"]
+                    for name, (label, fam) in MD_TIMED.items()})
+    path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
+                     **md_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": path_launches[path][key], "max_abs_err": max_abs[name],

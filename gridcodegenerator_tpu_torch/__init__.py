@@ -19,6 +19,14 @@ past 12 run through the staged pipeline, ``ops/kernels/so_staged``):
   * [∂q̈/∂q | ∂q̈/∂q̇ | M⁻¹]                → :func:`forward_dynamics_gradient_full`
   * ∂²q̈/∂x∂x, x = (q, q̇, u)              → :func:`forward_dynamics_hessian`
   * λᵀ·∂²q̈/∂x∂x (the DDP curvature term) → :func:`forward_dynamics_hessian_vp`
+
+Multi-dof joints (ball and free joints, nq ≠ nv; ``ops/multidof``), built
+with :func:`multidof_model_from_description`, batched q (..., nq) and
+q̇, q̈, u (..., nv):
+  * generalized inverse dynamics         → :func:`md_inverse_dynamics_batched`
+  * generalized forward dynamics (ABA)   → :func:`md_forward_dynamics_batched`
+  * tangent-space ∂ID                    → :func:`md_id_grad_batched`
+  * tangent-space ∇FD                    → :func:`md_forward_dynamics_gradient_batched`
 """
 
 from .api import (
@@ -35,6 +43,17 @@ from .api import (
 from .models.robot import (RobotModel, from_jax_arrays, load_robot,
                            robot_model_from_description)
 from .models.topology import Topology
+from .ops.multidof import (
+    MultiDofModel,
+    md_forward_dynamics_batched,
+    md_forward_dynamics_gradient_batched,
+    md_from_jax_arrays,
+    md_id_grad_batched,
+    md_inverse_dynamics_batched,
+    md_tangent_apply,
+    multidof_model_from_description,
+    neutral_q,
+)
 from .models.urdf import RobotDescription, parse_urdf
 from .utils.golden import GoldenDynamics
 
@@ -48,4 +67,8 @@ __all__ = [
     "inverse_dynamics_gradient", "forward_dynamics_gradient",
     "forward_dynamics_gradient_full", "forward_dynamics_hessian",
     "forward_dynamics_hessian_vp",
+    "MultiDofModel", "multidof_model_from_description", "md_from_jax_arrays",
+    "neutral_q", "md_tangent_apply", "md_inverse_dynamics_batched",
+    "md_forward_dynamics_batched", "md_id_grad_batched",
+    "md_forward_dynamics_gradient_batched",
 ]

@@ -1,8 +1,11 @@
 """Built-in robot fixtures.
 
-The single-dof URDF fixtures of ``gridcodegenerator_tpu/models/zoo.py``,
-copied as they are (the MJCF, floating-base and multi-dof fixtures wait for
-their slices of the port).
+The URDF fixtures of ``gridcodegenerator_tpu/models/zoo.py``, copied as
+they are: the single-dof robots, and the multi-dof ones — the ball-joint arm
+(:func:`ball_arm`), a true 6-dof free joint at a robot's root
+(:func:`with_free_joint`) and the revolute rewrite of ball joints
+(:func:`expand_spherical`). The MJCF and Euler floating-base fixtures wait
+for their slices of the port.
 
 The reference relies on external URDFs fed through ``URDFParser``
 (``README.md:8,20``); its benchmark configs name iiwa-14
@@ -331,6 +334,103 @@ def double_pendulum(l1: float = 1.0, l2: float = 1.0,
     b.joint("hinge1", "base", "rod1", axis=(0, 1, 0), limit=10)
     b.joint("hinge2", "rod1", "rod2", xyz=(0, 0, -l1), axis=(0, 1, 0), limit=10)
     return b.build()
+
+
+def with_free_joint(urdf: str, *, name_suffix: str = "_free") -> str:
+    """Give a fixed-base URDF a TRUE 6-DoF floating joint (quaternion
+    attitude + position — the multi-dof stack's ``"floating"`` type, no
+    Euler singularity), connecting a massless world anchor to the robot's
+    root link. Build the result with
+    :func:`..ops.multidof.multidof_model_from_description`; validated
+    against the dedicated free-flyer module (tests/test_multidof.py)."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(urdf)
+    robot_name = root.get("name", "robot") + name_suffix
+    links = {l.get("name") for l in root.findall("link")}
+    children = {j.find("child").get("link") for j in root.findall("joint")}
+    roots = sorted(links - children)
+    if len(roots) != 1:
+        raise ValueError(f"expected one root link, found {roots}")
+    base = roots[0]
+
+    joint = f"""  <joint name="free_base" type="floating">
+    <parent link="world"/>
+    <child link="{base}"/>
+    <origin xyz="0 0 0" rpy="0 0 0"/>
+  </joint>"""
+    body = urdf[urdf.index(">", urdf.index("<robot")) + 1:urdf.rindex("</robot>")]
+    return (f'<robot name="{robot_name}">\n  <link name="world"/>\n'
+            + joint + body + "</robot>\n")
+
+
+def ball_arm(damping: float = 0.0) -> str:
+    """3-joint arm with two spherical (3-dof) joints: base → ball shoulder →
+    revolute elbow → ball wrist (nq = 9, nv = 7). The fixture for the
+    multi-dof (6,k)-subspace stack (`ops/multidof.py`) — beyond the
+    reference's single-dof-only capability."""
+    b = UrdfWriter("ball_arm")
+    b.link("base", mass=3.0, ixx=0.03, iyy=0.03, izz=0.02)
+    b.link("upper", mass=2.4, com=(0.02, 0.01, -0.12), ixx=0.015, iyy=0.014,
+           izz=0.004, ixy=0.0008)
+    b.link("fore", mass=1.6, com=(0.01, 0.0, -0.11), ixx=0.009, iyy=0.009,
+           izz=0.002)
+    b.link("hand", mass=0.7, com=(0.0, 0.01, -0.05), ixx=0.002, iyy=0.002,
+           izz=0.001)
+    b.joint("shoulder", "base", "upper", jtype="spherical",
+            xyz=(0.05, 0.0, 0.15), rpy=(0.1, -0.05, 0.2), damping=damping)
+    b.joint("elbow", "upper", "fore", jtype="revolute",
+            xyz=(0.0, 0.02, -0.26), rpy=(0.0, 0.1, 0.0), axis=(0, 1, 0),
+            damping=damping)
+    b.joint("wrist", "fore", "hand", jtype="spherical",
+            xyz=(0.01, 0.0, -0.24), rpy=(-0.07, 0.0, 0.05), damping=damping)
+    return b.build()
+
+
+def expand_spherical(urdf: str) -> str:
+    """Rewrite every spherical joint as an exactly equivalent z–y–x chain of
+    three zero-offset revolute joints (massless intermediate links) — the
+    only encoding the single-dof stack (and the reference) can consume.
+    Exact away from the chain's gimbal lock at the middle angle ±π/2; used
+    to cross-validate `ops/multidof.py` against the single-dof stack."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(urdf)
+    new_links = []
+    for j in list(root.findall("joint")):
+        if j.get("type") != "spherical":
+            continue
+        name = j.get("name")
+        parent = j.find("parent").get("link")
+        child = j.find("child").get("link")
+        o = j.find("origin")
+        xyz = o.get("xyz", "0 0 0") if o is not None else "0 0 0"
+        rpy = o.get("rpy", "0 0 0") if o is not None else "0 0 0"
+        dyn = j.find("dynamics")
+        damping = dyn.get("damping", "0") if dyn is not None else "0"
+        root.remove(j)
+        chain = [("z", "0 0 1"), ("y", "0 1 0"), ("x", "1 0 0")]
+        prev = parent
+        for k, (suffix, ax) in enumerate(chain):
+            is_last = k == len(chain) - 1
+            nxt = child if is_last else f"{name}_l{suffix}"
+            if not is_last:
+                new_links.append(nxt)
+            je = ET.SubElement(root, "joint",
+                               dict(name=f"{name}_{suffix}", type="revolute"))
+            ET.SubElement(je, "parent", dict(link=prev))
+            ET.SubElement(je, "child", dict(link=nxt))
+            ET.SubElement(je, "origin",
+                          dict(xyz=xyz if k == 0 else "0 0 0",
+                               rpy=rpy if k == 0 else "0 0 0"))
+            ET.SubElement(je, "axis", dict(xyz=ax))
+            ET.SubElement(je, "dynamics", dict(damping=damping, friction="0"))
+            ET.SubElement(je, "limit", dict(lower="-10", upper="10",
+                                            effort="1e6", velocity="1e6"))
+            prev = nxt
+    for ln in new_links:
+        ET.SubElement(root, "link", dict(name=ln))
+    return ET.tostring(root, encoding="unicode")
 
 
 ZOO = {

@@ -1,15 +1,17 @@
 """Build the CUDA kernels of ``csrc/`` for one robot topology, at first use.
 
-One shared library per topology and source: ``nvcc`` compiles
-``csrc/fused.cu`` (the single-kernel families), ``csrc/staged.cu`` (the
-staged large-robot pipeline) and ``csrc/so.cu`` (the second-order kernels)
-for ``sm_90a``, all at once, with the joint
-count, parent indices and joint types passed as ``-D`` macros
-(``csrc/rbd.cuh``). The libraries have a plain C interface and are loaded
-with ``ctypes``; they land in ``build/torch_kernels/`` at the repository
-root, keyed by the topology and a hash of the sources, each beside a
-``.log`` holding nvcc's and ptxas's output (registers, spills and stack
-frame per kernel). A failed build raises with nvcc's output.
+One shared library per topology and source: for a single-dof robot
+(``RobotModel``) ``nvcc`` compiles ``csrc/fused.cu`` (the single-kernel
+families), ``csrc/staged.cu`` (the staged large-robot pipeline) and
+``csrc/so.cu`` (the second-order kernels); for a multi-dof robot
+(``MultiDofModel``) ``csrc/md.cu`` (the ball- and free-joint families). All
+are built for ``sm_90a`` at once, with the joint count, parent indices and
+joint types passed as ``-D`` macros (``csrc/rbd.cuh``, ``csrc/md.cuh``).
+The libraries have a plain C interface and are loaded with ``ctypes``; they
+land in ``build/torch_kernels/`` at the repository root, keyed by the
+topology and a hash of the sources, each beside a ``.log`` holding nvcc's
+and ptxas's output (registers, spills and stack frame per kernel). A failed
+build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("rbd.cuh", "aba.cuh", "staged.cuh", "dual.cuh", "so.cuh")
+_HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "dual.cuh",
+            "so.cuh", "md.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -55,6 +58,12 @@ _K5_VALUES = 2048
 # package's two gates (so_fused.full_block and vp_block, api.py:499, :525).
 MAX_HESSIAN_JOINTS = 12
 MAX_HESSIAN_VP_JOINTS = 2
+# The multi-dof ∂ID and ∇FD kernels (csrc/md.cu) hold the ∂v/∂a/∂f column
+# tensors of every joint (18·n·nv values) and the (nv, nv) factor, ∂c and
+# M⁻¹ on one thread. They are built, and the two gradient families run, up
+# to this many velocity coordinates (free HyQ: 18); past it both raise (the
+# staged multi-dof pipeline is not ported yet).
+MAX_MD_GRAD_NV = 18
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -103,7 +112,24 @@ _UNITS = {
         "grid_t5": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                     _I, _D, _P),
     },
+    "md.cu": {
+        # consts, q, qd, qdd (or NULL), c, B, gravity, stream
+        "grid_md_rnea": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, u, qdd, B, gravity, stream
+        "grid_md_aba": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, qdd (or NULL), dq, dqd, B, gravity, stream
+        "grid_md_id_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, u, dq, dqd, du, B, gravity, stream
+        "grid_md_fd_grad": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+    },
 }
+# the units a library holds: single-dof robots, multi-dof robots
+_SINGLE_DOF_UNITS = ("fused.cu", "staged.cu", "so.cu")
+_MD_UNITS = ("md.cu",)
+# joint type → its code in the md unit's GRID_JTYPES macro
+_JOINT_CODES = {"revolute": 0, "continuous": 0, "prismatic": 1,
+                "spherical": 2, "floating": 3}
+_CODE_DOF = (1, 1, 3, 6)
 
 
 def dense_grads(n: int) -> bool:
@@ -122,6 +148,12 @@ def dense_hessian_vp(n: int) -> bool:
     """Whether λᵀ·H runs as the single-thread kernel (else as the staged
     pipeline)."""
     return dense_hessian(n) and n <= MAX_HESSIAN_VP_JOINTS
+
+
+def md_dense_grads(nv: int) -> bool:
+    """Whether the multi-dof ∂ID and ∇FD run (and are built) as the
+    single-thread kernels of md.cu — read by the routing and the build."""
+    return nv <= MAX_MD_GRAD_NV
 
 
 def _widest_block(n: int, values_per_col: int) -> int:
@@ -164,7 +196,8 @@ class KernelLibrary:
         raise KeyError(name)
 
     def error_string(self, code: int) -> str:
-        return self.libs["fused.cu"].grid_error_string(code).decode()
+        lib = next(iter(self.libs.values()))
+        return lib.grid_error_string(code).decode()
 
 
 _LOCK = threading.Lock()
@@ -174,9 +207,20 @@ _LOADED: dict[tuple, KernelLibrary] = {}
 
 def topology_key(model) -> tuple:
     """What a kernel library is specialised on: joint count, parents and
-    which joints are prismatic."""
-    return (model.n, tuple(model.topology.parents),
+    which joints are prismatic; for a multi-dof model (one with
+    ``v_slices``) the tag ``"md"`` and every joint's type, which fix its
+    coordinate slices (a ball root and a free root under the same parents
+    build different libraries)."""
+    parents = tuple(model.topology.parents)
+    if hasattr(model, "v_slices"):
+        return ("md", model.n, parents,
+                tuple(_JOINT_CODES[t] for t in model.joint_types))
+    return (model.n, parents,
             tuple(int(t == "prismatic") for t in model.joint_types))
+
+
+def _units(key: tuple) -> tuple:
+    return _MD_UNITS if key[0] == "md" else _SINGLE_DOF_UNITS
 
 
 def _nvcc() -> str:
@@ -193,6 +237,16 @@ def _nvcc() -> str:
 
 
 def _macros(key: tuple) -> list[str]:
+    if key[0] == "md":
+        _, n, parents, codes = key
+        nv = sum(_CODE_DOF[c] for c in codes)
+        return [
+            f"-DGRID_N={n}",
+            "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
+            "-DGRID_PRISMATIC=" + "".join(f"G({int(c == 1)})" for c in codes),
+            "-DGRID_JTYPES=" + "".join(f"G({c})" for c in codes),
+            f"-DGRID_MD_GRADS={int(md_dense_grads(nv))}",
+        ]
     n, parents, prism = key
     return [
         f"-DGRID_N={n}",
@@ -246,7 +300,8 @@ def _compile(key: tuple, outs: dict) -> tuple[dict, dict]:
 
 def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
     """Load a library and bind the entries it exports (one built past
-    ``MAX_KERNEL_JOINTS`` has no single-thread gradient entries)."""
+    ``MAX_KERNEL_JOINTS``, or ``MAX_MD_GRAD_NV``, has no single-thread
+    gradient entries)."""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _UNITS[unit].items():
         for tag in ("f32", "f64"):
@@ -265,8 +320,9 @@ def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
 
 
 def library(model) -> KernelLibrary:
-    """The kernel libraries for ``model``'s topology, built if needed.
-    Different topologies build concurrently."""
+    """The kernel libraries for ``model``'s topology (a ``RobotModel``'s
+    or a ``MultiDofModel``'s), built if needed. Different topologies build
+    concurrently."""
     key = topology_key(model)
     with _LOCK:
         if key in _LOADED:
@@ -276,14 +332,15 @@ def library(model) -> KernelLibrary:
         if key in _LOADED:
             return _LOADED[key]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        stem = f"grid_n{key[0]}_{_digest(key)}"
-        outs = {u: BUILD_DIR / f"{stem}_{Path(u).stem}.so" for u in _UNITS}
+        stem = f"grid_n{model.n}_{_digest(key)}"
+        outs = {u: BUILD_DIR / f"{stem}_{Path(u).stem}.so"
+                for u in _units(key)}
         missing = {u: so for u, so in outs.items() if not so.exists()}
         seconds, logs = _compile(key, missing) if missing else ({}, {})
         for u, so in outs.items():
             if u not in missing:
                 seconds[u], logs[u] = 0.0, so.with_suffix(".log").read_text()
-        libs = {u: _load(u, so, key[0]) for u, so in outs.items()}
+        libs = {u: _load(u, so, model.n) for u, so in outs.items()}
         lib = KernelLibrary(libs, outs, seconds, logs)
         with _LOCK:
             _LOADED[key] = lib

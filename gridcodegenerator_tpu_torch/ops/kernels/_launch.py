@@ -1,7 +1,8 @@
 """Launch bookkeeping shared by the kernel wrappers (:mod:`.fused`,
-:mod:`.staged`, :mod:`.so_fused`, :mod:`.so_staged`): input checks, output allocation, the ctypes launch and the
-per-kernel ``LAUNCHES`` counters. A counter rises only on a successful
-launch, never on a CPU tensor's plain version."""
+:mod:`.staged`, :mod:`.so_fused`, :mod:`.so_staged`,
+:mod:`.multidof_fused`): input checks, output allocation, the ctypes launch
+and the per-kernel ``LAUNCHES`` counters. A counter rises only on a
+successful launch, never on a CPU tensor's plain version."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ LAUNCHES = {
     "grad_cols_finish": 0,
     # csrc/so.cu: the single-thread Hessians and the staged tangent stages
     "hessian_vp": 0, "hessian": 0, "t1": 0, "t2": 0, "t4": 0, "t5": 0,
+    # csrc/md.cu: the multi-dof (ball and free joint) families
+    "md_id": 0, "md_aba": 0, "md_id_grad": 0, "md_fd_grad": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
@@ -32,9 +35,7 @@ def on_cpu(x) -> bool:
     return x.device.type == "cpu"
 
 
-def check(model: RobotModel, states) -> int:
-    """Validate (n, B) states for a kernel launch; returns B."""
-    ref = states[0]
+def _check_device(model, ref) -> None:
     if ref.device.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {ref.device}")
     if ref.dtype not in _DTYPE_TAGS:
@@ -43,16 +44,35 @@ def check(model: RobotModel, states) -> int:
         raise ValueError(
             f"model is on {model.device} in {model.dtype}, states on "
             f"{ref.device} in {ref.dtype}: move it with model.to(...)")
-    shape = (model.n, ref.shape[-1]) if ref.dim() == 2 else None
+
+
+def _check_state(s, ref, rows: int, label: str) -> None:
+    if s.device != ref.device or s.dtype != ref.dtype:
+        raise ValueError("states must share one device and dtype")
+    if s.dim() != 2 or tuple(s.shape) != (rows, ref.shape[-1]):
+        raise ValueError(f"states must be ({label}={rows}, B), got "
+                         f"{tuple(s.shape)}")
+    if not s.is_contiguous():
+        raise ValueError("states must be contiguous")
+
+
+def check(model: RobotModel, states) -> int:
+    """Validate (n, B) states for a kernel launch; returns B."""
+    ref = states[0]
+    _check_device(model, ref)
     for s in states:
-        if s.device != ref.device or s.dtype != ref.dtype:
-            raise ValueError("states must share one device and dtype")
-        if tuple(s.shape) != shape:
-            raise ValueError(f"states must be (n={model.n}, B), got "
-                             f"{tuple(s.shape)}")
-        if not s.is_contiguous():
-            raise ValueError("states must be contiguous")
-    return shape[1]
+        _check_state(s, ref, model.n, "n")
+    return ref.shape[-1]
+
+
+def check_md(model, q, others) -> int:
+    """Validate a multi-dof launch's states: q (nq, B), the others — q̇,
+    q̈, u — (nv, B); returns B."""
+    _check_device(model, q)
+    _check_state(q, q, model.nq, "nq")
+    for s in others:
+        _check_state(s, q, model.nv, "nv")
+    return q.shape[-1]
 
 
 def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,

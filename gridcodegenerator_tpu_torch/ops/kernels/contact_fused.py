@@ -1,18 +1,71 @@
 """Dense factor helpers of the contact kernels, in batch-last PyTorch.
 
 The port's counterpart of ``gridcodegenerator_tpu/ops/kernels/
-contact_fused.py``. So far it holds only what the staged large-robot
-pipeline (:mod:`.staged`) uses: the active-region column Cholesky of an
-ancestor-sparse mass matrix (:func:`_chol_factor_act`), the symmetric
-inverse from it (:func:`_chol_minv_sym`) and the multi-rhs solve
-(:func:`_chol_solve_act`). Entries are (1, B) tensors, ``None`` where
-structurally zero; every sum runs left to right, the order the CUDA kernel
-(``csrc/staged.cuh``) keeps.
+contact_fused.py``. So far it holds what the staged large-robot pipeline
+(:mod:`.staged`) and the multi-dof bodies (:mod:`..md_blops`) use: the
+active-region column Cholesky of an ancestor-sparse mass matrix
+(:func:`_chol_factor_act`), the symmetric inverse from it
+(:func:`_chol_minv_sym`), the multi-rhs solve (:func:`_chol_solve_act`),
+the entry-view factor and its solve (:func:`_act_view`,
+:func:`_chol_factor_ev`, :func:`_chol_apply_e`), :func:`_sum_terms` and the
+quaternion rotation :func:`_quat_rot_s`. Entries are (1, B) tensors,
+``None`` where structurally zero; every sum runs left to right, the order
+the CUDA kernels (``csrc/chol.cuh``, ``staged.cuh``, ``md.cuh``) keep.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _sum_terms(terms):
+    """Sum a list of (1,B) terms left to right, skipping Nones; None if all
+    are None."""
+    live = [t for t in terms if t is not None]
+    if not live:
+        return None
+    s = live[0]
+    for t in live[1:]:
+        s = s + t
+    return s
+
+
+def _quat_rot_s(quat):
+    """(4,B) unit quaternions → (3,3,B) rotations, all products on (1,B)
+    slices; the quaternion is not normalised."""
+    w, x, y, z = quat[0:1], quat[1:2], quat[2:3], quat[3:4]
+    one = 1.0
+    rows = [
+        torch.cat([one - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                   2 * (x * z + w * y)]),
+        torch.cat([2 * (x * y + w * z), one - 2 * (x * x + z * z),
+                   2 * (y * z - w * x)]),
+        torch.cat([2 * (x * z - w * y), 2 * (y * z + w * x),
+                   one - 2 * (x * x + y * y)]),
+    ]
+    return torch.stack(rows)
+
+
+def _chol_apply_e(L, r):
+    """Solve (L Lᵀ) x = r with L an entry view (``L[i][j]`` a (1,B) entry or
+    None) and r a list of m (1,B)/None entries: forward, then back
+    substitution, each row's terms summed in ascending order."""
+    m = len(L)
+    y = [None] * m
+    for i in range(m):
+        terms = [r[i]] if r[i] is not None else []
+        terms.extend(-L[i][p] * y[p] for p in range(i)
+                     if L[i][p] is not None and y[p] is not None)
+        s = _sum_terms(terms)
+        y[i] = (s / L[i][i]) if s is not None else None
+    x = [None] * m
+    for i in reversed(range(m)):
+        terms = [y[i]] if y[i] is not None else []
+        terms.extend(-L[p][i] * x[p] for p in range(i + 1, m)
+                     if L[p][i] is not None and x[p] is not None)
+        s = _sum_terms(terms)
+        x[i] = (s / L[i][i]) if s is not None else None
+    return x
 
 
 def _chol_factor_act(M, m):
@@ -31,6 +84,18 @@ def _chol_factor_act(M, m):
             c = c - cols[p][j - p:] * cols[p][j - p:j - p + 1]
         cols.append(c / torch.sqrt(c[0:1]))
     return cols
+
+
+def _act_view(cols, m):
+    """Active columns → the entry view ``L[i][j]`` ((1,B), None above the
+    diagonal) that :func:`_chol_apply_e` reads."""
+    return [[cols[j][i - j:i - j + 1] if j <= i else None
+             for j in range(m)] for i in range(m)]
+
+
+def _chol_factor_ev(M, m):
+    """The entry view of :func:`_chol_factor_act`'s factor of M."""
+    return _act_view(_chol_factor_act(M, m), m)
 
 
 def _chol_solve_act(cols, Bmat):

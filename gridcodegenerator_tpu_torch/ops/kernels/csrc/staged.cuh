@@ -8,7 +8,8 @@
 //                       at the true q̈ with v reused
 //   vaf_state<kVAF>     id_grad_staged's body_vaf (staged.py:341): v, a, f
 //   minv_dense_state    K2′, minv_qdd_dense_staged (staged.py:218): CRBA,
-//                       the active-region column Cholesky, L⁻ᵀL⁻¹ and,
+//                       the active-region column Cholesky, L⁻ᵀL⁻¹
+//                       (chol.cuh) and,
 //                       with a right-hand side, q̈ = M⁻¹·rhs
 //   grad_cols_state     K5, body_grad of id_grad_staged / fd_grad_staged
 //                       (staged.py:356, :470): rnea_grad_cols_bl for one
@@ -25,6 +26,7 @@
 #pragma once
 
 #include "rbd.cuh"
+#include "chol.cuh"
 
 #ifndef GRID_CB
 #error "compile with -DGRID_CB=<the K5 column-block width>"
@@ -160,54 +162,6 @@ GRID_ROLLED
   }
 }
 
-// M⁻¹ from the lower triangle of A (destroyed): the left-looking column
-// Cholesky in place (contact_fused._chol_factor_act: L[i][j] =
-// c_i / sqrt(c_j), the diagonal too), Y = L⁻¹ column by column, then
-// M⁻¹[i][j] = Σ_{p ≥ j} Y[p][i]·Y[p][j] (i ≤ j) into the full matrix A.
-template <typename T>
-__device__ __forceinline__ void chol_minv(T A[N][N]) {
-GRID_ROLLED
-  for (int j = 0; j < N; ++j) {
-GRID_ROLLED
-    for (int i = j; i < N; ++i) {
-      T c = A[i][j];
-GRID_ROLLED
-      for (int p = 0; p < j; ++p) c = c - A[i][p] * A[j][p];
-      A[i][j] = c;
-    }
-    const T s = sqrt(A[j][j]);
-GRID_ROLLED
-    for (int i = j; i < N; ++i) A[i][j] = A[i][j] / s;
-  }
-  T Y[N][N];  // lower triangle of L⁻¹
-GRID_ROLLED
-  for (int r = 0; r < N; ++r)
-GRID_ROLLED
-    for (int k = 0; k <= r; ++k) Y[r][k] = (k == r) ? T(1) : T(0);
-GRID_ROLLED
-  for (int j = 0; j < N; ++j) {
-    const T dj = A[j][j];
-GRID_ROLLED
-    for (int k = 0; k <= j; ++k) Y[j][k] = Y[j][k] / dj;
-GRID_ROLLED
-    for (int r = j + 1; r < N; ++r) {
-      const T Lrj = A[r][j];
-GRID_ROLLED
-      for (int k = 0; k <= j; ++k) Y[r][k] = Y[r][k] - Lrj * Y[j][k];
-    }
-  }
-GRID_ROLLED
-  for (int j = 0; j < N; ++j)
-GRID_ROLLED
-    for (int i = 0; i <= j; ++i) {
-      T acc = Y[j][i] * Y[j][j];
-GRID_ROLLED
-      for (int p = j + 1; p < N; ++p) acc += Y[p][i] * Y[p][j];
-      A[i][j] = acc;
-      A[j][i] = acc;
-    }
-}
-
 // dense M⁻¹(q) (n,n,B) and, with kRhs, q̈ = M⁻¹·rhs (n,B)
 template <typename T, bool kRhs>
 __device__ __forceinline__ void minv_dense_state(const Robot<T>& R,
@@ -222,7 +176,7 @@ __device__ __forceinline__ void minv_dense_state(const Robot<T>& R,
     joint_transforms(R, qs, X);
     crba(R, X, A);
   }
-  chol_minv(A);
+  chol_minv<T, N>(A);
   store_mat(A, B, b, M_out);
   if (kRhs) {
     T r[N];

@@ -166,14 +166,15 @@ def test_unported_options_raise():
 PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
                 "ops.kernels.so_fused", "ops.kernels.so_staged",
-                "ops.kernels.contact_fused", "models.robot", "utils.golden")
+                "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
+                "ops.kernels.multidof_fused", "models.robot", "utils.golden")
 
 
 def test_port_imports_no_jax():
     """The port runs in a process where importing jax fails: every module,
-    the single-kernel families on iiwa-14 and the staged ones on Atlas, and
-    the three second-order entries (on the double pendulum, to stay
-    quick)."""
+    the single-kernel families on iiwa-14 and the staged ones on Atlas, the
+    three second-order entries (on the double pendulum, to stay quick) and
+    the four multi-dof entries (on the ball arm)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -197,6 +198,18 @@ def test_port_imports_no_jax():
         "        gt.forward_dynamics_hessian_vp(m, q, q, q, q))\n"
         "assert [tuple(o.shape) for o in outs] == [(3, 2, 6), (3, 2, 6, 6), "
         "(3, 6, 6)]\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
+        "m = gt.multidof_model_from_description(gt.parse_urdf(zoo.ball_arm("
+        "damping=0.1)), dtype=torch.float64, device='cpu')\n"
+        "q = gt.md_tangent_apply(m, gt.neutral_q(m).expand(3, -1), "
+        "torch.full((3, m.nv), 0.2, dtype=torch.float64))\n"
+        "v = torch.full((3, m.nv), 0.3, dtype=torch.float64)\n"
+        "outs = (gt.md_inverse_dynamics_batched(m, q, v, v),\n"
+        "        gt.md_forward_dynamics_batched(m, q, v, v),\n"
+        "        *gt.md_id_grad_batched(m, q, v, v),\n"
+        "        *gt.md_forward_dynamics_gradient_batched(m, q, v, v))\n"
+        "assert [tuple(o.shape) for o in outs] == [(3, 7)] * 2 + [(3, 7, 7)]"
+        " * 5\n"
         "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"

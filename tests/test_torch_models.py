@@ -26,6 +26,10 @@ FIXTURES = {
                                              prismatic_every=2),
     "random_tree": lambda z: z.random_tree(12, seed=3),
     "double_pendulum": lambda z: z.double_pendulum(),
+    "ball_arm": lambda z: z.ball_arm(damping=0.1),
+    "free_iiwa14": lambda z: z.with_free_joint(z.iiwa14(damping=0.1)),
+    "free_atlas": lambda z: z.with_free_joint(z.atlas()),
+    "expand_spherical": lambda z: z.expand_spherical(z.ball_arm(damping=0.1)),
 }
 
 
