@@ -9,18 +9,25 @@ kernels/csrc`` and runs, on ``cuda:0``:
 0. a toolchain probe: the card's name and power limit, torch and its CUDA,
    nvcc, whether triton imports; then the kernel builds of seven
    single-dof robots (iiwa-14, the branched arm, Atlas, the route robots)
-   and five multi-dof ones (the ball arm, free-joint iiwa-14, a mixed
-   revolute/prismatic chain, free HyQ, free Atlas), all at once (nvcc
-   seconds and ptxas's register / stack frame / spill report per kernel);
-1. every kernel against its plain PyTorch version at B = 4096 and a ragged
-   B = 1000, in float64 and float32: the single-kernel families on iiwa-14
+   and six multi-dof ones (the ball arm, free-joint iiwa-14, a mixed
+   revolute/prismatic chain, free HyQ, a free-rooted 20-joint tree, free
+   Atlas), with the staged multi-dof unit of every multi-dof robot the
+   routes phase or phase 1 takes through it, all at once (nvcc seconds and
+   ptxas's register / stack frame / spill report per kernel);
+1. every kernel against its plain PyTorch version at a ragged B = 1000
+   (the B = 4096 heads of phases 2 and A check the main-path kernels at a
+   full tile), in float64 and float32: the single-kernel families on iiwa-14
    (a chain) and the branched arm (siblings under a moving parent); ABA on
    both and on Atlas; the staged kernels (K1, K2′ with and without a
    right-hand side, K4, the ∂ID vaf sweep, K5 with and without the finish)
    on Atlas (n = 28, a forest) and forced on the branched arm at a column
    block that leaves a ragged last block; the second-order kernels; the
-   four multi-dof kernels on the ball arm, free iiwa-14, the mixed chain
-   and free HyQ, and on the ball arm with armature;
+   five multi-dof kernels of md.cu on the ball arm, free iiwa-14, the mixed
+   chain and free HyQ, and on the ball arm with armature; the staged
+   multi-dof kernels (K1md with and without q̈, K2md with and without the
+   bias force and q̈, K5md with and without the finish) and the CRBA FD on
+   free Atlas, and forced on free iiwa-14 and the ball arm at column blocks
+   that cut a free or ball joint;
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -40,13 +47,20 @@ H. the second-order paths at B = 2¹⁶ (iiwa-14, the double pendulum,
    card's float32 rate and its bytes over its memory rate; operations as
    :class:`OpCount` counts them); ∇FD and λᵀ·H on both routes on either
    side of their joint-count limits;
-M. the multi-dof paths at B = 2¹⁸, float32: free iiwa-14's tangent-space
-   ∇FD (the main path), free HyQ's ∇FD and ∂ID, the ball arm's four
-   families, free Atlas's ID and ABA — one launch a call, each output's
-   head against its plain version, and on the ∇FD robots ∂q̈/∂u·(u − c)
-   against ABA and ∂q̈/∂δq, ∂q̈/∂q̇ against central differences of ABA;
-   then their kernels' times and bounds, and free Atlas's ∇FD on the
-   single-thread kernel at 2¹⁶.
+M. the multi-dof paths at B = 2¹⁸, float32: free Atlas's tangent-space
+   ∇FD and ∂ID through the staged multi-dof pipeline (the main path of
+   the staged slice), its CRBA FD (``impl="crba"``), ID and ABA; free HyQ's
+   ∇FD and ∂ID (staged too, past ``MAX_MD_GRAD_NV``); free iiwa-14's ∇FD
+   and ∂ID and the ball arm's four families on the single-thread kernels —
+   the launches of each call pinned to its route, its peak memory, each
+   output's head against its plain version, and on the ∇FD robots
+   ∂q̈/∂u·(u − c) against ABA, ∂q̈/∂δq and ∂q̈/∂q̇ against central
+   differences of ABA, at free Atlas and free HyQ the staged ∇FD and ∂ID
+   against the single-thread kernels, at free Atlas the CRBA FD against
+   ABA (float64, 64 states); then the multi-dof kernels' times and bounds,
+   free Atlas's K5md at three column widths, profiler breakdowns of its
+   ∇FD and ∂ID by stage (in a child process), and both multi-dof gradient
+   routes (∇FD and ∂ID) timed at 2¹⁶ from nv 7 to 34.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -59,9 +73,11 @@ import json
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -77,6 +93,7 @@ from gridcodegenerator_tpu_torch.ops.kernels import (_build, _launch, fused,
                                                     so_fused, so_staged,
                                                     staged)
 from gridcodegenerator_tpu_torch.ops.kernels import multidof_fused as mdf
+from gridcodegenerator_tpu_torch.ops.kernels import multidof_staged as mds
 
 SEED = 0
 MAIN_B = 1 << 18
@@ -97,7 +114,8 @@ ATLAS_HEAD_FACTOR = 2.0
 REL_TOL = {torch.float64: 1e-11, torch.float32: 1e-5}
 F32_PLAIN_FACTOR = 2.0
 TIMED_CALLS = 10
-PLAIN_BUDGET_MS = 3000.0   # fewer timed calls for plain versions above it
+PLAIN_BUDGET_MS = 1500.0   # fewer timed calls for plain versions above it
+PHASE1_B = 1000            # ragged: not a multiple of the 128-thread block
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
 # and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -107,6 +125,7 @@ FUSED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/fused.cu"
 STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/staged.cu"
 SO_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/so.cu"
 MD_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md.cu"
+MD_STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md_staged.cu"
 # second order: 2¹⁶ states (e.g. 512 DDP rollouts × 128 knots); the plain
 # versions are timed at a quarter of it and scaled
 HESS_B = 1 << 16
@@ -138,23 +157,39 @@ HESS_ROUTE_ROBOTS = {"dpend": zoo.double_pendulum(),
 SMALL_SO_ROBOT = "dpend"
 ROUTE_SO_STATES = 1024   # the route checks' float64 states
 # multi-dof: ball joints (the ball arm, nq 9, nv 7), a true 6-dof free joint
-# at the root of iiwa-14 (n 8, nq 14, nv 13: the main path), of HyQ (n 13,
-# nv 18) and of Atlas (n 29, nq 35, nv 34), and a mixed revolute /
-# prismatic chain; damping 0.1 as in the JAX package's multi-dof tests
+# at the root of iiwa-14 (n 8, nq 14, nv 13), of HyQ (n 13, nv 18), of a
+# seeded 20-joint tree (n 21, nq 27, nv 26: between the two route robots
+# below and above it) and of Atlas (n 29, nq 35, nv 34: the main path of
+# the staged slice), and a mixed revolute / prismatic chain; damping 0.1 as
+# in the JAX package's multi-dof tests (the tree's own)
 MD_ROBOTS = {
     "ball_arm": zoo.ball_arm(damping=0.1),
     "free_iiwa14": zoo.with_free_joint(zoo.iiwa14(damping=0.1)),
     "mixed_chain": zoo.serial_chain(5, damping=0.1, prismatic_every=2),
     "free_hyq": zoo.with_free_joint(zoo.hyq(damping=0.1)),
+    "free_tree20": zoo.with_free_joint(zoo.random_tree(20, seed=3)),
     "free_atlas": zoo.with_free_joint(zoo.atlas(damping=0.1)),
 }
 MD_CHECK = ("ball_arm", "free_iiwa14", "mixed_chain", "free_hyq")
 MD_ARMATURE = 0.05       # the phase-1 armature case (the ball arm)
-MD_ATLAS_FD_B = 1 << 16  # free Atlas ∇FD on the single-thread kernel
+# the staged multi-dof kernels' phase-1 robots → K5md column width (None:
+# the built one, 4 at free Atlas): 4 cuts free iiwa-14's root after its
+# fourth direction, 2 the ball arm's first ball joint after its second
+MD_STAGED_CHECK = {"free_atlas": None, "free_iiwa14": 4, "ball_arm": 2}
+# both multi-dof gradient routes are built, checked and timed at these,
+# on either side of MAX_MD_GRAD_NV
+MD_ROUTE_ROBOTS = ("ball_arm", "free_iiwa14", "free_hyq", "free_tree20",
+                   "free_atlas")
+MD_ROUTE_B = 1 << 16     # the single-thread kernel's 92 KB frame at free Atlas
+MD_CB_WIDTHS = (4, 3, 2)  # K5md with the finish, free Atlas
 MD_FD_STATES = 64        # states of the finite-difference checks
 MD_FD_STEP = 1e-6        # central-difference step (float64)
 MD_FD_TOL = 1e-6         # ∇FD vs central differences, relative
 MD_SOLVE_TOL = 1e-8      # ∂q̈/∂u·(u − c) vs ABA's q̈, relative
+# the staged ∇FD and ∂ID against the single-thread kernels on the same
+# float64 states (the staged q̈ is an explicit M⁻¹ product, not the
+# Cholesky solve): the JAX package's bound for the same comparison
+MD_ROUTE_TOL = 1e-9
 
 
 @contextmanager
@@ -350,13 +385,14 @@ SO_PRIMALS = {
 }
 
 
-# the multi-dof kernels: name → (LAUNCHES key, kernel, plain, number of
-# (q, q̇, u) inputs); u stands for q̈ in ID and ∂ID, and two inputs are the
-# qdd=None variants (the bias force; ∂ID at q̈ = 0)
+# the multi-dof kernels of md.cu: name → (LAUNCHES key, kernel, plain,
+# number of (q, q̇, u) inputs); u stands for q̈ in ID and ∂ID, and two inputs
+# are the qdd=None variants (the bias force; ∂ID at q̈ = 0)
 MD_PAIRS = {
     "md_id": ("md_id", mdf.md_id_fused, mdf.md_id_plain, 3),
     "md_bias": ("md_id", mdf.md_id_fused, mdf.md_id_plain, 2),
     "md_aba": ("md_aba", mdf.md_aba_fused, mdf.md_aba_plain, 3),
+    "md_fd": ("md_fd", mdf.md_fd_fused, mdf.md_fd_plain, 3),
     "md_id_grad": ("md_id_grad", mdf.md_id_grad_fused, mdf.md_id_grad_plain,
                    3),
     "md_id_grad_noqdd": ("md_id_grad", mdf.md_id_grad_fused,
@@ -364,21 +400,86 @@ MD_PAIRS = {
     "md_fd_grad": ("md_fd_grad", mdf.md_fd_grad_fused, mdf.md_fd_grad_plain,
                    3),
 }
-# the batched entry points: family → (entry, LAUNCHES key, plain, inputs)
+
+
+def md_staged_pairs(cb=None):
+    """The staged multi-dof kernels as (LAUNCHES key, kernel, plain,
+    inputs): each stage's inputs are (q, q̇, u) and the plain upstream
+    stages' outputs, so every kernel is held to its plain version on
+    identical inputs; ∂ID's K1md and K5md take u as q̈."""
+    def up(m, q, qd, u):
+        Minv, qdd = mds.md_minv_qdd_plain(m, q, qd, u)
+        v, a, f = mds.md_vaf_plain(m, q, qd, qdd)
+        v2, a2, f2 = mds.md_vaf_plain(m, q, qd, u)
+        return dict(Minv=Minv, qdd=qdd, v=v, a=a, f=f, v2=v2, a2=a2, f2=f2)
+
+    return up, {
+        "md_minv_qdd": ("md_minv_qdd", mds.md_minv_qdd_fused,
+                        mds.md_minv_qdd_plain, lambda s, x: s),
+        "md_minv": ("md_minv", mds.md_minv_fused, mds.md_minv_plain,
+                    lambda s, x: (s[0],)),
+        "md_vaf": ("md_vaf", mds.md_vaf_staged, mds.md_vaf_plain,
+                   lambda s, x: (s[0], s[1], x["qdd"])),
+        "md_vaf_noqdd": ("md_vaf", mds.md_vaf_staged, mds.md_vaf_plain,
+                         lambda s, x: (s[0], s[1])),
+        "md_grad_cols_finish": (
+            "md_grad_cols_finish",
+            lambda m, *a: mds.md_grad_cols_staged(m, *a[:5], cb=cb,
+                                                  Minv=a[5]),
+            lambda m, *a: mds.md_grad_cols_plain(m, *a[:5], cb=cb,
+                                                 Minv=a[5]),
+            lambda s, x: (s[0], s[1], x["v"], x["a"], x["f"], x["Minv"])),
+        "md_grad_cols": (
+            "md_grad_cols",
+            lambda m, *a: mds.md_grad_cols_staged(m, *a, cb=cb),
+            lambda m, *a: mds.md_grad_cols_plain(m, *a, cb=cb),
+            lambda s, x: (s[0], s[1], x["v2"], x["a2"], x["f2"])),
+    }
+
+
+def _md_crba(m, q, qd, u):
+    return gt.md_forward_dynamics_batched(m, q, qd, u, impl="crba")
+
+
+# the batched entry points: family → (entry, number of (q, q̇, u) inputs)
 MD_API = {
-    "id": (gt.md_inverse_dynamics_batched, "md_id", mdf.md_id_plain, 3),
-    "aba": (gt.md_forward_dynamics_batched, "md_aba", mdf.md_aba_plain, 3),
-    "id_grad": (gt.md_id_grad_batched, "md_id_grad", mdf.md_id_grad_plain,
-                3),
-    "fd_grad": (gt.md_forward_dynamics_gradient_batched, "md_fd_grad",
-                mdf.md_fd_grad_plain, 3),
+    "id": (gt.md_inverse_dynamics_batched, 3),
+    "aba": (gt.md_forward_dynamics_batched, 3),
+    "crba": (_md_crba, 3),
+    "id_grad": (gt.md_id_grad_batched, 3),
+    "fd_grad": (gt.md_forward_dynamics_gradient_batched, 3),
 }
-# phase M: robot → the families driven through the API at MAIN_B
+
+
+def md_route(m, fam):
+    """(the launches one call of ``fam`` makes on ``m``, its plain
+    version, its batch-last kernel function): the gradient families on the
+    single-thread kernels up to MAX_MD_GRAD_NV, on the staged pipeline
+    past it."""
+    dense = _build.md_dense_grads(m.nv)
+    return {
+        "id": ({"md_id": 1}, mdf.md_id_plain, mdf.md_id_fused),
+        "aba": ({"md_aba": 1}, mdf.md_aba_plain, mdf.md_aba_fused),
+        "crba": ({"md_fd": 1}, mdf.md_fd_plain, mdf.md_fd_fused),
+        "id_grad": (({"md_id_grad": 1}, mdf.md_id_grad_plain,
+                     mdf.md_id_grad_fused) if dense else
+                    ({"md_vaf": 1, "md_grad_cols": 1},
+                     mds.md_id_grad_staged_plain, mds.md_id_grad_staged)),
+        "fd_grad": (({"md_fd_grad": 1}, mdf.md_fd_grad_plain,
+                     mdf.md_fd_grad_fused) if dense else
+                    ({"md_minv_qdd": 1, "md_vaf": 1,
+                      "md_grad_cols_finish": 1},
+                     mds.md_fd_grad_staged_plain, mds.md_fd_grad_staged)),
+    }[fam]
+
+
+# phase M: robot → the families driven through the API at MAIN_B, the
+# staged slice's main path (free Atlas's gradients) first
 MD_PATHS = {
-    "free_iiwa14": ("fd_grad",),
+    "free_atlas": ("fd_grad", "id_grad", "crba", "id", "aba"),
+    "free_iiwa14": ("fd_grad", "id_grad"),
     "free_hyq": ("fd_grad", "id_grad"),
     "ball_arm": ("id", "aba", "id_grad", "fd_grad"),
-    "free_atlas": ("id", "aba"),
 }
 
 
@@ -451,12 +552,13 @@ def phase0_toolchain():
 
 
 _PTXAS_NAME = re.compile(
-    r"(md_rnea|md_aba|md_id_grad|md_fd_grad|fd_grad|id_grad|minv_dense|minv"
-    r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
-    r"(?:L([bi])(\d+)E)?")
+    r"(md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf|md_minv"
+    r"|md_grad_cols|fd_grad|id_grad|minv_dense|minv|rnea|aba|vaf|grad_cols"
+    r"|hessian|t1|t2|t4|t5)_kernelI([fd])(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
-                 "md_rnea": "qdd", "md_id_grad": "qdd"}
+                 "md_rnea": "qdd", "md_id_grad": "qdd", "md_vaf": "qdd",
+                 "md_minv": "rhs", "md_grad_cols": "finish"}
 
 
 def ptxas_report(log_text):
@@ -481,11 +583,21 @@ def ptxas_report(log_text):
     return lines
 
 
-def build_all(models):
-    """Build every topology at once (one nvcc per source and topology)."""
+def _with_staged(m):
+    """A multi-dof model's default units and the staged multi-dof unit."""
+    units = _build._units(_build.topology_key(m))
+    return tuple(dict.fromkeys(units + (_build.MD_STAGED_UNIT,)))
+
+
+def build_all(models, staged=()):
+    """Build every topology at once (one nvcc per source and topology), the
+    staged multi-dof unit too for the labels in ``staged``."""
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=_build.library, args=(m,))
-               for m in models.values()]
+    units = {label: _with_staged(m) if label in staged else None
+             for label, m in models.items()}
+    threads = [threading.Thread(target=_build.library,
+                                args=(m, units[label]))
+               for label, m in models.items()]
     for t in threads:
         t.start()
     for t in threads:
@@ -493,10 +605,12 @@ def build_all(models):
     log(f"builds of {len(models)} topologies: "
         f"{time.perf_counter() - t0:.1f} s wall")
     for label, m in models.items():
-        lib = _build.library(m)     # raises here if its build failed
+        lib = _build.library(m, units[label])  # raises if a build failed
         if hasattr(m, "nv"):
-            what = (f"nq={m.nq}, nv={m.nv}, gradient kernels "
-                    f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}")
+            what = (f"nq={m.nq}, nv={m.nv}, single-thread gradient kernels "
+                    f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}"
+                    f", K5md column block "
+                    f"{_build.md_col_block(m.n, m.nv)}")
         else:
             what = (f"K5 column block {_build.default_col_block(m.n)}, T5 "
                     f"{_build.so_col_block(m.n)}")
@@ -573,59 +687,85 @@ def phase1_kernels_vs_plain(gen):
     for label in ROBOTS:
         for dtype in (torch.float64, torch.float32):
             m = gt.load_robot(ROBOTS[label], dtype=dtype, device="cuda")
-            for B in (4096, 1000):
-                q, qd, u = uniform_states(m.n, B, dtype, gen)
-                # past MAX_KERNEL_JOINTS, ∇FD, ∂ID and M⁻¹ are the staged
-                # kernels checked below; RNEA and ABA run on one thread
-                pairs = {k: v for k, v in PAIRS.items()
-                         if _build.dense_grads(m.n)
-                         or k in ("inverse_dynamics", "bias_force")}
-                pairs["aba"] = ABA
-                for name, (key, kern, plain, k) in pairs.items():
-                    args = (q, qd, u)[:k]
-                    before = _launch.LAUNCHES[key]
-                    got = kern(m, *args)
-                    torch.cuda.synchronize()
-                    expect_launch(key, before, name)
-                    check_finite(name, got)
-                    check_against_plain(
-                        f"phase1 {label} {str(dtype)[6:]} B={B} {name}",
-                        got, plain, m, args)
-                if B == 1000:
-                    phase1_second_order(label, m, q, qd, u, gen)
-                if label == "iiwa14":
-                    continue
-                cb = FORCED_CB if label == "branched_arm" else None
-                up, spairs = staged_pairs(cb)
-                x = up(m, q, qd, u)
-                for name, (key, kern, plain, inputs) in spairs.items():
-                    args = inputs((q, qd, u), x)
-                    before = _launch.LAUNCHES[key]
-                    got = kern(m, *args)
-                    torch.cuda.synchronize()
-                    expect_launch(key, before, name)
-                    check_finite(name, got)
-                    check_against_plain(
-                        f"phase1 {label} {str(dtype)[6:]} B={B} staged "
-                        f"{name}{'' if cb is None else f' cb={cb}'}",
-                        got, plain, m, args)
+            B = PHASE1_B
+            q, qd, u = uniform_states(m.n, B, dtype, gen)
+            # past MAX_KERNEL_JOINTS, ∇FD, ∂ID and M⁻¹ are the staged
+            # kernels checked below; RNEA and ABA run on one thread
+            pairs = {k: v for k, v in PAIRS.items()
+                     if _build.dense_grads(m.n)
+                     or k in ("inverse_dynamics", "bias_force")}
+            pairs["aba"] = ABA
+            for name, (key, kern, plain, k) in pairs.items():
+                args = (q, qd, u)[:k]
+                before = _launch.LAUNCHES[key]
+                got = kern(m, *args)
+                torch.cuda.synchronize()
+                expect_launch(key, before, name)
+                check_finite(name, got)
+                check_against_plain(
+                    f"phase1 {label} {str(dtype)[6:]} B={B} {name}",
+                    got, plain, m, args)
+            phase1_second_order(label, m, q, qd, u, gen)
+            if label == "iiwa14":
+                continue
+            cb = FORCED_CB if label == "branched_arm" else None
+            up, spairs = staged_pairs(cb)
+            x = up(m, q, qd, u)
+            for name, (key, kern, plain, inputs) in spairs.items():
+                args = inputs((q, qd, u), x)
+                before = _launch.LAUNCHES[key]
+                got = kern(m, *args)
+                torch.cuda.synchronize()
+                expect_launch(key, before, name)
+                check_finite(name, got)
+                check_against_plain(
+                    f"phase1 {label} {str(dtype)[6:]} B={B} staged "
+                    f"{name}{'' if cb is None else f' cb={cb}'}",
+                    got, plain, m, args)
 
 
 def phase1_multidof(gen):
-    """The four multi-dof kernels (and the qdd=None variants) against their
-    plain versions at B = 1000, float64 and float32, on the ball arm, free
-    iiwa-14, the mixed chain and free HyQ, and on the ball arm with
-    armature."""
+    """The five multi-dof kernels of md.cu (and the qdd=None variants)
+    against their plain versions at B = 1000, float64 and float32, on the
+    ball arm, free iiwa-14, the mixed chain and free HyQ, and on the ball
+    arm with armature."""
     cases = [(label, None) for label in MD_CHECK] + [("ball_arm",
                                                       MD_ARMATURE)]
     for label, arm in cases:
         for dtype in (torch.float64, torch.float32):
             m = md_model(label, dtype, arm)
-            s = md_states(m, 1000, gen)
+            s = md_states(m, PHASE1_B, gen)
             tag = (f"phase1 {label}{'' if arm is None else f' armature {arm}'}"
-                   f" {str(dtype)[6:]} B=1000")
+                   f" {str(dtype)[6:]} B={PHASE1_B}")
             for name, (key, kern, plain, k) in MD_PAIRS.items():
                 run_pair(f"{tag} {name}", key, kern, plain, m, s[:k])
+
+
+def phase1_md_staged(gen):
+    """The staged multi-dof kernels against their plain versions at
+    B = 1000, float64 and float32: on free Atlas at the built column width
+    (with its CRBA FD), and forced on free iiwa-14 and the ball arm at
+    widths that cut a free or ball joint. Returns free Atlas's float32
+    max abs errors by kernel."""
+    max_abs = {}
+    for label, cb in MD_STAGED_CHECK.items():
+        for dtype in (torch.float64, torch.float32):
+            m = md_model(label, dtype)
+            s = md_states(m, PHASE1_B, gen)
+            tag = (f"phase1 {label} {str(dtype)[6:]} B={PHASE1_B} staged"
+                   + ("" if cb is None else f" cb={cb}"))
+            if label == "free_atlas":
+                key, kern, plain, _ = MD_PAIRS["md_fd"]
+                run_pair(f"phase1 {label} {str(dtype)[6:]} B={PHASE1_B} md_fd",
+                         key, kern, plain, m, s)
+            up, pairs = md_staged_pairs(cb)
+            x = up(m, *s)
+            for name, (key, kern, plain, inputs) in pairs.items():
+                ab, _ = run_pair(f"{tag} {name}", key, kern, plain, m,
+                                 inputs(s, x))
+                if label == "free_atlas" and dtype == torch.float32:
+                    max_abs[name] = ab
+    return max_abs
 
 
 # ---------------------------------------------------------------- phase 2
@@ -938,12 +1078,12 @@ def phaseH_second_order(gen, mA):
 
 
 # ---------------------------------------------------------------- phase M
-def md_solve_check(tag, m64, s64):
+def md_solve_check(tag, m64, s64, fd_grad):
     """∂q̈/∂u·(u − c) against the ABA kernel's q̈, c from the ID kernel with
-    qdd=None: M⁻¹ from the ∇FD kernel's Cholesky against ABA's recursion,
+    qdd=None: M⁻¹ from the ∇FD route's factor against ABA's recursion,
     neither through the ∂ID recursion."""
     q, qd, u = s64
-    Du = mdf.md_fd_grad_fused(m64, q, qd, u)[2]
+    Du = fd_grad(m64, q, qd, u)[2]
     c = mdf.md_id_fused(m64, q, qd)
     qdd = mdf.md_aba_fused(m64, q, qd, u)
     got = torch.einsum("ijb,jb->ib", Du, u - c)
@@ -956,13 +1096,13 @@ def md_solve_check(tag, m64, s64):
         raise RuntimeError(f"{tag}: ∂q̈/∂u·(u − c) disagrees with ABA")
 
 
-def md_fd_check(tag, m64, s64):
-    """∂q̈/∂δq and ∂q̈/∂q̇ of the ∇FD kernel against central differences of
+def md_fd_check(tag, m64, s64, fd_grad):
+    """∂q̈/∂δq and ∂q̈/∂q̇ of the ∇FD route against central differences of
     the ABA kernel along md_tangent_apply (float64, every direction of every
     state in one ABA launch a side)."""
     q, qd, u = s64
     nv, B = m64.nv, q.shape[-1]
-    Dq, Dqd, _ = mdf.md_fd_grad_fused(m64, q, qd, u)
+    Dq, Dqd, _ = fd_grad(m64, q, qd, u)
     h = MD_FD_STEP
     step = torch.eye(nv, dtype=q.dtype, device=q.device) * h  # (nv dirs, nv)
     rep = lambda x: x.T[None].expand(nv, B, x.shape[0])        # (nv, B, k)
@@ -990,36 +1130,71 @@ def md_fd_check(tag, m64, s64):
         raise RuntimeError(f"{tag}: ∇FD disagrees with central differences")
 
 
+def md_route_check(tag, m64, s64):
+    """The staged ∇FD and ∂ID kernels against the single-thread kernels on
+    the same float64 states (both built here whatever the route limit)."""
+    pairs = (("∇FD", mds.md_fd_grad_staged, mdf.md_fd_grad_fused),
+             ("∂ID", mds.md_id_grad_staged, mdf.md_id_grad_fused))
+    for fam, staged_fn, single in pairs:
+        rel, st, ab = compare(staged_fn(m64, *s64), single(m64, *s64))
+        ok = rel <= MD_ROUTE_TOL
+        log(f"{tag} staged {fam} vs the single-thread kernel (f64, "
+            f"{s64[0].shape[-1]} states): rel {rel:.3e} (per-state "
+            f"{st:.3e}, abs {ab:.3e}) bound {MD_ROUTE_TOL:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{tag}: the staged {fam} disagrees with the "
+                               f"single-thread kernel")
+
+
+def md_crba_check(tag, m64, s64):
+    """The CRBA FD kernel's q̈ against the ABA kernel's (float64)."""
+    q, qd, u = s64
+    got, ref = mdf.md_fd_fused(m64, q, qd, u), mdf.md_aba_fused(m64, q, qd, u)
+    err = float(((got - ref).abs().amax(0)
+                 / ref.abs().amax(0).clamp(min=1.0)).max())
+    log(f"{tag} impl='crba' q̈ vs ABA q̈ (f64, {q.shape[-1]} states): rel "
+        f"{err:.3e} (bound {MD_SOLVE_TOL:.0e}) "
+        f"{'ok' if err <= MD_SOLVE_TOL else 'FAIL'}")
+    if err > MD_SOLVE_TOL:
+        raise RuntimeError(f"{tag}: the CRBA FD disagrees with ABA")
+
+
 def phaseM_multidof(gen):
-    """The multi-dof entry points at B = 2¹⁸, float32: free iiwa-14's ∇FD
-    (the main path), free HyQ's ∇FD and ∂ID, all four on the ball arm, ID
-    and ABA on free Atlas. Each call runs with the counts set to 0 just
-    before it and read just after, and must launch its kernel once and
-    nothing else; a 256-state head of each output is held to its plain
-    version; on the ∇FD robots, two checks that do not go through the ∂ID
-    recursion, in float64 on a head of states."""
+    """The multi-dof entry points at B = 2¹⁸, float32: free Atlas's ∇FD and
+    ∂ID (the staged pipeline: the main path of the staged slice), its CRBA
+    FD, ID and ABA; free iiwa-14's ∇FD, free HyQ's ∇FD and ∂ID, all four on
+    the ball arm (the single-thread kernels). Each call runs with the
+    counts set to 0 just before it and read just after, and must make
+    exactly its route's launches (md_route) and nothing else; a 256-state
+    head of each output is held to its plain version; on the ∇FD robots,
+    checks that do not go through the ∂ID recursion, and at free Atlas the
+    staged kernels against the single-thread ones, in float64 on a head of
+    states."""
     launches, max_abs, states, models = {}, {}, {}, {}
     for label, fams in MD_PATHS.items():
         m = md_model(label)
         s = md_states(m, MAIN_B, gen, layout="Bn")
         models[label], states[label] = m, s
         for fam in fams:
-            fn, key, plain, k = MD_API[fam]
+            fn, k = MD_API[fam]
+            expect, plain, _ = md_route(m, fam)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             _launch.reset_launches()
             t0 = time.perf_counter()
             out = fn(m, *s[:k])
             torch.cuda.synchronize()
             got = dict(_launch.LAUNCHES)
+            made = {k_: v for k_, v in got.items() if v}
             tag = f"phaseM {label} (n={m.n}, nq={m.nq}, nv={m.nv}) {fam}"
             log(f"{tag} B={MAIN_B} (first call): "
-                f"{time.perf_counter() - t0:.3f} s; launches "
-                f"{ {k_: v for k_, v in got.items() if v} }")
-            others = {k_: v for k_, v in got.items() if k_ != key and v}
-            if got[key] != 1 or others:
-                raise RuntimeError(f"{tag}: launched {got[key]} × {key} and "
-                                   f"{others}, not one {key}")
+                f"{time.perf_counter() - t0:.3f} s; launches {made}; peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+            if made != expect:
+                raise RuntimeError(f"{tag}: launched {made}, not {expect}")
             launches[f"{label}:{fam}"] = got
-            shape = ((MAIN_B, m.nv) if fam in ("id", "aba")
+            shape = ((MAIN_B, m.nv) if fam in ("id", "aba", "crba")
                      else (MAIN_B, m.nv, m.nv))
             for o in _as_tuple(out):
                 if o.device.type != "cuda" or tuple(o.shape) != shape:
@@ -1033,11 +1208,16 @@ def phaseM_multidof(gen):
                 got_head if len(got_head) > 1 else got_head[0], plain, m,
                 cols)
             del out
+        m64 = m.to(dtype=torch.float64)
+        s64 = [x[:MD_FD_STATES].double().T.contiguous() for x in s]
         if "fd_grad" in fams:
-            m64 = m.to(dtype=torch.float64)
-            s64 = [x[:MD_FD_STATES].double().T.contiguous() for x in s]
-            md_solve_check(f"phaseM {label}", m64, s64)
-            md_fd_check(f"phaseM {label}", m64, s64)
+            fd_grad = md_route(m, "fd_grad")[2]
+            md_solve_check(f"phaseM {label}", m64, s64, fd_grad)
+            md_fd_check(f"phaseM {label}", m64, s64, fd_grad)
+            if not _build.md_dense_grads(m.nv):
+                md_route_check(f"phaseM {label}", m64, s64)
+        if "crba" in fams:
+            md_crba_check(f"phaseM {label}", m64, s64)
     return launches, max_abs, models, states
 
 
@@ -1490,60 +1670,137 @@ def _md_cpu_states(k):
     return make
 
 
-# JSON name → (phase-M robot, family): where each kernel is timed
+def _md_staged_cpu_args(name):
+    """make_args for ops_per_state of a staged multi-dof kernel: random CPU
+    states and the plain upstream stages' outputs on them."""
+    def make(mc, B):
+        st = _md_cpu_states(3)(mc, B)
+        up, pairs = md_staged_pairs()
+        return list(pairs[name][3](st, up(mc, *st)))
+    return make
+
+
+# JSON name → (phase-M robot, family): where each kernel of md.cu is timed
 MD_TIMED = {"md_fd_grad": ("free_iiwa14", "fd_grad"),
-            "md_id_grad": ("free_hyq", "id_grad"),
-            "md_id": ("free_atlas", "id"), "md_aba": ("free_atlas", "aba")}
+            "md_id_grad": ("free_iiwa14", "id_grad"),
+            "md_id": ("free_atlas", "id"), "md_aba": ("free_atlas", "aba"),
+            "md_fd": ("free_atlas", "crba")}
+# the staged multi-dof kernels, timed on free Atlas's path
+MD_STAGED_TIMED = ("md_minv_qdd", "md_minv", "md_vaf", "md_grad_cols_finish",
+                   "md_grad_cols")
 
 
 def phase3_multidof(models, states, gen):
-    """Times of the four multi-dof kernels and their plain versions at
-    phase M's shapes, their bounds, the API times, a profiler breakdown of
-    free iiwa-14's ∇FD, and free Atlas's ∇FD on the single-thread kernel
-    (past the route limit, raised for it) at 2¹⁶."""
+    """Times of the multi-dof kernels and their plain versions at phase M's
+    shapes — the staged ones on free Atlas's own kernel intermediates —,
+    their bounds, the API times, free Atlas's K5md at three column widths,
+    and profiler breakdowns of free Atlas's ∇FD and ∂ID by stage."""
     name_limit = card()
     times = {}
     for name, (label, fam) in MD_TIMED.items():
-        _, _, plain, k = MD_API[fam]
-        kern = MD_PAIRS[name][1]
+        _, kern, plain, k = MD_PAIRS[name]
         m, s = models[label], states[label]
         cols = tuple(x.T.contiguous() for x in s[:k])
         times[name] = time_entry(label, name, kern, plain, m, cols,
                                  _md_cpu_states(k), name_limit)
         del cols
+    m = models["free_atlas"]
+    cols = [x.T.contiguous() for x in states["free_atlas"]]
+    q, qd, u = cols
+    x = {}
+    x["Minv"], x["qdd"] = mds.md_minv_qdd_fused(m, q, qd, u)
+    x["v"], x["a"], x["f"] = mds.md_vaf_staged(m, q, qd, x["qdd"])
+    x["v2"], x["a2"], x["f2"] = mds.md_vaf_staged(m, q, qd, u)
+    _, pairs = md_staged_pairs()
+    for name in MD_STAGED_TIMED:
+        _, kern, plain, inputs = pairs[name]
+        times[name] = time_entry("free_atlas", name, kern, plain, m,
+                                 tuple(inputs(cols, x)),
+                                 _md_staged_cpu_args(name), name_limit)
+    ms = [(cb, time_ms(lambda: mds.md_grad_cols_staged(
+        m, q, qd, x["v"], x["a"], x["f"], cb=cb, Minv=x["Minv"]), ()))
+        for cb in MD_CB_WIDTHS]
+    log(f"phase3 K5md with the finish, free Atlas f32 B={MAIN_B} (built "
+        f"width {_build.md_col_block(m.n, m.nv)}): "
+        + "; ".join(f"cb {w} {t:.3f} ms" for w, t in ms)
+        + f"; card {name_limit}")
+    del x, cols, q, qd, u
     for label, fams in MD_PATHS.items():
         for fam in fams:
-            fn, _, _, k = MD_API[fam]
-            api_ms(fn, (models[label], *states[label][:k]), label,
-                   name_limit)
-    m, s = models["free_iiwa14"], states["free_iiwa14"]
-    profile_breakdown(gt.md_forward_dynamics_gradient_batched, (m, *s),
-                      "md_forward_dynamics_gradient free_iiwa14", name_limit)
-
-    # free Atlas's ∇FD on the single-thread kernel: the baseline the staged
-    # multi-dof pipeline has to beat
-    m = models["free_atlas"]
-    cols = [x[:MD_ATLAS_FD_B].T.contiguous() for x in states["free_atlas"]]
-    with route_limits():
-        try:
-            out = mdf.md_fd_grad_fused(m, *cols)
-            torch.cuda.synchronize()
-        except RuntimeError as e:   # the launch's error, recorded
-            log(f"phase3 md_fd_grad free_atlas (nv={m.nv}) single-thread "
-                f"B={MD_ATLAS_FD_B}: launch failed: {e}")
-            return times
-        check_finite("free Atlas ∇FD", out)
-        head = [x[:, :PARITY_STATES].contiguous() for x in cols]
-        check_against_plain(
-            f"phase3 md_fd_grad free_atlas single-thread ({PARITY_STATES} "
-            f"states)", tuple(o[..., :PARITY_STATES] for o in out),
-            mdf.md_fd_grad_plain, m, head)
-        del out
-        ms = time_ms(mdf.md_fd_grad_fused, (m, *cols), calls=3, warmup=1)
-    log(f"phase3 md_fd_grad free_atlas (n={m.n}, nv={m.nv}) single-thread "
-        f"f32 B={MD_ATLAS_FD_B}: {ms:.3f} ms (median of 3; "
-        f"{MD_ATLAS_FD_B / ms * 1e3:.3e} evals/s); card {name_limit}")
+            fn, k = MD_API[fam]
+            api_ms(fn, (models[label], *states[label][:k]),
+                   f"{label} {fam}", name_limit)
+    md_profile("free_atlas")
     return times
+
+
+def md_profile(label):
+    """Profiler breakdowns of ``label``'s ∇FD and ∂ID at MAIN_B, taken in a
+    child process: in this one, after the earlier traces, torch.profiler
+    loses events (PERF.md §7), and a fresh process holds them."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--md-profile",
+         label], capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"profile child failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-3000:]}")
+
+
+def md_profile_child(label):
+    """md_profile's child: loads the libraries the parent built (under the
+    same route limits, so the same build keys) and traces both gradient
+    entries."""
+    with route_limits():
+        m = md_model(label)
+        _build.library(m, _with_staged(m))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    s = md_states(m, MAIN_B, gen, layout="Bn")
+    name_limit = card()
+    for fn in (gt.md_forward_dynamics_gradient_batched,
+               gt.md_id_grad_batched):
+        profile_breakdown(fn, (m, *s), f"{fn.__name__} {label} (a fresh "
+                          f"process)", name_limit)
+
+
+def phase3_md_routes(gen):
+    """∇FD and ∂ID of MD_ROUTE_ROBOTS on both routes — the single-thread
+    kernels and the staged pipeline, each built here whatever
+    MAX_MD_GRAD_NV is — each held to its plain version in float64, then
+    timed single, staged, staged, single at MD_ROUTE_B: where
+    MAX_MD_GRAD_NV goes."""
+    name_limit = card()
+    routes = {
+        "∇FD": {"single": (mdf.md_fd_grad_fused, mdf.md_fd_grad_plain),
+                "staged": (mds.md_fd_grad_staged,
+                           mds.md_fd_grad_staged_plain)},
+        "∂ID": {"single": (mdf.md_id_grad_fused, mdf.md_id_grad_plain),
+                "staged": (mds.md_id_grad_staged,
+                           mds.md_id_grad_staged_plain)},
+    }
+    for label in MD_ROUTE_ROBOTS:
+        m = md_model(label)
+        s = md_states(m, MD_ROUTE_B, gen)
+        m64 = m.to(dtype=torch.float64)
+        s64 = [x[:, :PARITY_STATES].double().contiguous() for x in s]
+        for fam, pair in routes.items():
+            for route, (kern, plain) in pair.items():
+                check_against_plain(
+                    f"phase3 md routes {label} (nv={m.nv}) {route} {fam} f64 "
+                    f"({PARITY_STATES} states)", kern(m64, *s64), plain, m64,
+                    s64)
+            ms = {r: [] for r in pair}
+            for r in ("single", "staged", "staged", "single"):
+                ms[r].append(time_ms(pair[r][0], (m, *s), calls=5))
+            log(f"phase3 md routes {label} (n={m.n}, nv={m.nv}, K5md cb "
+                f"{_build.md_col_block(m.n, m.nv)}) {fam} f32 "
+                f"B={MD_ROUTE_B}: "
+                + "; ".join(f"{r} {a:.3f}/{b:.3f} ms"
+                            for r, (a, b) in ms.items())
+                + f"; card {name_limit}")
+        del s, s64
 
 
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
@@ -1572,11 +1829,25 @@ RECORD = [
     ("t5_q_q", "t5", "atlasH", SO_SRC, TPU + "so_staged.py:304"),
     ("md_fd_grad", "md_fd_grad", "free_iiwa14:fd_grad", MD_SRC,
      TPU + "multidof_fused.py:791"),
-    ("md_id_grad", "md_id_grad", "free_hyq:id_grad", MD_SRC,
+    ("md_id_grad", "md_id_grad", "free_iiwa14:id_grad", MD_SRC,
      TPU + "multidof_fused.py:771"),
     ("md_id", "md_id", "free_atlas:id", MD_SRC, TPU + "multidof_fused.py:879"),
     ("md_aba", "md_aba", "free_atlas:aba", MD_SRC,
      TPU + "multidof_fused.py:377"),
+    ("md_fd", "md_fd", "free_atlas:crba", MD_SRC,
+     TPU + "multidof_fused.py:894"),
+    ("md_minv_qdd", "md_minv_qdd", "free_atlas:fd_grad", MD_STAGED_SRC,
+     TPU + "multidof_staged.py:149"),
+    ("md_vaf", "md_vaf", "free_atlas:fd_grad", MD_STAGED_SRC,
+     TPU + "multidof_staged.py:109"),
+    ("md_grad_cols_finish", "md_grad_cols_finish", "free_atlas:fd_grad",
+     MD_STAGED_SRC, TPU + "multidof_staged.py:184"),
+    ("md_grad_cols", "md_grad_cols", "free_atlas:id_grad", MD_STAGED_SRC,
+     TPU + "multidof_staged.py:184"),
+    # K2md without the right-hand side: no entry point takes it (0 launches
+    # on every path); held to its plain version and timed all the same
+    ("md_minv", "md_minv", "free_atlas:fd_grad", MD_STAGED_SRC,
+     TPU + "multidof_staged.py:127"),
 ]
 
 
@@ -1592,18 +1863,22 @@ def main():
 
     phase0_toolchain()
     # phase 1 and the routes hold the single-thread kernels of robots past
-    # the routing limits too
+    # the routing limits too, and the staged multi-dof ones of robots under
+    # MAX_MD_GRAD_NV
     with route_limits():
         build_all({**{label: gt.load_robot(u, device="cuda")
                       for label, u in {**ROBOTS, **ROUTE_ROBOTS,
                                        **HESS_ROUTE_ROBOTS}.items()},
                    **{f"{label} (multi-dof)": md_model(label)
-                      for label in MD_ROBOTS}})
+                      for label in MD_ROBOTS}},
+                  staged={f"{label} (multi-dof)" for label in
+                          (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
         phase1_kernels_vs_plain(gen)
     phase1_multidof(gen)
+    md_stage_abs = phase1_md_staged(gen)
     done("phase 1")
     m, launches, max_abs, parity = phase2_main_path(gen)
     done("phase 2")
@@ -1628,9 +1903,14 @@ def main():
     md_launches, md_max_abs, md_models, md_st = phaseM_multidof(gen)
     done("phase M")
     times.update(phase3_multidof(md_models, md_st, gen))
+    del md_models, md_st
     done("phase 3 multi-dof")
+    with route_limits():
+        phase3_md_routes(gen)
+    done("phase 3 multi-dof routes")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
+    max_abs.update(md_stage_abs)
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
                      **md_launches}
     record = {"kernels": [
@@ -1645,4 +1925,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--md-profile"]:
+        md_profile_child(sys.argv[2])
+    else:
+        main()

@@ -22,9 +22,11 @@ past 12 run through the staged pipeline, ``ops/kernels/so_staged``):
 
 Multi-dof joints (ball and free joints, nq ≠ nv; ``ops/multidof``), built
 with :func:`multidof_model_from_description`, batched q (..., nq) and
-q̇, q̈, u (..., nv):
+q̇, q̈, u (..., nv); past ``MAX_MD_GRAD_NV`` velocity coordinates the two
+gradients run through the staged pipeline, ``ops/kernels/multidof_staged``:
   * generalized inverse dynamics         → :func:`md_inverse_dynamics_batched`
-  * generalized forward dynamics (ABA)   → :func:`md_forward_dynamics_batched`
+  * generalized forward dynamics (ABA,
+    or CRBA + Cholesky: ``impl="crba"``)  → :func:`md_forward_dynamics_batched`
   * tangent-space ∂ID                    → :func:`md_id_grad_batched`
   * tangent-space ∇FD                    → :func:`md_forward_dynamics_gradient_batched`
 """

@@ -4,9 +4,13 @@ One shared library per topology and source: for a single-dof robot
 (``RobotModel``) ``nvcc`` compiles ``csrc/fused.cu`` (the single-kernel
 families), ``csrc/staged.cu`` (the staged large-robot pipeline) and
 ``csrc/so.cu`` (the second-order kernels); for a multi-dof robot
-(``MultiDofModel``) ``csrc/md.cu`` (the ball- and free-joint families). All
-are built for ``sm_90a`` at once, with the joint count, parent indices and
-joint types passed as ``-D`` macros (``csrc/rbd.cuh``, ``csrc/md.cuh``).
+(``MultiDofModel``) ``csrc/md.cu`` (the ball- and free-joint families) and,
+past ``MAX_MD_GRAD_NV`` velocity coordinates, ``csrc/md_staged.cu`` (the
+staged multi-dof pipeline). All are built for ``sm_90a`` at once, with the
+joint count, parent indices and joint types passed as ``-D`` macros
+(``csrc/rbd.cuh``, ``csrc/md.cuh``). A unit a robot does not build by
+default (the staged multi-dof unit of a small robot, forced by a test) is
+built when a launch first asks for it.
 The libraries have a plain C interface and are loaded with ``ctypes``; they
 land in ``build/torch_kernels/`` at the repository root, keyed by the
 topology and a hash of the sources, each beside a ``.log`` holding nvcc's
@@ -28,7 +32,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "dual.cuh",
-            "so.cuh", "md.cuh")
+            "so.cuh", "md.cuh", "md_staged.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -60,10 +64,18 @@ MAX_HESSIAN_JOINTS = 12
 MAX_HESSIAN_VP_JOINTS = 2
 # The multi-dof ∂ID and ∇FD kernels (csrc/md.cu) hold the ∂v/∂a/∂f column
 # tensors of every joint (18·n·nv values) and the (nv, nv) factor, ∂c and
-# M⁻¹ on one thread. They are built, and the two gradient families run, up
-# to this many velocity coordinates (free HyQ: 18); past it both raise (the
-# staged multi-dof pipeline is not ported yet).
-MAX_MD_GRAD_NV = 18
+# M⁻¹ on one thread. They are built, and the two gradient families run on
+# them, up to this many velocity coordinates; past it the families take
+# the staged multi-dof pipeline (csrc/md_staged.cu), whose K5md holds
+# 18·n·cb. Set where the two routes' times cross on an H100 (chip_smoke.py's
+# multi-dof routes phase, f32, 2¹⁶ states): the single-thread ∇FD is
+# faster at nv 7 and 13, the staged one at 18 (free HyQ, 1.21×), 26 and 34
+# (free Atlas, 1.88×); ∂ID ties at 18.
+MAX_MD_GRAD_NV = 13
+# Values of the K5md ∂-tensor arrays a thread may hold; sets md_col_block:
+# cb = 4 at free Atlas (18·29·4 = 2088 values, the K5 frame of fixed-base
+# Atlas), which chip_smoke.py times against narrower blocks.
+_MD_K5_VALUES = 2560
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -116,16 +128,30 @@ _UNITS = {
         # consts, q, qd, qdd (or NULL), c, B, gravity, stream
         "grid_md_rnea": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, u, qdd, B, gravity, stream
+        "grid_md_fd": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, u, qdd, B, gravity, stream
         "grid_md_aba": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, qdd (or NULL), dq, dqd, B, gravity, stream
         "grid_md_id_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, u, dq, dqd, du, B, gravity, stream
         "grid_md_fd_grad": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
     },
+    "md_staged.cu": {
+        # consts, q, qd, qdd (or NULL), v, a, f, B, gravity, stream
+        "grid_md_vaf": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd (or NULL), u (or NULL), M, qdd (or NULL), B,
+        # gravity, stream
+        "grid_md_minv": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, gravity,
+        # stream
+        "grid_md_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                              _D, _P),
+    },
 }
-# the units a library holds: single-dof robots, multi-dof robots
+# the units a library holds by default: single-dof robots, multi-dof robots
 _SINGLE_DOF_UNITS = ("fused.cu", "staged.cu", "so.cu")
 _MD_UNITS = ("md.cu",)
+MD_STAGED_UNIT = "md_staged.cu"
 # joint type → its code in the md unit's GRID_JTYPES macro
 _JOINT_CODES = {"revolute": 0, "continuous": 0, "prismatic": 1,
                 "spherical": 2, "floating": 3}
@@ -152,28 +178,36 @@ def dense_hessian_vp(n: int) -> bool:
 
 def md_dense_grads(nv: int) -> bool:
     """Whether the multi-dof ∂ID and ∇FD run (and are built) as the
-    single-thread kernels of md.cu — read by the routing and the build."""
+    single-thread kernels of md.cu, else as the staged pipeline of
+    md_staged.cu — read by the routing and the build."""
     return nv <= MAX_MD_GRAD_NV
 
 
-def _widest_block(n: int, values_per_col: int) -> int:
-    """The widest column block whose ∂-tensors fit ``_K5_VALUES`` a thread,
-    preferring a width that divides n (uniform blocks) unless that would
-    waste more than half of it."""
-    cb_max = max(1, min(n, _K5_VALUES // (values_per_col * n)))
-    best = max(d for d in range(1, cb_max + 1) if n % d == 0)
+def _widest_block(ncols: int, values_per_col: int,
+                  budget: int = _K5_VALUES) -> int:
+    """The widest block of ``ncols`` columns whose ∂-tensors fit ``budget``
+    values a thread, preferring a width that divides ncols (uniform blocks)
+    unless that would waste more than half of it."""
+    cb_max = max(1, min(ncols, budget // values_per_col))
+    best = max(d for d in range(1, cb_max + 1) if ncols % d == 0)
     return best if best * 2 > cb_max else cb_max
 
 
 def default_col_block(n: int) -> int:
     """K5's column-block width (dv, da, df: 18·n values a column)."""
-    return _widest_block(n, 18)
+    return _widest_block(n, 18 * n)
 
 
 def so_col_block(n: int) -> int:
     """T5's column-block width: K5's ∂-tensors in dual numbers, 36·n values
     a column."""
-    return _widest_block(n, 36)
+    return _widest_block(n, 36 * n)
+
+
+def md_col_block(n: int, nv: int) -> int:
+    """K5md's column-block width over the nv directions (dv, da, df: 18·n
+    values a column)."""
+    return _widest_block(nv, 18 * n, _MD_K5_VALUES)
 
 
 @dataclass(frozen=True)
@@ -186,18 +220,25 @@ class KernelLibrary:
     logs: dict             # unit → nvcc/ptxas output
 
     def entry(self, name: str, dtype_tag: str):
-        for unit, sigs in _UNITS.items():
-            if name in sigs:
-                fn = getattr(self.libs[unit], f"{name}_{dtype_tag}", None)
-                if fn is None:
-                    raise NotImplementedError(
-                        f"{name} is not in this robot's kernel library")
-                return fn
-        raise KeyError(name)
+        lib = self.libs.get(unit_of(name))
+        fn = None if lib is None else getattr(lib, f"{name}_{dtype_tag}",
+                                              None)
+        if fn is None:
+            raise NotImplementedError(
+                f"{name} is not in this robot's kernel library")
+        return fn
 
     def error_string(self, code: int) -> str:
         lib = next(iter(self.libs.values()))
         return lib.grid_error_string(code).decode()
+
+
+def unit_of(entry: str) -> str:
+    """The source unit that exports ``entry``."""
+    for unit, sigs in _UNITS.items():
+        if entry in sigs:
+            return unit
+    raise KeyError(entry)
 
 
 _LOCK = threading.Lock()
@@ -219,8 +260,16 @@ def topology_key(model) -> tuple:
             tuple(int(t == "prismatic") for t in model.joint_types))
 
 
+def _md_nv(codes) -> int:
+    return sum(_CODE_DOF[c] for c in codes)
+
+
 def _units(key: tuple) -> tuple:
-    return _MD_UNITS if key[0] == "md" else _SINGLE_DOF_UNITS
+    """The units a topology builds by default."""
+    if key[0] != "md":
+        return _SINGLE_DOF_UNITS
+    staged = () if md_dense_grads(_md_nv(key[3])) else (MD_STAGED_UNIT,)
+    return _MD_UNITS + staged
 
 
 def _nvcc() -> str:
@@ -239,13 +288,14 @@ def _nvcc() -> str:
 def _macros(key: tuple) -> list[str]:
     if key[0] == "md":
         _, n, parents, codes = key
-        nv = sum(_CODE_DOF[c] for c in codes)
+        nv = _md_nv(codes)
         return [
             f"-DGRID_N={n}",
             "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
             "-DGRID_PRISMATIC=" + "".join(f"G({int(c == 1)})" for c in codes),
             "-DGRID_JTYPES=" + "".join(f"G({c})" for c in codes),
             f"-DGRID_MD_GRADS={int(md_dense_grads(nv))}",
+            f"-DGRID_MD_CB={md_col_block(n, nv)}",
         ]
     n, parents, prism = key
     return [
@@ -319,29 +369,34 @@ def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
     return lib
 
 
-def library(model) -> KernelLibrary:
+def library(model, units=None) -> KernelLibrary:
     """The kernel libraries for ``model``'s topology (a ``RobotModel``'s
-    or a ``MultiDofModel``'s), built if needed. Different topologies build
-    concurrently."""
+    or a ``MultiDofModel``'s): the units it builds by default, or those
+    named, each built (all at once) if it is not yet. Different
+    topologies build concurrently."""
     key = topology_key(model)
+    want = _units(key) if units is None else tuple(units)
     with _LOCK:
-        if key in _LOADED:
-            return _LOADED[key]
+        lib = _LOADED.setdefault(key, KernelLibrary({}, {}, {}, {}))
+        if all(u in lib.libs for u in want):
+            return lib
         key_lock = _KEY_LOCKS.setdefault(key, threading.Lock())
     with key_lock:
-        if key in _LOADED:
-            return _LOADED[key]
+        todo = [u for u in want if u not in lib.libs]
+        if not todo:
+            return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         stem = f"grid_n{model.n}_{_digest(key)}"
-        outs = {u: BUILD_DIR / f"{stem}_{Path(u).stem}.so"
-                for u in _units(key)}
+        outs = {u: BUILD_DIR / f"{stem}_{Path(u).stem}.so" for u in todo}
         missing = {u: so for u, so in outs.items() if not so.exists()}
         seconds, logs = _compile(key, missing) if missing else ({}, {})
         for u, so in outs.items():
             if u not in missing:
                 seconds[u], logs[u] = 0.0, so.with_suffix(".log").read_text()
         libs = {u: _load(u, so, model.n) for u, so in outs.items()}
-        lib = KernelLibrary(libs, outs, seconds, logs)
         with _LOCK:
-            _LOADED[key] = lib
+            lib.paths.update(outs)
+            lib.build_seconds.update(seconds)
+            lib.logs.update(logs)
+            lib.libs.update(libs)
         return lib

@@ -1,8 +1,9 @@
 """Launch bookkeeping shared by the kernel wrappers (:mod:`.fused`,
 :mod:`.staged`, :mod:`.so_fused`, :mod:`.so_staged`,
-:mod:`.multidof_fused`): input checks, output allocation, the ctypes launch
-and the per-kernel ``LAUNCHES`` counters. A counter rises only on a
-successful launch, never on a CPU tensor's plain version."""
+:mod:`.multidof_fused`, :mod:`.multidof_staged`): input checks, output
+allocation, the ctypes launch and the per-kernel ``LAUNCHES`` counters. A
+counter rises only on a successful launch, never on a CPU tensor's plain
+version."""
 
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ LAUNCHES = {
     # csrc/so.cu: the single-thread Hessians and the staged tangent stages
     "hessian_vp": 0, "hessian": 0, "t1": 0, "t2": 0, "t4": 0, "t5": 0,
     # csrc/md.cu: the multi-dof (ball and free joint) families
-    "md_id": 0, "md_aba": 0, "md_id_grad": 0, "md_fd_grad": 0,
+    "md_id": 0, "md_aba": 0, "md_id_grad": 0, "md_fd_grad": 0, "md_fd": 0,
+    # csrc/md_staged.cu: the staged multi-dof pipeline
+    "md_vaf": 0, "md_minv": 0, "md_minv_qdd": 0, "md_grad_cols": 0,
+    "md_grad_cols_finish": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
@@ -75,11 +79,27 @@ def check_md(model, q, others) -> int:
     return q.shape[-1]
 
 
+def check_staged(model, name: str, t, shape) -> None:
+    """A staged input (v, a, f, M⁻¹, …) on the model's device and dtype, in
+    its contiguous (…, B) layout."""
+    if (t.device != model.device or t.dtype != model.dtype
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {shape} tensor on "
+                         f"{model.device} in {model.dtype}, got "
+                         f"{tuple(t.shape)} on {t.device} in {t.dtype}")
+
+
+def ptr(x):
+    """A tensor's device pointer, or None (NULL) for an absent input."""
+    return None if x is None else x.data_ptr()
+
+
 def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
            *scalars) -> None:
-    """Call ``entry`` of the model's kernel library on the current stream
-    and count the launch under ``name``."""
-    lib = _build.library(model)
+    """Call ``entry`` of the model's kernel library (its unit built if it
+    is not yet) on the current stream and count the launch under
+    ``name``."""
+    lib = _build.library(model, (_build.unit_of(entry),))
     device = model.device
     fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])
     with torch.cuda.device(device):

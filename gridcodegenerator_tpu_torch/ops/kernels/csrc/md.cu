@@ -5,6 +5,7 @@
 //   md_aba_fused     (multidof_fused.py:377) -> grid_md_aba_{f32,f64}
 //   md_id_grad_fused (multidof_fused.py:771) -> grid_md_id_grad_{f32,f64}
 //   md_fd_grad_fused (multidof_fused.py:791) -> grid_md_fd_grad_{f32,f64}
+//   md_fd_fused      (multidof_fused.py:894) -> grid_md_fd_{f32,f64}
 // Each Pallas kernel ran its body on a VMEM tile of 128 states; here the
 // same body (md.cuh) runs per thread on the batch-last layout at the
 // boundary — q (nq, B), q̇, q̈, u (nv, B), outputs (nv[, nv], B) — so a
@@ -15,7 +16,8 @@
 // (18·n·nv values) and the (nv, nv) factor, ∂c and M⁻¹ per thread, in local
 // memory; they are built only up to MAX_MD_GRAD_NV velocity coordinates
 // (GRID_MD_GRADS=1, _build.py). RNEA and ABA are O(n) a state and are built
-// for every robot. The robot constants (96·n + 2·nv values) are staged in
+// for every robot, and so is the CRBA forward dynamics (md_fd: the nv×nv
+// factor, no gradient frame). The robot constants (96·n + 2·nv values) are staged in
 // shared memory once per block. Topology and joint types come in as -D
 // macros (md.cuh); the kernels are templated on float and double so the
 // card can hold them to the plain version at float64 round-off.
@@ -68,6 +70,17 @@ md_aba_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   const long long b = state_index();
   if (b >= B) return;
   grid::md_aba_state(R, q, qd, u, qdd, B, b, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+md_fd_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+             const T* __restrict__ qd, const T* __restrict__ u,
+             T* __restrict__ qdd, long long B, T minus_g) {
+  const grid::MdRobot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::md_fd_state(R, q, qd, u, qdd, B, b, minus_g);
 }
 
 #if GRID_MD_GRADS
@@ -132,6 +145,16 @@ int aba(const void* consts, const void* q, const void* qd, const void* u,
         void* qdd, long long B, double gravity, void* stream) {
   md_aba_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
                      static_cast<cudaStream_t>(stream)>>>(
+      in<T>(consts), in<T>(q), in<T>(qd), in<T>(u), static_cast<T*>(qdd), B,
+      static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fd(const void* consts, const void* q, const void* qd, const void* u,
+       void* qdd, long long B, double gravity, void* stream) {
+  md_fd_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                    static_cast<cudaStream_t>(stream)>>>(
       in<T>(consts), in<T>(q), in<T>(qd), in<T>(u), static_cast<T*>(qdd), B,
       static_cast<T>(-gravity));
   return static_cast<int>(cudaGetLastError());
@@ -204,6 +227,17 @@ int grid_md_aba_f64(const void* consts, const void* q, const void* qd,
                     const void* u, void* qdd, long long B, double gravity,
                     void* stream) {
   return aba<double>(consts, q, qd, u, qdd, B, gravity, stream);
+}
+
+int grid_md_fd_f32(const void* consts, const void* q, const void* qd,
+                   const void* u, void* qdd, long long B, double gravity,
+                   void* stream) {
+  return fd<float>(consts, q, qd, u, qdd, B, gravity, stream);
+}
+int grid_md_fd_f64(const void* consts, const void* q, const void* qd,
+                   const void* u, void* qdd, long long B, double gravity,
+                   void* stream) {
+  return fd<double>(consts, q, qd, u, qdd, B, gravity, stream);
 }
 
 #if GRID_MD_GRADS

@@ -9,7 +9,8 @@
 //   md_aba           _md_aba_body (:285-368), k×k Cholesky joint blocks
 //   md_id_grad_side  one side of _md_id_grad_cols_wide (:576-740) over all
 //                    nv directions
-// and the per-state bodies of the four kernels of md.cu.
+// and the per-state bodies of the five kernels of md.cu (md_fd_state is
+// _md_fd_body, :272: the CRBA forward dynamics).
 //
 // The robot is a compile-time constant: the build passes
 //   -DGRID_N=<joints> -DGRID_PARENTS=G(p0)G(p1)... -DGRID_PRISMATIC=G(..)...
@@ -73,22 +74,23 @@ __host__ __device__ constexpr Layout make_layout() {
 }
 #undef G
 
-__host__ __device__ constexpr int jtype(int i) {
-  constexpr Layout l = make_layout();
-  return l.type[i];
-}
-__host__ __device__ constexpr int vstart(int i) {
-  constexpr Layout l = make_layout();
-  return l.vs[i];
-}
-__host__ __device__ constexpr int qstart(int i) {
-  constexpr Layout l = make_layout();
-  return l.qs[i];
-}
-
-constexpr int NV = vstart(N);
-constexpr int NQ = qstart(N);
+constexpr int NV = make_layout().vs[N];
+constexpr int NQ = make_layout().qs[N];
 constexpr int kMdConstCount = 96 * N + 2 * NV;
+
+// The layout and the parents as constant-memory tables, for the joint loops'
+// run-time indices: a constexpr local table indexed at run time is rebuilt
+// in local memory on every call, which took more than half of K5md's time
+// at free Atlas (and of K1md's) on an H100.
+__constant__ Layout c_layout = make_layout();
+#define G(x) x,
+__constant__ int c_parent[N] = {GRID_PARENTS};
+#undef G
+
+__device__ __forceinline__ int jtype(int i) { return c_layout.type[i]; }
+__device__ __forceinline__ int vstart(int i) { return c_layout.vs[i]; }
+__device__ __forceinline__ int qstart(int i) { return c_layout.qs[i]; }
+__device__ __forceinline__ int md_parent(int i) { return c_parent[i]; }
 
 // Views into the packed constants (shared memory in the kernels).
 template <typename T>
@@ -249,7 +251,7 @@ __device__ __forceinline__ void md_rnea(const MdRobot<T>& R, const T X[N][36],
                                         T* c) {
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     const int t = jtype(i);
     const int sv = vstart(i);
     T vJ[6], tmp[6], ai[6];
@@ -286,7 +288,7 @@ GRID_ROLLED
   }
 GRID_ROLLED
   for (int i = N - 1; i >= 0; --i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     if (p >= 0) {
       T tmp[6];
       matvec6_T(X[i], f[i], tmp);
@@ -328,7 +330,7 @@ GRID_ROLLED
   // IC_p += X_iᵀ·(IC_i·X_i), leaves to root
 GRID_ROLLED
   for (int i = N - 1; i >= 0; --i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     if (p < 0) continue;
     T ICX[36];
 #pragma unroll
@@ -377,7 +379,7 @@ GRID_ROLLED
         A[si + ci][si + cj] = val;
       }
     int j = i;
-    while (parent(j) >= 0) {
+    while (md_parent(j) >= 0) {
 GRID_ROLLED
       for (int c = 0; c < wi; ++c) {
         T tmp[6];
@@ -385,7 +387,7 @@ GRID_ROLLED
 #pragma unroll
         for (int r = 0; r < 6; ++r) F[c][r] = tmp[r];
       }
-      j = parent(j);
+      j = md_parent(j);
       const int tj = jtype(j);
       const int sj = vstart(j);
 GRID_ROLLED
@@ -409,7 +411,7 @@ __device__ __forceinline__ void md_aba(const MdRobot<T>& R, const T X[N][36],
   // pass 1: velocities, bias accelerations, bias forces
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     T vJ[6], tmp[6];
     s_times(R, i, jtype(i), qd + vstart(i), vJ);
     if (p < 0) {
@@ -498,7 +500,7 @@ GRID_ROLLED
       for (int c = 1; c < w; ++c) s += U[sv + c][r] * du[c];
       pa[r] = (pA[i][r] + tmp[r]) + s;
     }
-    const int p = parent(i);
+    const int p = md_parent(i);
     if (p >= 0) {
       T IaX[36];
 #pragma unroll
@@ -528,7 +530,7 @@ GRID_ROLLED
   T (*a)[6] = v;
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     const int t = jtype(i);
     const int sv = vstart(i);
     const int w = dof_of_type(t);
@@ -578,7 +580,7 @@ __device__ __forceinline__ void md_id_grad_side(
     T da[N][6][NV], T df[N][6][NV], T dc[NV][NV]) {
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     const int t = jtype(i);
     const int sv = vstart(i);
     const int w = dof_of_type(t);
@@ -665,7 +667,7 @@ GRID_ROLLED
   // backward: ∂f_p += X_iᵀ·(∂f_i + crf(S_i)·f_i in i's own columns, q side)
 GRID_ROLLED
   for (int i = N - 1; i >= 0; --i) {
-    const int p = parent(i);
+    const int p = md_parent(i);
     if (p < 0) continue;
     const int t = jtype(i);
     const int sv = vstart(i);
@@ -760,6 +762,33 @@ __device__ __forceinline__ void md_aba_state(const MdRobot<T>& R, const T* q,
   md_aba(R, X, qds, us, minus_g, qdd);
 GRID_ROLLED
   for (int j = 0; j < NV; ++j) qdd_out[j * B + b] = qdd[j];
+}
+
+// q̈(q, q̇, u) by the mass matrix — md_fd_fused: X → bias RNEA → CRBA →
+// Cholesky → one solve (the head of md_fd_grad_state)
+template <typename T>
+__device__ __forceinline__ void md_fd_state(const MdRobot<T>& R, const T* q,
+                                            const T* qd, const T* u,
+                                            T* qdd_out, long long B,
+                                            long long b, T minus_g) {
+  T qs[NQ], qds[NV], x[NV];
+  load_rows<T, NQ>(q, B, b, qs);
+  load_rows<T, NV>(qd, B, b, qds);
+  load_rows<T, NV>(u, B, b, x);
+  T X[N][36];
+  md_transforms(R, qs, X);
+  {
+    T v[N][6], a[N][6], f[N][6], c[NV];
+    md_rnea<T, false, true>(R, X, qds, nullptr, minus_g, v, a, f, c);
+GRID_ROLLED
+    for (int j = 0; j < NV; ++j) x[j] = x[j] - c[j];
+  }
+  T A[NV][NV];
+  md_crba(R, X, A);
+  chol_factor<T, NV>(A);
+  chol_apply<T, NV>(A, x);
+GRID_ROLLED
+  for (int j = 0; j < NV; ++j) qdd_out[j * B + b] = x[j];
 }
 
 // (∂τ/∂δq, ∂τ/∂q̇) at (q, q̇[, q̈]) — md_id_grad_fused

@@ -546,6 +546,26 @@ GRID_ROLLED
     for (int c = 0; c < N; ++c) out[(r * N + c) * B + b] = D[r][c];
 }
 
+// the staged (6, n, B) per-joint vectors (v, a, f): element (r, i) of state
+// b at (r·n + i)·B + b
+template <typename T>
+__device__ __forceinline__ void load_vec6(const T* __restrict__ x, long long B,
+                                          long long b, T out[N][6]) {
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 6; ++r) out[i][r] = x[(r * N + i) * B + b];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec6(const T in[N][6], long long B,
+                                           long long b, T* __restrict__ x) {
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 6; ++r) x[(r * N + i) * B + b] = in[i][r];
+}
+
 // out = −M⁻¹·D (matmatN with negate)
 template <typename T>
 __device__ __forceinline__ void store_neg_minv_times(const T M[N][N],

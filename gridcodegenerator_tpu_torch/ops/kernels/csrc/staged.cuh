@@ -36,25 +36,6 @@ namespace grid {
 
 constexpr int CB = GRID_CB;
 
-// ------------------------------------------------------- staged layouts
-template <typename T>
-__device__ __forceinline__ void load_vec6(const T* __restrict__ x, long long B,
-                                          long long b, T out[N][6]) {
-GRID_ROLLED
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int r = 0; r < 6; ++r) out[i][r] = x[(r * N + i) * B + b];
-}
-
-template <typename T>
-__device__ __forceinline__ void store_vec6(const T in[N][6], long long B,
-                                           long long b, T* __restrict__ x) {
-GRID_ROLLED
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int r = 0; r < 6; ++r) x[(r * N + i) * B + b] = in[i][r];
-}
-
 // ------------------------------------------------------------ K1, K4, vaf
 enum VafMode { kBiasV = 0, kAF = 1, kVAF = 2 };
 

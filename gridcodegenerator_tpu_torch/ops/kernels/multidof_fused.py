@@ -2,8 +2,8 @@
 
 Counterparts of ``gridcodegenerator_tpu/ops/kernels/multidof_fused.py``
 (``md_id_fused`` :879, ``md_aba_fused`` :377, ``md_id_grad_fused`` :771,
-``md_fd_grad_fused`` :791) with the same batch-last signatures: q (nq, B),
-q̇, q̈ and u (nv, B). Each wrapper
+``md_fd_grad_fused`` :791, ``md_fd_fused`` :894) with the same batch-last
+signatures: q (nq, B), q̇, q̈ and u (nv, B). Each wrapper
 
 * on a CPU tensor runs its plain version (``*_plain``, built from
   :mod:`..md_blops`), the CPU counterpart of the JAX package's
@@ -13,15 +13,16 @@ q̇, q̈ and u (nv, B). Each wrapper
   There is no fallback from the kernel to the plain version.
 
 The two gradient families hold O(n·nv + nv²) values a state on one thread;
-past ``_build.MAX_MD_GRAD_NV`` velocity coordinates
-(``_build.md_dense_grads``) they raise on the CPU and on the card alike:
-the staged multi-dof pipeline that takes them there is not ported yet.
+their kernels are built only up to ``_build.MAX_MD_GRAD_NV`` velocity
+coordinates (``_build.md_dense_grads``), and the batched entries
+(:mod:`..multidof`) route past it to the staged pipeline
+(:mod:`.multidof_staged`). On CPU tensors the plain versions run at any
+size.
 """
 
 from __future__ import annotations
 
 from .. import md_blops
-from . import _build
 from ._launch import check_md, empty, launch, on_cpu
 
 
@@ -48,19 +49,13 @@ def md_fd_grad_plain(model, q, qd, u, gravity=-9.81):
     return md_blops.md_fd_grad_bl(model, q, qd, u, gravity)
 
 
+def md_fd_plain(model, q, qd, u, gravity=-9.81):
+    return md_blops.md_fd_crba_bl(model, q, qd, u, gravity)
+
+
 # --------------------------------------------------------------------------
 # public wrappers (batch-last: q (nq, B), the others (nv, B))
 # --------------------------------------------------------------------------
-def _grad_route(model):
-    if not _build.md_dense_grads(model.nv):
-        raise NotImplementedError(
-            f"'{model.name}' has nv={model.nv} velocity coordinates, past "
-            f"the single-thread gradient kernels' limit MAX_MD_GRAD_NV="
-            f"{_build.MAX_MD_GRAD_NV}: the staged multi-dof pipeline "
-            f"(multidof_staged.py) that takes such robots is not ported "
-            f"yet: ROADMAP Queue 2 items 16-19")
-
-
 def md_id_fused(model, q, qd, qdd=None, gravity=-9.81):
     """Generalized RNEA: q (nq,B), q̇[, q̈] (nv,B) → c (nv,B); ``qdd=None``
     is the bias force."""
@@ -89,10 +84,23 @@ def md_aba_fused(model, q, qd, u, gravity=-9.81):
     return qdd
 
 
+def md_fd_fused(model, q, qd, u, gravity=-9.81):
+    """Generalized FD by the mass matrix: q (nq,B), q̇, u (nv,B) → q̈ (nv,B)
+    — bias RNEA, CRBA and a dense (nv, nv) Cholesky solve in one kernel."""
+    if on_cpu(q):
+        return md_fd_plain(model, q, qd, u, gravity)
+    B = check_md(model, q, [qd, u])
+    qdd = empty(model, model.nv, B)
+    if B:
+        launch("md_fd", "grid_md_fd", model,
+               (q.data_ptr(), qd.data_ptr(), u.data_ptr(), qdd.data_ptr()),
+               B, float(gravity))
+    return qdd
+
+
 def md_id_grad_fused(model, q, qd, qdd=None, gravity=-9.81):
     """Tangent-space ∂ID after an in-kernel v/a/f sweep at q̈ (zero for
     ``qdd=None``): → (∂τ/∂δq, ∂τ/∂q̇), each (nv,nv,B)."""
-    _grad_route(model)
     if on_cpu(q):
         return md_id_grad_plain(model, q, qd, qdd, gravity)
     B = check_md(model, q, [qd] if qdd is None else [qd, qdd])
@@ -109,7 +117,6 @@ def md_id_grad_fused(model, q, qd, qdd=None, gravity=-9.81):
 def md_fd_grad_fused(model, q, qd, u, gravity=-9.81):
     """Tangent-space ∇FD in one launch: → (∂q̈/∂δq, ∂q̈/∂q̇, ∂q̈/∂u), each
     (nv,nv,B)."""
-    _grad_route(model)
     if on_cpu(q):
         return md_fd_grad_plain(model, q, qd, u, gravity)
     B = check_md(model, q, [qd, u])

@@ -39,7 +39,7 @@ from ...models.robot import RobotModel
 from .. import blops
 from ..so import jvp, merge_dirs, one_hot_dirs, repeat_dirs, split_dirs
 from . import _build, staged
-from ._launch import check, empty, launch, on_cpu
+from ._launch import check, check_staged, empty, launch, on_cpu
 
 _SIDES = ("q", "qd")
 
@@ -191,8 +191,8 @@ def t2_staged(model: RobotModel, q, lamM, qdd, Minv, dc):
         return t2_plain(model, q, lamM, qdd, Minv, dc)
     B = check(model, [q, lamM, qdd])
     n = model.n
-    staged._check_staged(model, "Minv", Minv, (n, n, B))
-    staged._check_staged(model, "dc", dc, (n, n, B))
+    check_staged(model, "Minv", Minv, (n, n, B))
+    check_staged(model, "dc", dc, (n, n, B))
     dlamM, dqdd = empty(model, n, n, B), empty(model, n, n, B)
     if B:
         launch("t2", "grid_t2", model,
@@ -210,9 +210,9 @@ def t4_staged(model: RobotModel, q, qd, qdd, v, dv, dqdd, which,
         return t4_plain(model, q, qd, qdd, v, dv, dqdd, which, gravity)
     B = check(model, [q, qd, qdd])
     n = model.n
-    staged._check_staged(model, "v", v, (6, n, B))
-    staged._check_staged(model, "dv", dv, (n, 6, n, B))
-    staged._check_staged(model, "dqdd", dqdd, (n, n, B))
+    check_staged(model, "v", v, (6, n, B))
+    check_staged(model, "dv", dv, (n, 6, n, B))
+    check_staged(model, "dqdd", dqdd, (n, n, B))
     da, df = empty(model, n, 6, n, B), empty(model, n, 6, n, B)
     if B:
         launch("t4", "grid_t4", model,
@@ -235,9 +235,9 @@ def t5_staged(model: RobotModel, q, qd, v, a, f, lamM, dv, da, df, which,
     B = check(model, [q, qd, lamM])
     n = model.n
     for name, t in (("v", v), ("a", a), ("f", f)):
-        staged._check_staged(model, name, t, (6, n, B))
+        check_staged(model, name, t, (6, n, B))
     for name, t in (("dv", dv), ("da", da), ("df", df)):
-        staged._check_staged(model, name, t, (n, 6, n, B))
+        check_staged(model, name, t, (n, 6, n, B))
     cb = _so_col_block(model, cb)
     out = empty(model, n, n, B)
     if B:

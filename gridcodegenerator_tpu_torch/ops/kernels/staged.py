@@ -31,7 +31,8 @@ from ...models.robot import RobotModel
 from .. import blops
 from . import _build
 from .contact_fused import _chol_factor_act, _chol_minv_sym
-from ._launch import check, empty, launch, on_cpu
+from ._launch import (check, check_staged, empty, launch, on_cpu,
+                      ptr)
 
 
 def _as_list(stacked, n):
@@ -133,20 +134,6 @@ def fd_grad_plain(model: RobotModel, q, qd, u, gravity=-9.81, cb=None):
 # --------------------------------------------------------------------------
 # stage wrappers: the plain stage on CPU tensors, the kernel on CUDA tensors
 # --------------------------------------------------------------------------
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
-def _check_staged(model, name, t, shape):
-    """A staged input (v, a, f, M⁻¹) on the states' device, dtype and
-    batch, in its (…, B) layout."""
-    if (t.device != model.device or t.dtype != model.dtype
-            or tuple(t.shape) != shape or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {shape} tensor on "
-                         f"{model.device} in {model.dtype}, got "
-                         f"{tuple(t.shape)} on {t.device} in {t.dtype}")
-
-
 def bias_and_v_staged(model: RobotModel, q, qd, gravity=-9.81):
     """K1: c (n, B) and v (6, n, B)."""
     if on_cpu(q):
@@ -171,7 +158,7 @@ def minv_qdd_dense_staged(model: RobotModel, q, rhs=None):
     qdd = None if rhs is None else empty(model, n, B)
     if B:
         launch("minv_dense", "grid_minv_dense", model,
-                (q.data_ptr(), _ptr(rhs), Minv.data_ptr(), _ptr(qdd)), B)
+                (q.data_ptr(), ptr(rhs), Minv.data_ptr(), ptr(qdd)), B)
     return (Minv,) if rhs is None else (Minv, qdd)
 
 
@@ -180,7 +167,7 @@ def af_staged(model: RobotModel, q, qd, qdd, v, gravity=-9.81):
     if on_cpu(q):
         return af_plain(model, q, qd, qdd, v, gravity)
     B = check(model, [q, qd, qdd])
-    _check_staged(model, "v", v, (6, model.n, B))
+    check_staged(model, "v", v, (6, model.n, B))
     a, f = empty(model, 6, model.n, B), empty(model, 6, model.n, B)
     if B:
         launch("af", "grid_af", model,
@@ -211,16 +198,16 @@ def grad_cols_staged(model: RobotModel, q, qd, v, a, f, gravity=-9.81,
     B = check(model, [q, qd])
     n = model.n
     for name, t in (("v", v), ("a", a), ("f", f)):
-        _check_staged(model, name, t, (6, n, B))
+        check_staged(model, name, t, (6, n, B))
     if Minv is not None:
-        _check_staged(model, "Minv", Minv, (n, n, B))
+        check_staged(model, "Minv", Minv, (n, n, B))
     cb = _col_block(model, cb)
     dq, dqd = empty(model, n, n, B), empty(model, n, n, B)
     if B:
         launch("grad_cols" if Minv is None else "grad_cols_finish",
                 "grid_grad_cols", model,
                 (q.data_ptr(), qd.data_ptr(), v.data_ptr(), a.data_ptr(),
-                 f.data_ptr(), _ptr(Minv), dq.data_ptr(), dqd.data_ptr()),
+                 f.data_ptr(), ptr(Minv), dq.data_ptr(), dqd.data_ptr()),
                 B, cb, float(gravity))
     return dq, dqd
 

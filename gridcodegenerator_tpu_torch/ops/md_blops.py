@@ -11,11 +11,17 @@ round-off:
 * :func:`md_crba_bl` — generalized CRBA (``_md_crba_s``, :215-258);
 * :func:`md_aba_bl` — generalized ABA with k×k Cholesky joint blocks
   (``_md_aba_body``, :285-368);
-* :func:`md_id_grad_bl` — tangent-space ∂ID over all nv directions as one
-  (6, nv, B) tensor a joint (``_md_id_grad_cols_wide``, :576-740, the body
-  ``md_id_grad_fused`` runs);
+* :func:`md_id_grad_bl` — tangent-space ∂ID for a block of directions
+  (all nv by default) as one (6, cb, B) tensor a joint, with the optional
+  −M⁻¹·∂c finish (``_md_id_grad_cols_wide``, :576-740: the body of
+  ``md_id_grad_fused`` and of the staged K5md blocks);
 * :func:`md_fd_grad_bl` — tangent-space ∇FD, the Carpentier–Mansard
-  pipeline (``_md_fd_grad_body``, :746-768).
+  pipeline (``_md_fd_grad_body``, :746-768);
+* :func:`md_fd_crba_bl` — q̈ by CRBA and a dense Cholesky solve
+  (``_md_fd_body``, :272);
+* :func:`md_minv_bl`, :func:`md_minv_qdd_bl` — dense M⁻¹ and the explicit
+  q̈ = M⁻¹(u − c) of the staged pipeline
+  (``gridcodegenerator_tpu/ops/kernels/multidof_staged.py``, :127, :149).
 
 Motion subspaces are folded as constants and their zeros skipped
 (``model.S_np``), as the JAX bodies fold them at trace time. These are the
@@ -297,76 +303,107 @@ def md_aba_bl(model, q, qd, u, gravity=-9.81):
 # --------------------------------------------------------------------------
 # tangent-space ∂ID and ∇FD
 # --------------------------------------------------------------------------
-def _S_wide(model, i, like):
-    """Joint i's S columns as (6, k, B) values (constants times ones)."""
-    S = model.S_np[i]
-    w = model.v_slices[i][1]
+def _span(model, i, c0, cb):
+    """Joint i's directions inside the column block [c0, c0 + cb): (js,
+    je), empty when js ≥ je. A block may cut a ball or free joint's
+    directions."""
+    sv, w = model.v_slices[i]
+    return max(sv, c0), min(sv + w, c0 + cb)
+
+
+def _S_wide(model, i, like, js, je):
+    """Joint i's S columns js..je−1 (global directions) as (6, je − js, B)
+    values (constants times ones)."""
+    S = model.S_np[i][:, js - model.v_slices[i][0]:je - model.v_slices[i][0]]
     zero = torch.zeros_like(like[0:1])[:, None]
     return torch.cat([torch.cat([zero + float(S[r, k]) if S[r, k] != 0.0
-                                 else zero for k in range(w)], dim=1)
+                                 else zero for k in range(je - js)], dim=1)
                       for r in range(6)])
 
 
-def _insert(model, i, seed_w):
-    """(6, k, B) seeds of joint i's directions → (6, nv, B), zero in the
-    other directions' columns."""
-    sv, w = model.v_slices[i]
-    shape = seed_w.shape
+def _insert(seed_w, js, je, c0, cb):
+    """(6, je − js, B) seeds of directions js..je−1 → (6, cb, B) at their
+    columns of the block [c0, c0 + cb), zero in the others."""
+    rest = seed_w.shape[2:]
     parts = []
-    if sv > 0:
-        parts.append(seed_w.new_zeros((6, sv) + shape[2:]))
+    if js > c0:
+        parts.append(seed_w.new_zeros((6, js - c0) + rest))
     parts.append(seed_w)
-    if model.nv > sv + w:
-        parts.append(seed_w.new_zeros((6, model.nv - sv - w) + shape[2:]))
+    if c0 + cb > je:
+        parts.append(seed_w.new_zeros((6, c0 + cb - je) + rest))
     return torch.cat(parts, dim=1)
 
 
-def md_id_grad_bl(model, X, qd, v, a, f, gravity=-9.81, sides=("q", "qd")):
-    """Tangent-space ∂ID at the sweep (v, a, f) (f summed to the root), all
-    nv directions as one (6, nv, B) tensor a joint: → per side an
-    (nv, nv, B) block, ∂τ/∂δq or ∂τ/∂q̇ (damping on its diagonal).
+def md_id_grad_bl(model, X, qd, v, a, f, gravity=-9.81, sides=("q", "qd"),
+                  c0=0, cb=None, minv=None):
+    """Tangent-space ∂ID at the sweep (v, a, f) (f summed to the root) for
+    the directions [c0, c0 + cb) (all nv by default), the block's columns
+    as one (6, cb, B) tensor a joint: → per side an (nv, cb, B) block of
+    ∂τ/∂δq or ∂τ/∂q̇ (damping on the block's diagonal entries), or with
+    ``minv`` (nv, nv, B) the finish −M⁻¹·∂τ over the structurally nonzero
+    rows, in ascending order.
 
-    Seeds in joint j's own columns: crm(X_j·v_p)·S_j and crm(X_j·a_p)·S_j
-    on the q side (a root's a_p is −g), S_j and crm(v_j)·S_j on the q̇ side;
-    the backward pass adds crf(S_j)·f_j on the q side for non-root joints."""
+    Seeds in the columns of the directions a joint owns: crm(X_j·v_p)·S_j
+    and crm(X_j·a_p)·S_j on the q side (a root's a_p is −g), S_j and
+    crm(v_j)·S_j on the q̇ side; the backward pass adds crf(S_j)·f_j on the
+    q side for non-root joints. Joints outside the subtree of the block's
+    owners are skipped forward; their ancestors still take ∂f backward.
+    The JAX body is ``_md_id_grad_cols_wide`` (multidof_fused.py:576)."""
     parents = model.topology.parents
     n, nv = model.n, model.nv
+    cb = nv - c0 if cb is None else cb
     B = qd.shape[-1]
     _, inertia, damping, _ = _consts(model, B)
     minus_g = float(-gravity)
+    span = [_span(model, i, c0, cb) for i in range(n)]
+    owns = [js < je for js, je in span]
+    in_sub = [False] * n
+    for i in range(n):
+        p = parents[i]
+        in_sub[i] = owns[i] or (p >= 0 and in_sub[p])
     outs = {}
     for side in sides:
         is_q = side == "q"
         DV, DA, DF = [None] * n, [None] * n, [None] * n
         for i in range(n):
+            if not in_sub[i]:
+                continue
             p = parents[i]
             dv = (None if p < 0 or DV[p] is None
                   else blops.matmat6(X[i], DV[p]))
-            da = None if p < 0 else blops.matmat6(X[i], DA[p])
-            if is_q:
-                Xv = blops.matvec6(X[i], v[p]) if p >= 0 else None
-                Xa = (blops.matvec6(X[i], a[p]) if p >= 0
-                      else X[i][:, 5, :] * minus_g)
-                Sw = _S_wide(model, i, Xa)
-                if Xv is not None:
-                    seed = _insert(model, i, blops.crm_cols_left(Xv, Sw))
+            da = (None if p < 0 or DA[p] is None
+                  else blops.matmat6(X[i], DA[p]))
+            if owns[i]:
+                js, je = span[i]
+                if is_q:
+                    Xv = blops.matvec6(X[i], v[p]) if p >= 0 else None
+                    Xa = (blops.matvec6(X[i], a[p]) if p >= 0
+                          else X[i][:, 5, :] * minus_g)
+                    Sw = _S_wide(model, i, Xa, js, je)
+                    if Xv is not None:
+                        seed = _insert(blops.crm_cols_left(Xv, Sw), js, je,
+                                       c0, cb)
+                        dv = seed if dv is None else dv + seed
+                    da_seed = _insert(blops.crm_cols_left(Xa, Sw), js, je,
+                                      c0, cb)
+                else:
+                    Sw = _S_wide(model, i, v[i], js, je)
+                    seed = _insert(Sw, js, je, c0, cb)
                     dv = seed if dv is None else dv + seed
-                da_seed = _insert(model, i, blops.crm_cols_left(Xa, Sw))
-            else:
-                Sw = _S_wide(model, i, v[i])
-                seed = _insert(model, i, Sw)
-                dv = seed if dv is None else dv + seed
-                da_seed = _insert(model, i, blops.crm_cols_left(v[i], Sw))
-            da = da_seed if da is None else da + da_seed
+                    da_seed = _insert(blops.crm_cols_left(v[i], Sw), js, je,
+                                      c0, cb)
+                da = da_seed if da is None else da + da_seed
             if dv is not None:
                 vJ = _Smatvec(_S_cols(model, i), _vrows(qd, model, i))
-                da = da + -blops.crm_cols_left(vJ, dv)
-            df = blops.matmat6(inertia[i], da)
+                term = -blops.crm_cols_left(vJ, dv)
+                da = term if da is None else da + term
+            df = None if da is None else blops.matmat6(inertia[i], da)
             if dv is not None:
                 Iv = blops.matvec6(inertia[i], v[i])
-                df = df + (blops.crf_cols_right(dv, Iv)
-                           + blops.crf_cols_left(
-                               v[i], blops.matmat6(inertia[i], dv)))
+                t = (blops.crf_cols_right(dv, Iv)
+                     + blops.crf_cols_left(v[i],
+                                           blops.matmat6(inertia[i], dv)))
+                df = t if df is None else df + t
             DV[i], DA[i], DF[i] = dv, da, df
 
         for i in range(n - 1, -1, -1):
@@ -374,13 +411,20 @@ def md_id_grad_bl(model, X, qd, v, a, f, gravity=-9.81, sides=("q", "qd")):
             if p < 0:
                 continue
             acc = DF[i]
-            if is_q:
-                Sw = _S_wide(model, i, f[i])
-                acc = acc + _insert(model, i, blops.crf_cols_right(Sw, f[i]))
-            DF[p] = DF[p] + blops.matmat6_T(X[i], acc)
+            if is_q and owns[i]:
+                js, je = span[i]
+                Sw = _S_wide(model, i, f[i], js, je)
+                corr = _insert(blops.crf_cols_right(Sw, f[i]), js, je, c0,
+                               cb)
+                acc = corr if acc is None else acc + corr
+            if acc is not None:
+                up = blops.matmat6_T(X[i], acc)
+                DF[p] = up if DF[p] is None else DF[p] + up
 
         rows = [None] * nv
         for i in range(n):
+            if DF[i] is None:
+                continue
             sv, w = model.v_slices[i]
             S = model.S_np[i]
             for c in range(w):
@@ -388,17 +432,63 @@ def md_id_grad_bl(model, X, qd, v, a, f, gravity=-9.81, sides=("q", "qd")):
                                    for r in range(6) if S[r, c] != 0.0)
         if not is_q:
             one = torch.ones_like(qd[0:1])
-            for jd in range(nv):
+            for jd in range(c0, c0 + cb):
                 d1 = (damping[jd:jd + 1] * one)[:, None]        # (1, 1, B)
                 parts = []
-                if jd > 0:
-                    parts.append(one.new_zeros((1, jd, B)))
+                if jd > c0:
+                    parts.append(one.new_zeros((1, jd - c0, B)))
                 parts.append(d1)
-                if nv > jd + 1:
-                    parts.append(one.new_zeros((1, nv - jd - 1, B)))
-                rows[jd] = rows[jd] + torch.cat(parts, dim=1)[0]
-        outs[side] = torch.stack(rows)
+                if c0 + cb > jd + 1:
+                    parts.append(one.new_zeros((1, c0 + cb - jd - 1, B)))
+                dmask = torch.cat(parts, dim=1)[0]
+                rows[jd] = dmask if rows[jd] is None else rows[jd] + dmask
+        if minv is None:
+            zero = qd.new_zeros((cb, B))
+            outs[side] = torch.stack([r if r is not None else zero
+                                      for r in rows])
+        else:
+            acc = None
+            for r in range(nv):
+                if rows[r] is None:
+                    continue
+                t = minv[r][:, None] * rows[r][None]
+                acc = t if acc is None else acc + t
+            outs[side] = -acc
     return tuple(outs[s] for s in sides)
+
+
+# --------------------------------------------------------------------------
+# CRBA forward dynamics and the staged pipeline's M⁻¹ stages
+# --------------------------------------------------------------------------
+def md_fd_crba_bl(model, q, qd, u, gravity=-9.81):
+    """Forward dynamics by the mass matrix: bias RNEA, CRBA, active-region
+    Cholesky and one single-rhs solve → q̈ (nv, B) (JAX ``_md_fd_body``,
+    multidof_fused.py:272)."""
+    nv = model.nv
+    X = md_transforms_bl(model, q)
+    c, *_ = md_rnea_bl(model, X, qd, None, gravity)
+    L = _chol_factor_ev(md_crba_bl(model, X), nv)
+    return torch.cat(_chol_apply_e(L, [u[r:r + 1] - c[r:r + 1]
+                                       for r in range(nv)]))
+
+
+def md_minv_bl(model, X):
+    """Dense symmetric M⁻¹ (nv, nv, B): CRBA, the active-region factor and
+    L⁻ᵀ·L⁻¹ (the body of JAX ``md_minv_fused``, multidof_staged.py:127)."""
+    nv = model.nv
+    return _chol_minv_sym(_chol_factor_act(md_crba_bl(model, X), nv), nv)
+
+
+def md_minv_qdd_bl(model, q, qd, u, gravity=-9.81):
+    """(M⁻¹ (nv, nv, B), q̈ (nv, B)) with q̈ = Σ_j M⁻¹[:, j]·(u − c)[j], the
+    explicit product in ascending j (JAX ``md_minv_qdd_fused``,
+    multidof_staged.py:149), not the Cholesky solve of
+    :func:`md_fd_crba_bl`."""
+    X = md_transforms_bl(model, q)
+    c, *_ = md_rnea_bl(model, X, qd, None, gravity)
+    Minv = md_minv_bl(model, X)
+    rhs = u - c
+    return Minv, sum(Minv[:, j] * rhs[j:j + 1] for j in range(model.nv))
 
 
 def md_fd_grad_bl(model, q, qd, u, gravity=-9.81):

@@ -17,8 +17,11 @@ free joint's position by a body-frame translation (:func:`md_tangent_apply`).
 
 The batched entries take batch-first states, q (..., nq) and q̇, q̈, u
 (..., nv), move them to the batch-last (nq|nv, B) layout and call the
-wrappers of :mod:`.kernels.multidof_fused`: the CUDA kernels on CUDA
-tensors, their plain PyTorch versions (:mod:`.md_blops`) on CPU tensors.
+wrappers of :mod:`.kernels.multidof_fused` — or, for the two gradient
+families past ``MAX_MD_GRAD_NV`` velocity coordinates, of the staged
+pipeline :mod:`.kernels.multidof_staged` (the JAX package's routing,
+multidof.py:524, :551): the CUDA kernels on CUDA tensors, their plain
+PyTorch versions (:mod:`.md_blops`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ from ..api import _check_impl
 from ..models.robot import _origin_xform, _require_device
 from ..models.topology import Topology
 from ..models.urdf import RobotDescription, rpy_to_matrix, skew
+from .kernels import _build
 from .kernels import multidof_fused as _mf
+from .kernels import multidof_staged as _ms
 
 # the per-robot constant tensors (``MultiDofModel``), in field order
 MD_FIELDS = ("XT", "S", "inertia", "damping", "armature", "axis")
@@ -295,35 +300,36 @@ def md_inverse_dynamics_batched(model: MultiDofModel, q, qd, qdd=None,
 def md_forward_dynamics_batched(model: MultiDofModel, q, qd, u,
                                 gravity=-9.81, impl="auto"):
     """Generalized forward dynamics by the articulated-body algorithm with
-    k×k joint blocks: q (..., nq), q̇ and u (..., nv) → q̈ (..., nv)."""
+    k×k joint blocks: q (..., nq), q̇ and u (..., nv) → q̈ (..., nv);
+    ``impl="crba"`` takes the CRBA + dense Cholesky kernel instead."""
     _check_md_states(model, (q, qd, u), ("q", "qd", "u"))
-    if impl == "crba":
-        raise NotImplementedError(
-            "impl='crba' (the CRBA + dense Cholesky kernel md_fd_fused, "
-            "multidof_fused.py:894) is not ported yet: ROADMAP Queue 2 "
-            "item 12")
-    _check_impl(impl, q)
-    qdd = _mf.md_aba_fused(model, _cols(q), _cols(qd), _cols(u), gravity)
+    _check_impl("auto" if impl == "crba" else impl, q)
+    kern = _mf.md_fd_fused if impl == "crba" else _mf.md_aba_fused
+    qdd = kern(model, _cols(q), _cols(qd), _cols(u), gravity)
     return _unflat(qdd, tuple(qd.shape[:-1]))
 
 
 def md_id_grad_batched(model: MultiDofModel, q, qd, qdd=None, gravity=-9.81,
                        impl="auto"):
     """Tangent-space ∂ID: q (..., nq), q̇ and q̈ (..., nv) → (∂τ/∂δq,
-    ∂τ/∂q̇), each (..., nv, nv)."""
+    ∂τ/∂q̇), each (..., nv, nv); past ``MAX_MD_GRAD_NV`` through the staged
+    pipeline."""
     _check_md_states(model, (q, qd, qdd), ("q", "qd", "qdd"))
     _check_impl(impl, q)
-    outs = _mf.md_id_grad_fused(model, _cols(q), _cols(qd), _cols(qdd),
-                                gravity)
+    fn = (_mf.md_id_grad_fused if _build.md_dense_grads(model.nv)
+          else _ms.md_id_grad_staged)
+    outs = fn(model, _cols(q), _cols(qd), _cols(qdd), gravity)
     return tuple(_unflat(D, tuple(qd.shape[:-1])) for D in outs)
 
 
 def md_forward_dynamics_gradient_batched(model: MultiDofModel, q, qd, u,
                                          gravity=-9.81, impl="auto"):
     """Tangent-space ∇FD: (∂q̈/∂δq, ∂q̈/∂q̇, ∂q̈/∂u), each (..., nv, nv) —
-    the Carpentier–Mansard pipeline in one kernel."""
+    the Carpentier–Mansard pipeline in one kernel, or past
+    ``MAX_MD_GRAD_NV`` in the staged pipeline's three."""
     _check_md_states(model, (q, qd, u), ("q", "qd", "u"))
     _check_impl(impl, q)
-    outs = _mf.md_fd_grad_fused(model, _cols(q), _cols(qd), _cols(u),
-                                gravity)
+    fn = (_mf.md_fd_grad_fused if _build.md_dense_grads(model.nv)
+          else _ms.md_fd_grad_staged)
+    outs = fn(model, _cols(q), _cols(qd), _cols(u), gravity)
     return tuple(_unflat(D, tuple(qd.shape[:-1])) for D in outs)

@@ -167,14 +167,16 @@ PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
                 "ops.kernels.so_fused", "ops.kernels.so_staged",
                 "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
-                "ops.kernels.multidof_fused", "models.robot", "utils.golden")
+                "ops.kernels.multidof_fused", "ops.kernels.multidof_staged",
+                "models.robot", "utils.golden")
 
 
 def test_port_imports_no_jax():
     """The port runs in a process where importing jax fails: every module,
     the single-kernel families on iiwa-14 and the staged ones on Atlas, the
-    three second-order entries (on the double pendulum, to stay quick) and
-    the four multi-dof entries (on the ball arm)."""
+    three second-order entries (on the double pendulum, to stay quick), the
+    four multi-dof entries (on the ball arm) and the two multi-dof
+    gradients of free Atlas (the staged multi-dof pipeline)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -210,6 +212,15 @@ def test_port_imports_no_jax():
         "        *gt.md_forward_dynamics_gradient_batched(m, q, v, v))\n"
         "assert [tuple(o.shape) for o in outs] == [(3, 7)] * 2 + [(3, 7, 7)]"
         " * 5\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
+        "m = gt.multidof_model_from_description(gt.parse_urdf("
+        "zoo.with_free_joint(zoo.atlas())), dtype=torch.float64, "
+        "device='cpu')\n"
+        "q = gt.neutral_q(m).expand(2, -1)\n"
+        "v = torch.full((2, m.nv), 0.3, dtype=torch.float64)\n"
+        "outs = (*gt.md_id_grad_batched(m, q, v, v),\n"
+        "        *gt.md_forward_dynamics_gradient_batched(m, q, v, v))\n"
+        "assert [tuple(o.shape) for o in outs] == [(2, 34, 34)] * 5\n"
         "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"

@@ -8,7 +8,8 @@ references are the batched entry points, which off the TPU run the kernel
 bodies with ``force_xla=True`` — no interpret-mode Pallas; each is computed
 once a robot. Also: a nonzero armature, free HyQ's ∇FD against central
 differences of the port's own ABA on the manifold, routing, no fallback,
-the unported options and the shape errors.
+the formerly unported options (``impl="crba"``, the gradients past
+``MAX_MD_GRAD_NV``) and the shape errors.
 
 Tolerance 1e-10·max(1, |ref|) per element against JAX: the same sums in
 the same order.
@@ -269,10 +270,12 @@ def _meta_call(fam, tm):
             "bias": lambda: tmf.md_id_fused(tm, q, v),
             "aba": lambda: tmf.md_aba_fused(tm, q, v, v),
             "id_grad": lambda: tmf.md_id_grad_fused(tm, q, v, v),
-            "fd_grad": lambda: tmf.md_fd_grad_fused(tm, q, v, v)}[fam]()
+            "fd_grad": lambda: tmf.md_fd_grad_fused(tm, q, v, v),
+            "crba": lambda: tmf.md_fd_fused(tm, q, v, v)}[fam]()
 
 
-@pytest.mark.parametrize("fam", ["id", "bias", "aba", "id_grad", "fd_grad"])
+@pytest.mark.parametrize("fam", ["id", "bias", "aba", "id_grad", "fd_grad",
+                                 "crba"])
 def test_md_no_fallback_off_cpu(fam):
     """Tensors on neither the CPU nor a CUDA device raise: no wrapper runs
     its plain version off the CPU, and nothing is counted."""
@@ -304,19 +307,33 @@ def test_md_impl_cuda_on_cpu_raises(fam):
 
 
 def test_md_unported_options_raise():
+    """The per-state tier still raises; the two options that raised until
+    the staged multi-dof slice now run: ``impl="crba"`` returns ABA's q̈,
+    and free Atlas (nv 34, past MAX_MD_GRAD_NV) gets both tangent-space
+    gradients, finite, from the staged pipeline."""
     _, tm, s = _case("ball")
     t = [torch.from_numpy(x) for x in s]
-    with pytest.raises(NotImplementedError, match="md_fd_fused.*Queue 2"):
-        gt.md_forward_dynamics_batched(tm, *t, impl="crba")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.md_forward_dynamics_batched(tm, *t, impl="vmap")
+    crba = gt.md_forward_dynamics_batched(tm, *t, impl="crba").numpy()
+    aba = _jax_ref("ball", "aba")[0]
+    assert crba.shape == aba.shape
+    # another recursion for the same q̈: round-off apart
+    assert np.all(np.abs(crba - aba) <= 1e-9 * np.maximum(1.0, np.abs(aba)))
     big = gt.multidof_model_from_description(
-        gt.parse_urdf(tzoo.with_free_joint(tzoo.atlas())),
+        gt.parse_urdf(tzoo.with_free_joint(tzoo.atlas(damping=0.1))),
         dtype=torch.float64, device="cpu")
-    assert big.nv > _build.MAX_MD_GRAD_NV >= 18
-    q = gt.neutral_q(big).expand(2, -1)
-    v = torch.zeros((2, big.nv), dtype=torch.float64)
-    for fn in (gt.md_id_grad_batched, gt.md_forward_dynamics_gradient_batched):
-        with pytest.raises(NotImplementedError, match="staged multi-dof"):
-            fn(big, q, v, v)
+    assert big.nv > _build.MAX_MD_GRAD_NV
+    q = gt.md_tangent_apply(big, gt.neutral_q(big).expand(2, -1),
+                            torch.full((2, big.nv), 0.1,
+                                       dtype=torch.float64))
+    v = torch.full((2, big.nv), 0.2, dtype=torch.float64)
+    outs = (*gt.md_id_grad_batched(big, q, v, v),
+            *gt.md_forward_dynamics_gradient_batched(big, q, v, v))
+    assert len(outs) == 5
+    for o in outs:
+        assert tuple(o.shape) == (2, big.nv, big.nv)
+        assert bool(torch.isfinite(o).all())
     # ID and ABA run at every size
     assert gt.md_forward_dynamics_batched(big, q, v, v).shape == (2, big.nv)
 
