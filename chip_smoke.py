@@ -12,8 +12,10 @@ kernels/csrc`` and runs, on ``cuda:0``:
    and six multi-dof ones (the ball arm, free-joint iiwa-14, a mixed
    revolute/prismatic chain, free HyQ, a free-rooted 20-joint tree, free
    Atlas), with the staged multi-dof unit of every multi-dof robot the
-   routes phase or phase 1 takes through it, all at once (nvcc seconds and
-   ptxas's register / stack frame / spill report per kernel);
+   routes phase or phase 1 takes through it, and of three free flyers
+   (HyQ, Atlas, a 3-link chain: the ABA and mass-matrix library and the
+   stance library of their feet), all at once (nvcc seconds and ptxas's
+   register / stack frame / spill report per kernel);
 1. every kernel against its plain PyTorch version at a ragged B = 1000
    (the B = 4096 heads of phases 2 and A check the main-path kernels at a
    full tile), in float64 and float32: the single-kernel families on iiwa-14
@@ -27,7 +29,10 @@ kernels/csrc`` and runs, on ``cuda:0``:
    multi-dof kernels (K1md with and without q̈, K2md with and without the
    bias force and q̈, K5md with and without the finish) and the CRBA FD on
    free Atlas, and forced on free iiwa-14 and the ball arm at column blocks
-   that cut a free or ball joint;
+   that cut a free or ball joint; the three free-flyer kernels of ff.cu
+   (ABA, the mass-matrix FD, the stance FD plain and with Baumgarte,
+   anchors and a Delassus ridge) on free-flyer HyQ, Atlas and the chain,
+   and in float64 with armature;
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -60,7 +65,17 @@ M. the multi-dof paths at B = 2¹⁸, float32: free Atlas's tangent-space
    ABA (float64, 64 states); then the multi-dof kernels' times and bounds,
    free Atlas's K5md at three column widths, profiler breakdowns of its
    ∇FD and ∂ID by stage (in a child process), and both multi-dof gradient
-   routes (∇FD and ∂ID) timed at 2¹⁶ from nv 7 to 34.
+   routes (∇FD and ∂ID) timed at 2¹⁶ from nv 7 to 34;
+F. the free-flyer paths at B = 2¹⁸, float32, on HyQ (four feet) and Atlas
+   (two feet): ``fb_forward_dynamics_batched`` (ABA, and ``impl="chol"``)
+   and ``fb_constrained_fd_batched`` — one launch a call, peak memory, a
+   256-state head of each output against its plain version, and in float64
+   on 64 states ABA against the Cholesky FD and the stance solutions (with
+   and without Baumgarte) against their constraint and dynamics equations;
+   then the three kernels' times and bounds at both robots, the API times,
+   the batched ``torch.linalg.cholesky`` + ``cholesky_solve`` pair on the
+   same mass matrices, and profiler breakdowns of HyQ's stance and Atlas's
+   ABA (in a child process).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -94,6 +109,9 @@ from gridcodegenerator_tpu_torch.ops.kernels import (_build, _launch, fused,
                                                     staged)
 from gridcodegenerator_tpu_torch.ops.kernels import multidof_fused as mdf
 from gridcodegenerator_tpu_torch.ops.kernels import multidof_staged as mds
+from gridcodegenerator_tpu_torch.ops import contact as tct
+from gridcodegenerator_tpu_torch.ops import freeflyer as tff
+from gridcodegenerator_tpu_torch.ops.kernels import contact_fused as cff
 
 SEED = 0
 MAIN_B = 1 << 18
@@ -126,6 +144,7 @@ STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/staged.cu"
 SO_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/so.cu"
 MD_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md.cu"
 MD_STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md_staged.cu"
+FF_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/ff.cu"
 # second order: 2¹⁶ states (e.g. 512 DDP rollouts × 128 knots); the plain
 # versions are timed at a quarter of it and scaled
 HESS_B = 1 << 16
@@ -190,6 +209,29 @@ MD_SOLVE_TOL = 1e-8      # ∂q̈/∂u·(u − c) vs ABA's q̈, relative
 # float64 states (the staged q̈ is an explicit M⁻¹ product, not the
 # Cholesky solve): the JAX package's bound for the same comparison
 MD_ROUTE_TOL = 1e-9
+# free flyers: label → (URDF, contact links, each foot's body-frame offset,
+# the joints' mean posture, their spread). HyQ with damping 0.2 and its four
+# feet 0.35 m down each shank (the JAX package's contact tests and
+# bench_contact.py); Atlas's two feet at l_leg_akx and r_leg_akx, the last
+# joint of each leg; the JAX package's small free-flyer chain, one contact
+# on its last link
+FF_ROBOTS = {
+    "hyq": (zoo.hyq(damping=0.2), (2, 5, 8, 11), (0.35, 0.0, 0.0),
+            (-0.1, 0.7, -1.2), 0.1),
+    "atlas": (zoo.atlas(damping=0.1), (21, 27), (0.05, 0.0, -0.05),
+              (0.0,), 0.5),
+    "chain3": (zoo.serial_chain(3, damping=0.1), (2,), (0.1, 0.0, 0.0),
+               (0.0,), 0.3),
+}
+FF_PATHS = ("hyq", "atlas")   # phase F, float32 at MAIN_B
+FF_ARMATURE = 0.05
+# the stance's second case (the JAX package's interpret-mode test): explicit
+# anchors ± 0.1 m, Baumgarte (α, β) = (3, 2) and a Delassus ridge
+FF_BAUMGARTE = {"baumgarte": (3.0, 2.0), "reg": 1e-10}
+FF_PHYS_STATES = 64
+FF_ABA_CHOL_TOL = 1e-11  # ABA vs the mass-matrix Cholesky, float64
+FF_CON_TOL = 1e-9        # J·y + J̇v − a*, relative (+ reg·|λ| with a ridge)
+FF_DYN_TOL = 1e-10       # M·y − [−f_b; τ − c_j] − Jᵀλ, relative
 
 
 @contextmanager
@@ -503,6 +545,66 @@ def md_states(m, B, gen, layout="nB"):
     return out if layout == "Bn" else [x.T.contiguous() for x in out]
 
 
+def ff_model(label, dtype=torch.float32, armature=None):
+    desc = gt.parse_urdf(FF_ROBOTS[label][0])
+    if armature is not None:
+        desc = dataclasses.replace(desc, armature=np.full(desc.n, armature))
+    return tff.free_flyer_model(desc, dtype=dtype, device="cuda")
+
+
+def ff_states(m, B, gen, label, layout="dB"):
+    """The JAX package's free-flyer states (tests/test_contact_fused.py): a
+    random unit quaternion, pos ± 0.1 m about z = 0.5, the joints about the
+    robot's posture, vb ± 0.6, q̇ ± 0.5, τ ± 10; (quat, pos, q, vb, qd,
+    tau), each (d, B), or batch first."""
+    _, _, _, posture, spread = FF_ROBOTS[label]
+
+    def uni(d, r):
+        return (torch.rand((B, d), generator=gen, device="cuda",
+                           dtype=m.dtype) * (2 * r) - r)
+    quat = torch.randn((B, 4), generator=gen, device="cuda", dtype=m.dtype)
+    quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+    pos = uni(3, 0.1) + torch.tensor([0.0, 0.0, 0.5], dtype=m.dtype,
+                                     device="cuda")
+    mean = torch.tensor(posture, dtype=m.dtype, device="cuda").repeat(
+        m.n // len(posture))
+    out = [quat, pos, mean + uni(m.n, spread), uni(6, 0.6), uni(m.n, 0.5),
+           uni(m.n, 10.0)]
+    return out if layout == "Bd" else [x.T.contiguous() for x in out]
+
+
+def ff_geometry(label):
+    """(links, offsets (k, 3), anchors (k, 3)) of a free flyer's stance."""
+    _, links, off, _, _ = FF_ROBOTS[label]
+    anchors = np.random.default_rng(SEED).uniform(-0.1, 0.1, (len(links), 3))
+    return links, np.tile(off, (len(links), 1)), anchors
+
+
+def ff_pairs(label):
+    """The kernels of ff.cu as name → (LAUNCHES key, kernel, plain, whether
+    it takes pos): ABA, the mass-matrix FD, the stance FD plain and with
+    Baumgarte, anchors and a ridge."""
+    links, off, anchors = ff_geometry(label)
+
+    def stance(fn, **kw):
+        return lambda m, *s: fn(m, *s, links, off, **kw)
+    bg = dict(FF_BAUMGARTE, anchors=anchors)
+    return {
+        "fb_aba": ("fb_aba", cff.fb_aba_fused, cff.fb_aba_plain, False),
+        "fb_fd": ("fb_fd", cff.fb_fd_fused, cff.fb_fd_plain, False),
+        "stance_fd": ("stance_fd", stance(cff.stance_fd_fused),
+                      stance(cff.stance_fd_plain), True),
+        "stance_fd_baumgarte": ("stance_fd",
+                                stance(cff.stance_fd_fused, **bg),
+                                stance(cff.stance_fd_plain, **bg), True),
+    }
+
+
+def ff_args(s, with_pos):
+    """(quat, [pos,] q, vb, qd, tau) from ff_states' six."""
+    return tuple(s) if with_pos else (s[0], *s[2:])
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -553,8 +655,9 @@ def phase0_toolchain():
 
 _PTXAS_NAME = re.compile(
     r"(md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf|md_minv"
-    r"|md_grad_cols|fd_grad|id_grad|minv_dense|minv|rnea|aba|vaf|grad_cols"
-    r"|hessian|t1|t2|t4|t5)_kernelI([fd])(?:L([bi])(\d+)E)?")
+    r"|md_grad_cols|fb_aba|fb_fd|stance_fd|fd_grad|id_grad|minv_dense|minv"
+    r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
+    r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
                  "md_rnea": "qdd", "md_id_grad": "qdd", "md_vaf": "qdd",
@@ -589,14 +692,16 @@ def _with_staged(m):
     return tuple(dict.fromkeys(units + (_build.MD_STAGED_UNIT,)))
 
 
-def build_all(models, staged=()):
+def build_all(models, staged=(), links=None):
     """Build every topology at once (one nvcc per source and topology), the
-    staged multi-dof unit too for the labels in ``staged``."""
+    staged multi-dof unit too for the labels in ``staged``, a free flyer's
+    stance library for the contact links ``links[label]``."""
     t0 = time.perf_counter()
+    links = links or {}
     units = {label: _with_staged(m) if label in staged else None
              for label, m in models.items()}
     threads = [threading.Thread(target=_build.library,
-                                args=(m, units[label]))
+                                args=(m, units[label], links.get(label)))
                for label, m in models.items()]
     for t in threads:
         t.start()
@@ -605,8 +710,12 @@ def build_all(models, staged=()):
     log(f"builds of {len(models)} topologies: "
         f"{time.perf_counter() - t0:.1f} s wall")
     for label, m in models.items():
-        lib = _build.library(m, units[label])  # raises if a build failed
-        if hasattr(m, "nv"):
+        # raises if a build failed
+        lib = _build.library(m, units[label], links.get(label))
+        if hasattr(m, "I_base"):
+            what = (f"free flyer, contact links {links[label]}"
+                    if links.get(label) else "free flyer")
+        elif hasattr(m, "nv"):
             what = (f"nq={m.nq}, nv={m.nv}, single-thread gradient kernels "
                     f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}"
                     f", K5md column block "
@@ -766,6 +875,24 @@ def phase1_md_staged(gen):
                 if label == "free_atlas" and dtype == torch.float32:
                     max_abs[name] = ab
     return max_abs
+
+
+def phase1_free_flyer(gen):
+    """The three kernels of ff.cu (the stance twice: plain, and with
+    Baumgarte, anchors and a ridge) against their plain versions at
+    B = 1000 on free-flyer HyQ, Atlas and the 3-link chain: float64 and
+    float32, and float64 with armature."""
+    for label in FF_ROBOTS:
+        for dtype, arm in ((torch.float64, None), (torch.float32, None),
+                           (torch.float64, FF_ARMATURE)):
+            m = ff_model(label, dtype, arm)
+            s = ff_states(m, PHASE1_B, gen, label)
+            tag = (f"phase1 free {label}"
+                   f"{'' if arm is None else f' armature {arm}'} "
+                   f"{str(dtype)[6:]} B={PHASE1_B}")
+            for name, (key, kern, plain, wp) in ff_pairs(label).items():
+                run_pair(f"{tag} {name}", key, kern, plain, m,
+                         ff_args(s, wp))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1344,22 +1471,29 @@ def _staged_cpu_args(name):
     return _cpu_states(3, extra)
 
 
-def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit):
+def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit,
+               repeat=None):
     """Time a kernel and its plain version (plain, kernel, kernel, plain in
-    one call), and its bound at these inputs."""
+    one call), and its bound at these inputs: the plain version's
+    operations, less those of ``repeat`` — work the plain version does a
+    second time (a forward-mode pass re-evaluates its primal), which the
+    least work does once."""
     p1, n1 = time_plain_ms(plain, (m, *args))
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
     p2, n2 = time_plain_ms(plain, (m, *args))
     outs = _as_tuple(kern(m, *args))
-    ops = ops_per_state(plain, m, make_cpu_args) * args[0].shape[-1]
+    total = ops_per_state(plain, m, make_cpu_args)
+    again = 0 if repeat is None else ops_per_state(repeat, m, make_cpu_args)
+    ops = (total - again) * args[0].shape[-1]
     b_ms, b_by = bound(ops, nbytes(*args, *outs))
     k, p = min(k1, k2), min(p1, p2)
     log(f"phase3 {name} {label} f32 B={args[0].shape[-1]}: kernel "
         f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (median of "
         f"{TIMED_CALLS} / {n1},{n2}); bound {b_ms:.3f} ms by {b_by} "
-        f"({ops:.3e} ops, {nbytes(*args, *outs):.3e} B; roofline share "
-        f"{b_ms / k:.1%}); card {name_limit}")
+        f"({ops:.3e} ops = ({total} − {again}) a state, "
+        f"{nbytes(*args, *outs):.3e} B; roofline share {b_ms / k:.1%}); "
+        f"card {name_limit}")
     return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1803,6 +1937,264 @@ def phase3_md_routes(gen):
         del s, s64
 
 
+# ---------------------------------------------------------------- phase F
+def fb_forward_dynamics_batched_aba(m, quat, q, vb, qd, tau):
+    return tff.fb_forward_dynamics_batched(m, quat, q, vb, qd, tau)
+
+
+def fb_forward_dynamics_batched_chol(m, quat, q, vb, qd, tau):
+    return tff.fb_forward_dynamics_batched(m, quat, q, vb, qd, tau,
+                                           impl="chol")
+
+
+def ff_entries(label):
+    """Phase F's calls: entry → (public function of (model, batch-first
+    states), the launches one call makes, the ff_pairs kernel it runs)."""
+    links, off, _ = ff_geometry(label)
+
+    def fb_constrained_fd_batched(m, *s):
+        return tct.fb_constrained_fd_batched(m, *s, links, off)
+    return {"aba": (fb_forward_dynamics_batched_aba, {"fb_aba": 1},
+                    "fb_aba"),
+            "chol": (fb_forward_dynamics_batched_chol, {"fb_fd": 1},
+                     "fb_fd"),
+            "stance": (fb_constrained_fd_batched, {"stance_fd": 1},
+                       "stance_fd")}
+
+
+def stance_residuals(ffm, quat, pos, q, vb, qd, tau, dvb, qdd, lam, links,
+                     offsets, anchors=None, gravity=-9.81,
+                     baumgarte=(0.0, 0.0)):
+    """How far a stance solution (v̇b, q̈, λ), batch-last, is from its two
+    equations, per state relative to max(1, |terms|): the constraint
+    J·[v̇b; q̈] + J̇·[vb; q̇] − a* (→ (B,)) and the dynamics M·[v̇b; q̈] −
+    [−f_b; τ − c_j] − Jᵀλ (→ (B,)), built from the plain pieces."""
+    m = 6 + ffm.n
+    X = blops.joint_transforms_bl(ffm.arm, q)
+    R = cff._quat_rot_s(quat)
+    f_b, c_j = cff._fb_bias_s(ffm, X, R, vb, qd, gravity)
+    zero = torch.zeros_like(q[0:1])
+
+    def dense(rows):
+        return torch.stack([torch.cat([zero if e is None else e
+                                       for e in row]) for row in rows])
+
+    M = dense(cff._fb_mass_s(ffm, X))                       # (m, m, B)
+    Jl, xs = cff._ff_contact_rows_s(ffm, X, R, links, offsets)
+    J = dense(Jl)                                           # (3k, m, B)
+    y = torch.cat([dvb, qdd])
+    bias = cff._contact_bias(ffm, quat, q, vb, qd, links, offsets)
+    a_star = cff._baumgarte(cff._jt_stacks(Jl, m, zero),
+                            cff._vfull_list(ffm, vb, qd), R, pos, xs,
+                            anchors, baumgarte)
+    a_star = torch.zeros_like(bias) if a_star is None else a_star
+    Jy = torch.einsum("rcb,cb->rb", J, y)
+    con = (Jy + bias - a_star).abs().amax(0) / torch.stack(
+        [Jy.abs().amax(0), bias.abs().amax(0), a_star.abs().amax(0)]
+    ).amax(0).clamp(min=1.0)
+    My = torch.einsum("rcb,cb->rb", M, y)
+    rhs = torch.cat(cff._rhs_free(f_b, c_j, tau))
+    Jtl = torch.einsum("rcb,rb->cb", J, lam)
+    dyn = (My - rhs - Jtl).abs().amax(0) / torch.stack(
+        [My.abs().amax(0), rhs.abs().amax(0), Jtl.abs().amax(0)]
+    ).amax(0).clamp(min=1.0)
+    return con, dyn
+
+
+def ff_physics(tag, label, m64, s64):
+    """Float64 checks on a few states that do not go through a kernel's own
+    plain version: ABA against the mass-matrix Cholesky, and the stance
+    solutions (plain, and with Baumgarte, anchors and the ridge) against
+    their two equations — the constraint J·y + J̇·v − a* (a ridge allows
+    reg·max|λ|) and the dynamics M·y − [−f_b; τ − c_j] − Jᵀλ."""
+    fb = ff_args(s64, False)
+    aba, chol = cff.fb_aba_fused(m64, *fb), cff.fb_fd_fused(m64, *fb)
+    err = compare(aba, chol)[0]
+    log(f"{tag} ABA vs the mass-matrix Cholesky (f64, "
+        f"{s64[0].shape[-1]} states): rel {err:.3e} (bound "
+        f"{FF_ABA_CHOL_TOL:.0e}) {'ok' if err <= FF_ABA_CHOL_TOL else 'FAIL'}")
+    if err > FF_ABA_CHOL_TOL:
+        raise RuntimeError(f"{tag}: ABA disagrees with the Cholesky FD")
+    links, off, anchors = ff_geometry(label)
+    for case, kw in (("plain", {}),
+                     ("baumgarte", dict(FF_BAUMGARTE, anchors=anchors))):
+        dvb, qdd, lam = cff.stance_fd_fused(m64, *s64, links, off, **kw)
+        con, dyn = stance_residuals(
+            m64, *s64, dvb, qdd, lam, links, off, kw.get("anchors"),
+            baumgarte=kw.get("baumgarte", (0.0, 0.0)))
+        con_tol = FF_CON_TOL + kw.get("reg", 0.0) * float(lam.abs().max())
+        con, dyn = float(con.max()), float(dyn.max())
+        ok = con <= con_tol and dyn <= FF_DYN_TOL
+        log(f"{tag} stance {case} residuals (f64, {s64[0].shape[-1]} "
+            f"states): constraint {con:.3e} (bound {con_tol:.1e}), dynamics "
+            f"{dyn:.3e} (bound {FF_DYN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{tag}: the stance solution misses its "
+                               f"equations")
+
+
+def phaseF_free_flyer(gen):
+    """The free-flyer entry points at B = 2¹⁸, float32, on HyQ (four feet)
+    and Atlas (two feet): ``fb_forward_dynamics_batched`` (ABA, and
+    ``impl="chol"``) and ``fb_constrained_fd_batched``. Each call runs with
+    the counts set to 0 just before it and read just after, and must make
+    exactly its one launch; its peak memory; a 256-state head of each
+    output against its plain version; then the float64 physics checks
+    (ff_physics)."""
+    launches, max_abs, states, models = {}, {}, {}, {}
+    for label in FF_PATHS:
+        m = ff_model(label)
+        s = ff_states(m, MAIN_B, gen, label, layout="Bd")
+        models[label], states[label] = m, s
+        pairs = ff_pairs(label)
+        for entry, (fn, expect, kname) in ff_entries(label).items():
+            _, _, plain, wp = pairs[kname]
+            args = ff_args(s, wp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _launch.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(m, *args)
+            torch.cuda.synchronize()
+            got = dict(_launch.LAUNCHES)
+            made = {k: v for k, v in got.items() if v}
+            tag = f"phaseF {label} (n={m.n}) {entry}"
+            log(f"{tag} B={MAIN_B} (first call): "
+                f"{time.perf_counter() - t0:.3f} s; launches {made}; peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+            if made != expect:
+                raise RuntimeError(f"{tag}: launched {made}, not {expect}")
+            launches[f"{label}:{entry}"] = got
+            widths = (6, m.n, 3 * len(FF_ROBOTS[label][1]))
+            for o, w in zip(out, widths):
+                if o.device.type != "cuda" or tuple(o.shape) != (MAIN_B, w):
+                    raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+            check_finite(tag, out)
+            cols = [x[:PARITY_STATES].T.contiguous() for x in args]
+            head = tuple(o[:PARITY_STATES].T for o in out)
+            max_abs[f"{label}:{entry}"], _ = check_against_plain(
+                f"{tag} API vs plain ({PARITY_STATES} states)", head, plain,
+                m, cols)
+            del out
+        ff_physics(f"phaseF {label}", label, m.to(dtype=torch.float64),
+                   [x[:FF_PHYS_STATES].double().T.contiguous() for x in s])
+    return launches, max_abs, models, states
+
+
+# ---------------------------------------------------------- phase 3 (free)
+def _ff_cpu_states(label, with_pos):
+    """make_args for ops_per_state of a free-flyer kernel: random CPU
+    states in phase F's ranges from SEED."""
+    def make(mc, B):
+        gen = torch.Generator().manual_seed(SEED)
+        _, _, _, posture, spread = FF_ROBOTS[label]
+
+        def uni(d, r):
+            return torch.rand((d, B), generator=gen,
+                              dtype=torch.float64) * (2 * r) - r
+        quat = torch.randn((4, B), generator=gen, dtype=torch.float64)
+        quat = quat / torch.linalg.vector_norm(quat, dim=0, keepdim=True)
+        mean = torch.tensor(posture, dtype=torch.float64).repeat(
+            mc.n // len(posture))[:, None]
+        s = [quat, uni(3, 0.1), mean + uni(mc.n, spread), uni(6, 0.6),
+             uni(mc.n, 0.5), uni(mc.n, 10.0)]
+        return list(ff_args(s, with_pos))
+    return make
+
+
+def stance_primal_repeat(label):
+    """The stance's bias J̇·v is the tangent of the contact velocity J·v
+    (``torch.func.jvp``), whose pass evaluates J·v's primal — the support's
+    transforms, R, the FK and the rows, which the stance has already formed,
+    and J·v, which it does not need — a second time: counted once here, so
+    that it comes off the bound."""
+    links, off, _ = ff_geometry(label)
+
+    def vel(m, quat, pos, q, vb, qd, tau):
+        return cff._contact_vel(m, quat, q, cff._vfull_list(m, vb, qd),
+                                links, off)
+    return vel
+
+
+# JSON name → (phase-F robot, entry): where each kernel of ff.cu is timed
+FF_TIMED = {"fb_aba": ("atlas", "aba"), "fb_fd": ("atlas", "chol"),
+            "stance_fd": ("hyq", "stance"), "fb_aba[hyq]": ("hyq", "aba"),
+            "fb_fd[hyq]": ("hyq", "chol"),
+            "stance_fd[atlas]": ("atlas", "stance")}
+
+
+def phase3_free_flyer(models, states):
+    """Times of the ff.cu kernels and their plain versions at phase F's
+    shapes, their bounds, the API times, the batched Cholesky pair
+    (``torch.linalg.cholesky`` + ``torch.cholesky_solve``) on the same
+    mass matrices — the last step of the mass-matrix FD alone —, and
+    profiler breakdowns of HyQ's stance and Atlas's ABA (in a child
+    process)."""
+    name_limit = card()
+    times = {}
+    for name, (label, entry) in FF_TIMED.items():
+        kname = ff_entries(label)[entry][2]
+        _, kern, plain, wp = ff_pairs(label)[kname]
+        m = models[label]
+        cols = tuple(x.T.contiguous() for x in ff_args(states[label], wp))
+        times[name] = time_entry(label, name, kern, plain, m, cols,
+                                 _ff_cpu_states(label, wp), name_limit,
+                                 repeat=(stance_primal_repeat(label)
+                                         if wp else None))
+        del cols
+    for label in FF_PATHS:
+        m, s = models[label], states[label]
+        for entry, (fn, _, kname) in ff_entries(label).items():
+            api_ms(fn, (m, *ff_args(s, ff_pairs(label)[kname][3])),
+                   f"free {label}", name_limit)
+        # the (6+n)² Cholesky pair on the mass matrices of these states
+        cols = [x.T.contiguous() for x in s]
+        X = blops.joint_transforms_bl(m.arm, cols[2])
+        zero = torch.zeros_like(cols[2][0:1])
+        M = torch.stack([torch.cat([zero if e is None else e for e in row])
+                         for row in cff._fb_mass_s(m, X)])
+        M = M.permute(2, 0, 1).contiguous()             # (B, 6+n, 6+n)
+        rhs = torch.cat([cols[3], cols[5]]).T.contiguous()[..., None]
+        del X, cols
+
+        def chol_pair(M, rhs):
+            return torch.cholesky_solve(rhs, torch.linalg.cholesky(M))
+        ms = time_ms(chol_pair, (M, rhs), calls=5)
+        log(f"phase3 library torch.linalg.cholesky + torch.cholesky_solve "
+            f"free {label} ({M.shape[-1]}², f32, B={MAIN_B}): {ms:.3f} ms "
+            f"(the mass-matrix FD's last step alone; no PyTorch call "
+            f"computes the free-flyer FD); card {name_limit}")
+        del M, rhs
+    ff_profile()
+    return times
+
+
+def ff_profile():
+    """Profiler breakdowns of HyQ's stance FD and Atlas's ABA at MAIN_B, in
+    a child process (see md_profile)."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--ff-profile"],
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"profile child failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-3000:]}")
+
+
+def ff_profile_child():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    name_limit = card()
+    for label, entry in (("hyq", "stance"), ("atlas", "aba")):
+        m = ff_model(label)
+        fn, _, kname = ff_entries(label)[entry]
+        s = ff_args(ff_states(m, MAIN_B, gen, label, layout="Bd"),
+                    ff_pairs(label)[kname][3])
+        profile_breakdown(fn, (m, *s), f"{fn.__name__} free {label} (a "
+                          f"fresh process)", name_limit)
+
+
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
 RECORD = [
     ("fd_grad", "fd_grad", "iiwa14", FUSED_SRC, TPU + "fused.py:394"),
@@ -1848,6 +2240,18 @@ RECORD = [
     # on every path); held to its plain version and timed all the same
     ("md_minv", "md_minv", "free_atlas:fd_grad", MD_STAGED_SRC,
      TPU + "multidof_staged.py:127"),
+    ("fb_aba", "fb_aba", "ff_atlas:aba", FF_SRC,
+     TPU + "contact_fused.py:1413"),
+    ("fb_fd", "fb_fd", "ff_atlas:chol", FF_SRC,
+     TPU + "contact_fused.py:1329"),
+    ("stance_fd", "stance_fd", "ff_hyq:stance", FF_SRC,
+     TPU + "contact_fused.py:1431"),
+    ("fb_aba[hyq]", "fb_aba", "ff_hyq:aba", FF_SRC,
+     TPU + "contact_fused.py:1413"),
+    ("fb_fd[hyq]", "fb_fd", "ff_hyq:chol", FF_SRC,
+     TPU + "contact_fused.py:1329"),
+    ("stance_fd[atlas]", "stance_fd", "ff_atlas:stance", FF_SRC,
+     TPU + "contact_fused.py:1431"),
 ]
 
 
@@ -1870,15 +2274,21 @@ def main():
                       for label, u in {**ROBOTS, **ROUTE_ROBOTS,
                                        **HESS_ROUTE_ROBOTS}.items()},
                    **{f"{label} (multi-dof)": md_model(label)
-                      for label in MD_ROBOTS}},
+                      for label in MD_ROBOTS},
+                   **{f"{label} (free flyer{', stance' if k else ''})":
+                      ff_model(label)
+                      for label in FF_ROBOTS for k in (False, True)}},
                   staged={f"{label} (multi-dof)" for label in
-                          (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)})
+                          (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
+                  links={f"{label} (free flyer, stance)": FF_ROBOTS[label][1]
+                         for label in FF_ROBOTS})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
         phase1_kernels_vs_plain(gen)
     phase1_multidof(gen)
     md_stage_abs = phase1_md_staged(gen)
+    phase1_free_flyer(gen)
     done("phase 1")
     m, launches, max_abs, parity = phase2_main_path(gen)
     done("phase 2")
@@ -1908,11 +2318,19 @@ def main():
     with route_limits():
         phase3_md_routes(gen)
     done("phase 3 multi-dof routes")
+    ff_launches, ff_max_abs, ff_models, ff_st = phaseF_free_flyer(gen)
+    done("phase F")
+    times.update(phase3_free_flyer(ff_models, ff_st))
+    del ff_models, ff_st
+    done("phase 3 free flyer")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
     max_abs.update(md_stage_abs)
+    max_abs.update({name: ff_max_abs[f"{label}:{entry}"]
+                    for name, (label, entry) in FF_TIMED.items()})
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
-                     **md_launches}
+                     **md_launches,
+                     **{f"ff_{k}": v for k, v in ff_launches.items()}}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": path_launches[path][key], "max_abs_err": max_abs[name],
@@ -1927,5 +2345,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--md-profile"]:
         md_profile_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--ff-profile"]:
+        ff_profile_child()
     else:
         main()

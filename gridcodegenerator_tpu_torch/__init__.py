@@ -29,6 +29,13 @@ gradients run through the staged pipeline, ``ops/kernels/multidof_staged``:
     or CRBA + Cholesky: ``impl="crba"``)  → :func:`md_forward_dynamics_batched`
   * tangent-space ∂ID                    → :func:`md_id_grad_batched`
   * tangent-space ∇FD                    → :func:`md_forward_dynamics_gradient_batched`
+
+Floating base (a quaternion free flyer over a single-dof arm;
+``ops/freeflyer``, ``ops/contact``), batched (..., d) states:
+  * free-flyer FD (ABA, or the (6+n)² mass matrix and its Cholesky:
+    ``impl="chol"``)                     → ``ops.freeflyer.fb_forward_dynamics_batched``
+  * stance-constrained FD (k pinned
+    contact points, Delassus solve)      → :func:`fb_constrained_fd_batched`
 """
 
 from .api import (
@@ -57,6 +64,7 @@ from .ops.multidof import (
     neutral_q,
 )
 from .models.urdf import RobotDescription, parse_urdf
+from .ops.contact import fb_constrained_fd_batched
 from .utils.golden import GoldenDynamics
 
 __version__ = "0.1.0"
@@ -73,4 +81,5 @@ __all__ = [
     "neutral_q", "md_tangent_apply", "md_inverse_dynamics_batched",
     "md_forward_dynamics_batched", "md_id_grad_batched",
     "md_forward_dynamics_gradient_batched",
+    "fb_constrained_fd_batched",
 ]

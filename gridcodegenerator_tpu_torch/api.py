@@ -21,7 +21,9 @@ from .models.robot import RobotModel
 from .ops.kernels import fused, so_fused
 
 _IMPLS = ("auto", "cuda")
-_PER_STATE_TIER = "ROADMAP Queue 1 item 6 (the per-state tier)"
+# ROADMAP items are named by title, which a renumbering leaves as it is
+_PER_STATE_TIER = ("ROADMAP Queue 1, 'The per-state tier and "
+                   "differentiability'")
 
 
 def _check_impl(impl: str, x: torch.Tensor) -> None:
@@ -63,6 +65,18 @@ def _check_states(model, states, names):
         raise ValueError(
             f"state batch shapes disagree: "
             + ", ".join(f"{nm}={shp}" for nm, shp in zip(names, shapes)))
+
+
+def _cols(x):
+    """(..., k) batch first → (k, B) batch last, contiguous; None stays
+    None."""
+    return None if x is None else x.reshape(-1, x.shape[-1]).T.contiguous()
+
+
+def _unflat(out, batch_shape):
+    """(k…, B) batch last → batch_shape + (k…) batch first."""
+    out = out.movedim(-1, 0).contiguous()
+    return out.reshape(batch_shape + tuple(out.shape[1:]))
 
 
 def _run(model, states, kernel):
@@ -107,7 +121,8 @@ def direct_minv(model: RobotModel, q, *, dense: bool = True,
     if not dense:
         raise NotImplementedError(
             "direct_minv(dense=False), the raw upper triangle, is not ported "
-            "yet: ROADMAP Queue 1 item 4")
+            "yet: ROADMAP Queue 1, 'The rest of the first-order API "
+            "contract'")
     _check_impl(impl, q)
     return _run(model, (q,), fused.minv_fused)
 

@@ -149,12 +149,13 @@ def robot_model_from_description(desc: RobotDescription,
     if accurate_trig:
         raise NotImplementedError(
             "accurate_trig (the JAX package's ops/trig.py sincos) is not "
-            "ported yet; ROADMAP Queue 1 item 6")
+            "ported yet: ROADMAP Queue 1, 'The per-state tier and "
+            "differentiability'")
     if any(t in ("spherical", "floating") for t in desc.joint_types):
         raise ValueError(
-            "robot has multi-dof (spherical/floating) joints; the port has "
-            "only the single-dof RobotModel (multi-dof is ROADMAP Queue 1 "
-            "item 8)")
+            "robot has multi-dof (spherical/floating) joints — build it with "
+            "ops/multidof.py::multidof_model_from_description instead of the "
+            "single-dof RobotModel")
     Xb, Xs, Xc = joint_xform_coefficients(desc)
     S = joint_motion_subspaces(desc)
     armature = (np.zeros(desc.n) if desc.armature is None

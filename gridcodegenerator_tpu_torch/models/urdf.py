@@ -1,6 +1,6 @@
 """URDF → robot description.
 
-A copy of ``gridcodegenerator_tpu/models/urdf.py`` (plain NumPy) without the
+A copy of ``gridcodegenerator_tpu/models/urdf.py`` (plain NumPy), with the
 free-flyer helper ``demote_floating_root``: the JAX package's ``__init__``
 imports jax, so the port carries its own copy.
 
@@ -342,3 +342,51 @@ def _matrix_to_rpy(R: np.ndarray) -> np.ndarray:
         r = np.arctan2(-R[1, 2], R[1, 1])
         y = 0.0
     return np.array([r, p, y])
+
+
+def demote_floating_root(desc: RobotDescription) -> RobotDescription:
+    """Strip a single root ``floating`` joint from a description whose other
+    joints are all single-dof, returning the fixed-base arm description the
+    free-flyer stack expects (``ops/freeflyer.py::free_flyer_model``): the
+    floating joint's child link becomes the base (its spatial inertia lumps
+    into ``base_inertia``), every other joint index shifts down by one, and
+    joints that hung off the old root re-parent to the base (-1).
+
+    This is the MJCF ``<freejoint/>`` → free-flyer bridge: MuJoCo models
+    write the floating base as an explicit joint, while the engine's
+    fixed-base + ``FreeFlyerModel`` layering keeps it out of the tree (the
+    fused contact kernels are specialized to single-dof arms). Use the
+    multi-dof stack instead when other ball/free joints remain."""
+    types = desc.joint_types
+    if not types or types[0] != "floating":
+        raise ValueError("joint 0 is not a floating root")
+    if any(t in ("spherical", "floating") for t in types[1:]):
+        raise ValueError(
+            "tree keeps multi-dof joints after the root — use the multi-dof "
+            "stack (multidof_model_from_description), not the free-flyer "
+            "demotion")
+    if any(p == -1 for p in desc.topology.parents[1:]):
+        raise ValueError("multiple root joints — cannot demote")
+    sl = slice(1, None)
+    opt = lambda a: None if a is None else np.asarray(a)[sl]
+    topo = desc.topology
+    new_parents = tuple(p - 1 for p in topo.parents[1:])
+    names = lambda t: t[1:] if len(t) == topo.n else t
+    return RobotDescription(
+        name=desc.name,
+        topology=Topology(new_parents,
+                          joint_names=names(topo.joint_names),
+                          link_names=names(topo.link_names)),
+        joint_types=types[1:],
+        origin_xyz=np.asarray(desc.origin_xyz)[sl],
+        origin_rpy=np.asarray(desc.origin_rpy)[sl],
+        axis=np.asarray(desc.axis)[sl],
+        damping=np.asarray(desc.damping)[sl],
+        inertia=np.asarray(desc.inertia)[sl],
+        base_inertia=np.asarray(desc.base_inertia) + np.asarray(desc.inertia)[0],
+        q_lower=opt(desc.q_lower), q_upper=opt(desc.q_upper),
+        effort=opt(desc.effort), velocity=opt(desc.velocity),
+        armature=opt(desc.armature),
+        frictionloss=opt(desc.frictionloss),
+        mimic=tuple((j - 1, k - 1, m, o) for j, k, m, o in desc.mimic),
+    )

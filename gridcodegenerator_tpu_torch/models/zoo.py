@@ -4,8 +4,9 @@ The URDF fixtures of ``gridcodegenerator_tpu/models/zoo.py``, copied as
 they are: the single-dof robots, and the multi-dof ones — the ball-joint arm
 (:func:`ball_arm`), a true 6-dof free joint at a robot's root
 (:func:`with_free_joint`) and the revolute rewrite of ball joints
-(:func:`expand_spherical`). The MJCF and Euler floating-base fixtures wait
-for their slices of the port.
+(:func:`expand_spherical`); and the Euler-chain floating base
+(:func:`with_floating_base`), the emulation the free-flyer slice is checked
+against. The MJCF fixtures wait for their slice of the port.
 
 The reference relies on external URDFs fed through ``URDFParser``
 (``README.md:8,20``); its benchmark configs name iiwa-14
@@ -334,6 +335,57 @@ def double_pendulum(l1: float = 1.0, l2: float = 1.0,
     b.joint("hinge1", "base", "rod1", axis=(0, 1, 0), limit=10)
     b.joint("hinge2", "rod1", "rod2", xyz=(0, 0, -l1), axis=(0, 1, 0), limit=10)
     return b.build()
+
+
+def with_floating_base(urdf: str, *, name_suffix: str = "_floating") -> str:
+    """Give a fixed-base URDF a 6-DoF floating base.
+
+    The reference supports only single-dof joints (S is a one-hot 6-vector,
+    ``_spatial_algebra_helpers.py:13``), so floating-base robots (HyQ, Atlas
+    in GRiD's benchmark set) are modeled the standard way: a chain of six
+    single-dof joints — three prismatic (x, y, z translation) then three
+    revolute (z, y, x rotation) — between a massless world anchor and the
+    robot's root link. This is an exact parameterization of free-flyer
+    dynamics away from the Euler-angle singularity at pitch = ±π/2.
+    """
+    import re
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(urdf)
+    robot_name = root.get("name", "robot") + name_suffix
+    links = {l.get("name") for l in root.findall("link")}
+    children = {j.find("child").get("link") for j in root.findall("joint")}
+    roots = sorted(links - children)
+    if len(roots) != 1:
+        raise ValueError(f"expected one root link, found {roots}")
+    base = roots[0]
+
+    chain = [("fb_px", "prismatic", (1, 0, 0)), ("fb_py", "prismatic", (0, 1, 0)),
+             ("fb_pz", "prismatic", (0, 0, 1)), ("fb_rz", "revolute", (0, 0, 1)),
+             ("fb_ry", "revolute", (0, 1, 0)), ("fb_rx", "revolute", (1, 0, 0))]
+    extra_links = []
+    extra_joints = []
+    parent = "world"
+    for idx, (jn, jt, ax) in enumerate(chain):
+        child = base if idx == len(chain) - 1 else f"fb_link{idx}"
+        if child != base:
+            extra_links.append(f'  <link name="{child}"/>')
+        lim = ('<limit lower="-100" upper="100" effort="1e6" velocity="1e6"/>'
+               if jt == "prismatic" else
+               '<limit lower="-50" upper="50" effort="1e6" velocity="1e6"/>')
+        extra_joints.append(f"""  <joint name="{jn}" type="{jt}">
+    <parent link="{parent}"/>
+    <child link="{child}"/>
+    <origin xyz="0 0 0" rpy="0 0 0"/>
+    <axis xyz="{ax[0]} {ax[1]} {ax[2]}"/>
+    {lim}
+  </joint>""")
+        parent = child
+
+    body = urdf[urdf.index(">", urdf.index("<robot")) + 1:urdf.rindex("</robot>")]
+    return (f'<robot name="{robot_name}">\n  <link name="world"/>\n'
+            + "\n".join(extra_links) + "\n" + "\n".join(extra_joints)
+            + body + "</robot>\n")
 
 
 def with_free_joint(urdf: str, *, name_suffix: str = "_free") -> str:

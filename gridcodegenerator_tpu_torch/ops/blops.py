@@ -125,11 +125,14 @@ def _iota_eq(k, i, like):
 # --------------------------------------------------------------------------
 # joint transforms
 # --------------------------------------------------------------------------
-def joint_transforms_bl(model: RobotModel, q):
+def joint_transforms_bl(model: RobotModel, q, joints=None):
     """q (n, B) → list of n (6, 6, B) transforms, affine in sin/cos (revolute)
-    or in q (prismatic)."""
+    or in q (prismatic); with ``joints``, only those (None elsewhere)."""
     out = []
     for i in range(model.n):
+        if joints is not None and i not in joints:
+            out.append(None)
+            continue
         qi = q[i:i + 1]
         if model.joint_types[i] == "prismatic":
             out.append(_mat(model.Xb[i]) + _mat(model.Xs[i]) * qi)

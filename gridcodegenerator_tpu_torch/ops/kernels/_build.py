@@ -6,9 +6,12 @@ families), ``csrc/staged.cu`` (the staged large-robot pipeline) and
 ``csrc/so.cu`` (the second-order kernels); for a multi-dof robot
 (``MultiDofModel``) ``csrc/md.cu`` (the ball- and free-joint families) and,
 past ``MAX_MD_GRAD_NV`` velocity coordinates, ``csrc/md_staged.cu`` (the
-staged multi-dof pipeline). All are built for ``sm_90a`` at once, with the
-joint count, parent indices and joint types passed as ``-D`` macros
-(``csrc/rbd.cuh``, ``csrc/md.cuh``). A unit a robot does not build by
+staged multi-dof pipeline); for a free flyer (``FreeFlyerModel``)
+``csrc/ff.cu`` — its ABA and mass-matrix FD, or, in a library of its own
+for each set of contact links, its stance FD. All are built for ``sm_90a``
+at once, with the joint count, parent indices, joint types and contact
+links passed as ``-D`` macros (``csrc/rbd.cuh``, ``csrc/md.cuh``,
+``csrc/ff.cuh``). A unit a robot does not build by
 default (the staged multi-dof unit of a small robot, forced by a test) is
 built when a launch first asks for it.
 The libraries have a plain C interface and are loaded with ``ctypes``; they
@@ -32,7 +35,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "dual.cuh",
-            "so.cuh", "md.cuh", "md_staged.cuh")
+            "so.cuh", "md.cuh", "md_staged.cuh", "ff.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -147,11 +150,21 @@ _UNITS = {
         "grid_md_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                               _D, _P),
     },
+    "ff.cu": {
+        # consts, quat, q, vb, qd, tau, dvb, qdd, B, gravity, stream
+        "grid_fb_aba": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        "grid_fb_fd": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, quat, pos, q, vb, qd, tau, offsets, anchors (or NULL), dvb,
+        # qdd, lam, B, gravity, alpha, beta, reg, stream
+        "grid_stance_fd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _LL, _D, _D, _D, _D, _P),
+    },
 }
 # the units a library holds by default: single-dof robots, multi-dof robots
 _SINGLE_DOF_UNITS = ("fused.cu", "staged.cu", "so.cu")
 _MD_UNITS = ("md.cu",)
 MD_STAGED_UNIT = "md_staged.cu"
+_FF_UNITS = ("ff.cu",)
 # joint type → its code in the md unit's GRID_JTYPES macro
 _JOINT_CODES = {"revolute": 0, "continuous": 0, "prismatic": 1,
                 "spherical": 2, "floating": 3}
@@ -246,18 +259,24 @@ _KEY_LOCKS: dict[tuple, threading.Lock] = {}
 _LOADED: dict[tuple, KernelLibrary] = {}
 
 
-def topology_key(model) -> tuple:
+def topology_key(model, links=None) -> tuple:
     """What a kernel library is specialised on: joint count, parents and
     which joints are prismatic; for a multi-dof model (one with
     ``v_slices``) the tag ``"md"`` and every joint's type, which fix its
     coordinate slices (a ball root and a free root under the same parents
-    build different libraries)."""
+    build different libraries); for a free flyer (one with ``I_base``) the
+    tag ``"ff"``, its arm's key and the contact ``links`` (empty: the ABA
+    and mass-matrix kernels; else the stance kernel of those links, whose
+    rows are zero outside each link's ancestors)."""
     parents = tuple(model.topology.parents)
     if hasattr(model, "v_slices"):
         return ("md", model.n, parents,
                 tuple(_JOINT_CODES[t] for t in model.joint_types))
-    return (model.n, parents,
-            tuple(int(t == "prismatic") for t in model.joint_types))
+    prism = tuple(int(t == "prismatic") for t in model.joint_types)
+    if hasattr(model, "I_base"):
+        return ("ff", model.n, parents, prism,
+                tuple(int(l) for l in (links or ())))
+    return (model.n, parents, prism)
 
 
 def _md_nv(codes) -> int:
@@ -266,6 +285,8 @@ def _md_nv(codes) -> int:
 
 def _units(key: tuple) -> tuple:
     """The units a topology builds by default."""
+    if key[0] == "ff":
+        return _FF_UNITS
     if key[0] != "md":
         return _SINGLE_DOF_UNITS
     staged = () if md_dense_grads(_md_nv(key[3])) else (MD_STAGED_UNIT,)
@@ -286,6 +307,15 @@ def _nvcc() -> str:
 
 
 def _macros(key: tuple) -> list[str]:
+    if key[0] == "ff":
+        _, n, parents, prism, links = key
+        return [
+            f"-DGRID_N={n}",
+            "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
+            "-DGRID_PRISMATIC=" + "".join(f"G({p})" for p in prism),
+            f"-DGRID_FF_K={len(links)}",
+        ] + (["-DGRID_FF_LINKS=" + "".join(f"G({l})" for l in links)]
+             if links else [])
     if key[0] == "md":
         _, n, parents, codes = key
         nv = _md_nv(codes)
@@ -369,12 +399,13 @@ def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
     return lib
 
 
-def library(model, units=None) -> KernelLibrary:
-    """The kernel libraries for ``model``'s topology (a ``RobotModel``'s
-    or a ``MultiDofModel``'s): the units it builds by default, or those
-    named, each built (all at once) if it is not yet. Different
+def library(model, units=None, links=None) -> KernelLibrary:
+    """The kernel libraries for ``model``'s topology (a ``RobotModel``'s,
+    a ``MultiDofModel``'s or a ``FreeFlyerModel``'s, with its contact
+    ``links`` for the stance kernel): the units it builds by default, or
+    those named, each built (all at once) if it is not yet. Different
     topologies build concurrently."""
-    key = topology_key(model)
+    key = topology_key(model, links)
     want = _units(key) if units is None else tuple(units)
     with _LOCK:
         lib = _LOADED.setdefault(key, KernelLibrary({}, {}, {}, {}))

@@ -1,9 +1,9 @@
 """Launch bookkeeping shared by the kernel wrappers (:mod:`.fused`,
 :mod:`.staged`, :mod:`.so_fused`, :mod:`.so_staged`,
-:mod:`.multidof_fused`, :mod:`.multidof_staged`): input checks, output
-allocation, the ctypes launch and the per-kernel ``LAUNCHES`` counters. A
-counter rises only on a successful launch, never on a CPU tensor's plain
-version."""
+:mod:`.multidof_fused`, :mod:`.multidof_staged`, :mod:`.contact_fused`):
+input checks, output allocation, the ctypes launch and the per-kernel
+``LAUNCHES`` counters. A counter rises only on a successful launch, never
+on a CPU tensor's plain version."""
 
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ LAUNCHES = {
     # csrc/md_staged.cu: the staged multi-dof pipeline
     "md_vaf": 0, "md_minv": 0, "md_minv_qdd": 0, "md_grad_cols": 0,
     "md_grad_cols_finish": 0,
+    # csrc/ff.cu: the floating-base families
+    "fb_aba": 0, "fb_fd": 0, "stance_fd": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
@@ -79,6 +81,16 @@ def check_md(model, q, others) -> int:
     return q.shape[-1]
 
 
+def check_ff(model, states) -> int:
+    """Validate a floating-base launch's states, given as (tensor, rows,
+    label) — quat (4, B), q (n, B), vb (6, B), … —; returns B."""
+    ref = states[0][0]
+    _check_device(model, ref)
+    for s, rows, label in states:
+        _check_state(s, ref, rows, label)
+    return ref.shape[-1]
+
+
 def check_staged(model, name: str, t, shape) -> None:
     """A staged input (v, a, f, M⁻¹, …) on the model's device and dtype, in
     its contiguous (…, B) layout."""
@@ -95,11 +107,11 @@ def ptr(x):
 
 
 def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
-           *scalars) -> None:
+           *scalars, links=None) -> None:
     """Call ``entry`` of the model's kernel library (its unit built if it
-    is not yet) on the current stream and count the launch under
-    ``name``."""
-    lib = _build.library(model, (_build.unit_of(entry),))
+    is not yet; for the stance kernel, the library of ``links``) on the
+    current stream and count the launch under ``name``."""
+    lib = _build.library(model, (_build.unit_of(entry),), links=links)
     device = model.device
     fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])
     with torch.cuda.device(device):

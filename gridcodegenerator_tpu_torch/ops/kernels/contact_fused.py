@@ -1,21 +1,46 @@
-"""Dense factor helpers of the contact kernels, in batch-last PyTorch.
+"""The floating-base kernels and their plain versions, in batch-last
+PyTorch.
 
 The port's counterpart of ``gridcodegenerator_tpu/ops/kernels/
-contact_fused.py``. So far it holds what the staged large-robot pipeline
-(:mod:`.staged`) and the multi-dof bodies (:mod:`..md_blops`) use: the
-active-region column Cholesky of an ancestor-sparse mass matrix
-(:func:`_chol_factor_act`), the symmetric inverse from it
-(:func:`_chol_minv_sym`), the multi-rhs solve (:func:`_chol_solve_act`),
-the entry-view factor and its solve (:func:`_act_view`,
-:func:`_chol_factor_ev`, :func:`_chol_apply_e`), :func:`_sum_terms` and the
-quaternion rotation :func:`_quat_rot_s`. Entries are (1, B) tensors,
-``None`` where structurally zero; every sum runs left to right, the order
-the CUDA kernels (``csrc/chol.cuh``, ``staged.cuh``, ``md.cuh``) keep.
+contact_fused.py``. It holds
+
+* the dense factor helpers that the staged large-robot pipeline
+  (:mod:`.staged`) and the multi-dof bodies (:mod:`..md_blops`) use too:
+  the active-region column Cholesky of an ancestor-sparse matrix
+  (:func:`_chol_factor_act`, with the Delassus ``reg``), the symmetric
+  inverse from it (:func:`_chol_minv_sym`), the multi-rhs solve
+  (:func:`_chol_solve_act`), the entry-view factor and its solve
+  (:func:`_act_view`, :func:`_chol_factor_ev`, :func:`_chol_apply_e`) and
+  :func:`_sum_terms`;
+* the small-geometry helpers (:func:`_cross3s`, :func:`_mv3s`,
+  :func:`_mm33s`, the quaternion's rotation and product, :func:`_fk_s`),
+  the free-flyer bias and mass matrix (:func:`_fb_bias_s`,
+  :func:`_fb_mass_s`) and the contact rows (:func:`_ff_contact_rows_s`);
+* the bodies of three TPU kernels with their plain versions and wrappers:
+  ``fb_aba_fused`` (contact_fused.py:1413, the floating-base ABA),
+  ``fb_fd_fused`` (:1329, the (6+n)² mass matrix and its Cholesky solve)
+  and ``stance_fd_fused`` (:1431, stance-constrained FD through the
+  Delassus matrix).
+
+Entries are (1, B) tensors, ``None`` where structurally zero; every sum
+runs left to right, the order the CUDA kernels (``csrc/chol.cuh``,
+``staged.cuh``, ``md.cuh``, ``ff.cuh``) keep. Each wrapper runs its plain
+version on CPU tensors and its kernel (``csrc/ff.cu``, built for the arm's
+topology, and for the stance kernel the contact links, at first use) on
+CUDA tensors, with no fallback from one to the other. The JAX package's
+lane-budget gates (``ff_workset_ok``, ``fb_aba_fused``'s test) and its XLA
+fallback fit a TPU tile; here one thread holds one state at every size.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from .. import blops
+from ..so import jvp
+from ._launch import check_ff, empty, launch, on_cpu, ptr
 
 
 def _sum_terms(terms):
@@ -68,17 +93,21 @@ def _chol_apply_e(L, r):
     return x
 
 
-def _chol_factor_act(M, m):
+def _chol_factor_act(M, m, reg=0.0):
     """Left-looking column Cholesky of an m×m list of lists of (1,B)/None
     entries, restricted to the active region: ``cols[j]`` is the (m−j, B)
     stack of rows j..m−1 of L's column j (``cols[j][0:1]`` is the
-    diagonal)."""
+    diagonal). ``reg`` adds Tikhonov mass to each diagonal entry before its
+    column update (the Delassus factor's guard against a singular
+    stance)."""
     zero = next(torch.zeros_like(e) for row in M for e in row
                 if e is not None)
     cols = []
     for j in range(m):
         c = torch.cat([zero if M[i][j] is None else M[i][j]
                        for i in range(j, m)])                  # (m-j, B)
+        if reg:
+            c = torch.cat([c[0:1] + reg, c[1:]])
         for p in range(j):
             # L[j:, p] = cols[p][j-p:], L[j, p] = cols[p][j-p : j-p+1]
             c = c - cols[p][j - p:] * cols[p][j - p:j - p + 1]
@@ -139,3 +168,499 @@ def _chol_minv_sym(cols, m):
         out[:j + 1, j] = colj
         out[j, :j] = colj[:j]
     return out
+
+
+# --------------------------------------------------------------------------
+# small-geometry helpers, (1,B)-entry style
+# --------------------------------------------------------------------------
+def _cross3s(a, b):
+    """(3,B) × (3,B) → (3,B) on (1,B) slices."""
+    return torch.cat([
+        a[1:2] * b[2:3] - a[2:3] * b[1:2],
+        a[2:3] * b[0:1] - a[0:1] * b[2:3],
+        a[0:1] * b[1:2] - a[1:2] * b[0:1],
+    ])
+
+
+def _mv3s(A, x, tA=False):
+    """(3,3,B) @ (3,B) → (3,B): Σ_k A[:, k]·x_k (Aᵀ's columns with
+    ``tA``)."""
+    col = (lambda k: A[k]) if tA else (lambda k: A[:, k])
+    return sum(col(k) * x[k:k + 1] for k in range(3))
+
+
+def _mm33s(A, B, tA=False, tB=False):
+    """(3,3,B) @ (3,3,B) → (3,3,B): out[:, j] = Σ_k A[:, k]·B[k, j], with
+    either operand transposed."""
+    acol = (lambda k: A[k]) if tA else (lambda k: A[:, k])
+    bent = (lambda k, j: B[j, k:k + 1]) if tB else (
+        lambda k, j: B[k, j:j + 1])
+    cols = [sum(acol(k) * bent(k, j) for k in range(3)) for j in range(3)]
+    return torch.stack(cols, dim=1)
+
+
+def _quat_mul_s(a, b):
+    """(4,B) ⊗ (4,B) → (4,B), (w, x, y, z)."""
+    aw, ax, ay, az = a[0:1], a[1:2], a[2:3], a[3:4]
+    bw, bx, by, bz = b[0:1], b[1:2], b[2:3], b[3:4]
+    return torch.cat([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by + ay * bw + az * bx - ax * bz,
+        aw * bz + az * bw + ax * by - ay * bx,
+    ])
+
+
+def _support(topo, links):
+    """The joints the contact rows of ``links`` depend on, ascending:
+    ∪ ancestors(link) ∪ {link}."""
+    return sorted(set().union(*(set(topo.ancestors[l]) | {l}
+                                for l in links)))
+
+
+def _fk_s(model, X, joints):
+    """World poses of the links ``joints`` (ascending, closed under
+    ancestors) from their transforms: X (list of (6,6,B)) → (Rs list of
+    (3,3,B) world ← link, ps list of (3,B)), None for the other links; the
+    root joints' Rs is Eᵀ directly (no identity product)."""
+    n = model.n
+    Rs = [None] * n
+    ps = [None] * n
+    for i in joints:
+        E = X[i][:3, :3]                       # child ← parent
+        Xl = X[i][3:, :3]
+        # r = unskew(−Eᵀ·Xl), from the three entries of Eᵀ·Xl it reads
+        r = -torch.cat([sum(E[k, a:a + 1] * Xl[k, b:b + 1] for k in range(3))
+                        for a, b in ((2, 1), (0, 2), (1, 0))])
+        p = model.topology.parents[i]
+        if p < 0:
+            Rs[i] = torch.stack([torch.cat([E[j, i2:i2 + 1]
+                                            for j in range(3)])
+                                 for i2 in range(3)])
+            ps[i] = r
+        else:
+            Rs[i] = _mm33s(Rs[p], E, tB=True)  # R_p @ Eᵀ
+            ps[i] = ps[p] + _mv3s(Rs[p], r)
+    return Rs, ps
+
+
+# --------------------------------------------------------------------------
+# the free-flyer bias and mass matrix
+# --------------------------------------------------------------------------
+def _arm_consts(ffm, B):
+    """The arm's inertias (n, 6, 6, B) and the base inertia (6, 6, B),
+    expanded to the batch (views), and S (n, 6, 1)."""
+    n = ffm.n
+    return (ffm.arm.inertia[..., None].expand(n, 6, 6, B),
+            ffm.I_base[..., None].expand(6, 6, B), ffm.arm.S[..., None])
+
+
+def _a0_lin(R, gravity):
+    """−g_b = −g·R[2, :]: the linear part of the fictitious base
+    acceleration a₀' = [0; −g_b] (the gravity trick)."""
+    g = float(gravity)
+    return torch.cat([-g * R[2, i:i + 1] for i in range(3)])
+
+
+def _fb_bias_s(ffm, X, R, vb, qd, gravity):
+    """Bias forces at q̈ = 0 with a₀' as the base acceleration: → (f_b
+    (6,B), c_j (n,B)), the base wrench and joint torques (JAX
+    ``_fb_bias_s``, :153). a₀' enters structurally (its zero angular rows
+    are never formed)."""
+    n = ffm.n
+    parents = ffm.arm.topology.parents
+    inertia, I_base, S = _arm_consts(ffm, vb.shape[-1])
+    a0_lin = _a0_lin(R, gravity)
+
+    def x_dot_a0(Xi):
+        # X·a₀' with a₀' = [0, 0, 0 | a0_lin]: the linear columns only
+        return sum(Xi[:, 3 + c] * a0_lin[c:c + 1] for c in range(3))
+
+    v = [None] * n
+    a = [None] * n
+    f = [None] * n
+    for i in range(n):
+        p = parents[i]
+        Sqd = S[i] * qd[i:i + 1]
+        v[i] = blops.matvec6(X[i], vb if p < 0 else v[p]) + Sqd
+        ai = x_dot_a0(X[i]) if p < 0 else blops.matvec6(X[i], a[p])
+        a[i] = ai + blops.crm_apply_bl(v[i], Sqd)
+        Iv = blops.matvec6(inertia[i], v[i])
+        f[i] = blops.matvec6(inertia[i], a[i]) + blops.crf_apply_bl(v[i], Iv)
+    Ivb = blops.matvec6(I_base, vb)
+    f_b = (sum(I_base[:, 3 + c] * a0_lin[c:c + 1] for c in range(3))
+           + blops.crf_apply_bl(vb, Ivb))
+    for i in range(n - 1, -1, -1):
+        p = parents[i]
+        if p >= 0:
+            f[p] = f[p] + blops.matvec6_T(X[i], f[i])
+        else:
+            f_b = f_b + blops.matvec6_T(X[i], f[i])
+    c_j = [sum(S[i][c:c + 1] * f[i][c:c + 1] for c in range(6))
+           + ffm.arm.damping[i] * qd[i:i + 1] for i in range(n)]
+    return f_b, torch.cat(c_j)
+
+
+def _fb_mass_s(ffm, X):
+    """The (6+n)² free-flyer mass matrix by composite inertias with the
+    base as a 6-dof joint (JAX ``_fb_mass_s``, :197): a list of lists of
+    (1,B) entries, ``None`` where joint pairs have no ancestor relation."""
+    n = ffm.n
+    parents = ffm.arm.topology.parents
+    inertia, IC_b, S = _arm_consts(ffm, X[0].shape[-1])
+    IC = list(inertia)
+    for i in range(n - 1, -1, -1):
+        p = parents[i]
+        contrib = blops.matmat6_T(X[i], blops.matmat6(IC[i], X[i]))
+        if p >= 0:
+            IC[p] = IC[p] + contrib
+        else:
+            IC_b = IC_b + contrib
+    m = 6 + n
+    E = [[None] * m for _ in range(m)]
+    for r in range(6):
+        for c in range(6):
+            E[r][c] = IC_b[r, c:c + 1]
+    for i in range(n):
+        F = blops.matvec6(IC[i], S[i])
+        # + armature on the joint diagonal (the free base has no motor)
+        E[6 + i][6 + i] = (sum(S[i][c:c + 1] * F[c:c + 1] for c in range(6))
+                           + ffm.arm.armature[i])
+        j = i
+        while parents[j] >= 0:
+            F = blops.matvec6_T(X[j], F)
+            j = parents[j]
+            val = sum(F[c:c + 1] * S[j][c:c + 1] for c in range(6))
+            E[6 + i][6 + j] = val
+            E[6 + j][6 + i] = val
+        F = blops.matvec6_T(X[j], F)                # into base coordinates
+        for c in range(6):
+            E[6 + i][c] = F[c:c + 1]
+            E[c][6 + i] = F[c:c + 1]
+    return E
+
+
+# --------------------------------------------------------------------------
+# contact rows
+# --------------------------------------------------------------------------
+def _stack_rows(entries, like):
+    """A list of (1,B)/None entries → one (R,B) tensor, None as zero."""
+    zero = torch.zeros_like(like)
+    return torch.cat([e if e is not None else zero for e in entries])
+
+
+def _jt_stacks(J, m, like):
+    """Contact rows (3k lists of m (1,B)/None entries) → per column, the
+    (3k,B) stack of J[r][c] over the rows, or None for a column outside
+    every contact's support."""
+    JT = []
+    for c in range(m):
+        ent = [J[r][c] for r in range(len(J))]
+        JT.append(None if all(e is None for e in ent)
+                  else _stack_rows(ent, like))
+    return JT
+
+
+def _ff_contact_rows_s(ffm, X, R, links, offsets):
+    """World-frame linear rows of the k contact points (JAX
+    ``_ff_contact_rows_s``, :426): 3k lists over the 6+n columns [ω_b; v_b;
+    q̇] of (1,B)/None entries, and the points in base coordinates x_b (k
+    (3,B)). X is read on the links' support only. The ω_b columns are
+    R·(e_j × x_b), the v_b columns R[:, j], a joint's column R·(a_ang ×
+    (x_b − p_j) + a_lin); columns outside ancestors(link) ∪ {link} are
+    None."""
+    topo = ffm.arm.topology
+    n = ffm.n
+    S = ffm.arm.S[..., None]
+    Rs, ps = _fk_s(ffm.arm, X, _support(topo, links))
+    rows, xs = [], []
+    for ci, l in enumerate(links):
+        off = [float(offsets[ci][d]) for d in range(3)]
+        x_b = ps[l] + torch.cat([sum(Rs[l][i, j:j + 1] * off[j]
+                                     for j in range(3)) for i in range(3)])
+        xs.append(x_b)
+        support = set(topo.ancestors[l]) | {l}
+        zero1 = x_b[0:1] * 0.0
+        # e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0, −x0), e_2 × x = (−x1,
+        # x0, 0)
+        ex = [torch.cat([zero1, -x_b[2:3], x_b[1:2]]),
+              torch.cat([x_b[2:3], zero1, -x_b[0:1]]),
+              torch.cat([-x_b[1:2], x_b[0:1], zero1])]
+        wcols = [_mv3s(R, e) for e in ex]
+        acols = {}
+        for j in sorted(support):
+            a_ang = _mv3s(Rs[j], S[j][:3])
+            a_lin = _mv3s(Rs[j], S[j][3:])
+            acols[j] = _mv3s(R, _cross3s(a_ang, x_b - ps[j]) + a_lin)
+        for r in range(3):
+            row = [None] * (6 + n)
+            for j in range(3):
+                row[j] = wcols[j][r:r + 1]
+            for j in range(3):
+                row[3 + j] = R[r, j:j + 1]
+            for j, col in acols.items():
+                row[6 + j] = col[r:r + 1]
+            rows.append(row)
+    return rows, xs
+
+
+# --------------------------------------------------------------------------
+# the kernels' plain versions (any device): quat (4,B), pos (3,B), q, q̇, τ
+# (n,B), vb (6,B)
+# --------------------------------------------------------------------------
+def _rhs_free(f_b, c_j, tau):
+    """[−f_b; τ − c_j] as m (1,B) entries."""
+    return ([-f_b[c:c + 1] for c in range(6)]
+            + [tau[i:i + 1] - c_j[i:i + 1] for i in range(tau.shape[0])])
+
+
+def fb_fd_plain(ffm, quat, q, vb, qd, tau, gravity=-9.81):
+    """Unconstrained free-flyer FD by the mass matrix (JAX ``_fb_fd_body``,
+    :1310): the bias, the (6+n)² mass matrix, its Cholesky factor and one
+    solve → (v̇b (6,B), q̈ (n,B))."""
+    X = blops.joint_transforms_bl(ffm.arm, q)
+    R = _quat_rot_s(quat)
+    f_b, c_j = _fb_bias_s(ffm, X, R, vb, qd, gravity)
+    M = _fb_mass_s(ffm, X)
+    y = _chol_apply_e(_chol_factor_ev(M, 6 + ffm.n), _rhs_free(f_b, c_j, tau))
+    return torch.cat(y[:6]), torch.cat(y[6:])
+
+
+def fb_aba_plain(ffm, quat, q, vb, qd, tau, gravity=-9.81):
+    """Floating-base ABA (JAX ``_fb_aba_body``, :1344): → (v̇b (6,B), q̈
+    (n,B)) without the (6+n)² mass matrix — the base closes with one 6×6
+    Cholesky."""
+    n = ffm.n
+    parents = ffm.arm.topology.parents
+    inertia, I_base, S = _arm_consts(ffm, q.shape[-1])
+    X = blops.joint_transforms_bl(ffm.arm, q)
+    R = _quat_rot_s(quat)
+    a0_lin = _a0_lin(R, gravity)
+
+    v = [None] * n
+    zeta = [None] * n
+    for i in range(n):
+        p = parents[i]
+        Sqd = S[i] * qd[i:i + 1]
+        v[i] = blops.matvec6(X[i], vb if p < 0 else v[p]) + Sqd
+        zeta[i] = blops.crm_apply_bl(v[i], Sqd)
+    IA = list(inertia)
+    pA = [blops.crf_apply_bl(v[i], blops.matvec6(inertia[i], v[i]))
+          for i in range(n)]
+    IA_b = I_base
+    pA_b = blops.crf_apply_bl(vb, blops.matvec6(I_base, vb))
+
+    U = [None] * n
+    Dinv = [None] * n
+    ubar = [None] * n
+    for i in range(n - 1, -1, -1):
+        Si = S[i]
+        Ui = sum(IA[i][:, c] * Si[c:c + 1] for c in range(6))
+        # + armature: the reflected rotor inertia in the joint's D
+        Di = 1.0 / (sum(Si[c:c + 1] * Ui[c:c + 1] for c in range(6))
+                    + ffm.arm.armature[i])
+        SpA = sum(Si[c:c + 1] * pA[i][c:c + 1] for c in range(6))
+        ui = tau[i:i + 1] - ffm.arm.damping[i] * qd[i:i + 1] - SpA
+        U[i], Dinv[i], ubar[i] = Ui, Di, ui
+        UDi = Ui * Di
+        Ia = IA[i] - UDi[:, None] * Ui[None]
+        pa = pA[i] + blops.matvec6(Ia, zeta[i]) + UDi * ui
+        IaX = sum(Ia[:, c][:, None] * X[i][c][None] for c in range(6))
+        XIaX = sum(X[i][c][:, None] * IaX[c][None] for c in range(6))
+        p = parents[i]
+        if p >= 0:
+            IA[p] = IA[p] + XIaX
+            pA[p] = pA[p] + blops.matvec6_T(X[i], pa)
+        else:
+            IA_b = IA_b + XIaX
+            pA_b = pA_b + blops.matvec6_T(X[i], pa)
+
+    # the base: ā_b = −(Iᴬ_b)⁻¹·pᴬ_b by a 6×6 entry-view Cholesky
+    E = [[IA_b[r, c:c + 1] for c in range(6)] for r in range(6)]
+    ab = torch.cat(_chol_apply_e(_chol_factor_ev(E, 6),
+                                 [-pA_b[c:c + 1] for c in range(6)]))
+    a = [None] * n
+    qdd = [None] * n
+    for i in range(n):
+        p = parents[i]
+        a_prime = blops.matvec6(X[i], ab if p < 0 else a[p]) + zeta[i]
+        Ua = sum(U[i][c:c + 1] * a_prime[c:c + 1] for c in range(6))
+        qdd[i] = Dinv[i] * (ubar[i] - Ua)
+        a[i] = a_prime + S[i] * qdd[i]
+    # v̇b = ā_b − a₀' with a₀' = [0₃; a0_lin]
+    return torch.cat([ab[:3], ab[3:] - a0_lin]), torch.cat(qdd)
+
+
+def _vfull_list(ffm, vb, qd):
+    """[vb; q̇] as 6+n (1,B) entries."""
+    return ([vb[c:c + 1] for c in range(6)]
+            + [qd[i:i + 1] for i in range(ffm.n)])
+
+
+def _contract(JT, x):
+    """Σ_c JT[c]·x[c] over the live columns → (3k,B)."""
+    return _sum_terms([JT[c] * x[c] for c in range(len(JT))
+                       if JT[c] is not None])
+
+
+def _contact_vel(ffm, quat, q, vfull, links, offsets):
+    """The contact points' velocity J(quat, q)·vfull (3k,B), from the
+    transforms of the links' support only."""
+    X = blops.joint_transforms_bl(ffm.arm, q,
+                                  joints=_support(ffm.arm.topology, links))
+    J, _ = _ff_contact_rows_s(ffm, X, _quat_rot_s(quat), links, offsets)
+    return _contract(_jt_stacks(J, 6 + ffm.n, q[0:1]), vfull)
+
+
+def _contact_bias(ffm, quat, q, vb, qd, links, offsets):
+    """J̇·[vb; q̇] (3k,B): the exact derivative of the contact velocity
+    J(quat, q)·[vb; q̇] along the state's flow (quaṫ = ½ quat ⊗ [0, ω_b],
+    q̇), by forward mode."""
+    vfull = _vfull_list(ffm, vb, qd)
+    w_b = torch.cat([torch.zeros_like(vb[0:1]), vb[:3]])
+    dquat = 0.5 * _quat_mul_s(quat, w_b)
+    return jvp(lambda quat_, q_: _contact_vel(ffm, quat_, q_, vfull, links,
+                                              offsets),
+               (quat, q), (dquat, qd))[1]
+
+
+def _baumgarte(JT, vfull, R, pos, xs, anchors, baumgarte):
+    """a* = −2α·J·[vb; q̇] − β²·(x_w − anchor) (3k,B), or None when both
+    terms vanish: the β term needs explicit anchors (``anchors=None`` pins
+    each point where it is, so its drift is zero)."""
+    alpha, beta = (float(b) for b in baumgarte)
+    a_star = None
+    if alpha != 0.0:
+        a_star = -2.0 * alpha * _contract(JT, vfull)
+    if beta != 0.0 and anchors is not None:
+        drifts = []
+        for ci in range(len(xs)):
+            x_w = pos + _mv3s(R, xs[ci])
+            drifts.extend(x_w[d:d + 1] - float(anchors[ci][d])
+                          for d in range(3))
+        a_star = _sum_terms([a_star, -beta * beta * torch.cat(drifts)])
+    return a_star
+
+
+def stance_fd_plain(ffm, quat, pos, q, vb, qd, tau, links, offsets,
+                    anchors=None, gravity=-9.81, baumgarte=(0.0, 0.0),
+                    reg=0.0):
+    """Stance FD (JAX ``_stance_body``, :891): → (v̇b (6,B), q̈ (n,B), λ
+    (3k,B)). One multi-rhs solve gives M⁻¹Jᵀ and the free accelerations,
+    then the Delassus G = J·M⁻¹Jᵀ (+ reg), λ = −G⁻¹(J·y_free + J̇v − a*)
+    and y = y_free + M⁻¹Jᵀ·λ."""
+    links, reg = tuple(links), float(reg)
+    m = 6 + ffm.n
+    k3 = 3 * len(links)
+    X = blops.joint_transforms_bl(ffm.arm, q)
+    R = _quat_rot_s(quat)
+    f_b, c_j = _fb_bias_s(ffm, X, R, vb, qd, gravity)
+    Lm = _chol_factor_ev(_fb_mass_s(ffm, X), m)
+    rhs_free = _rhs_free(f_b, c_j, tau)
+    J, xs = _ff_contact_rows_s(ffm, X, R, links, offsets)
+    vfull = _vfull_list(ffm, vb, qd)
+    JT = _jt_stacks(J, m, q[0:1])
+
+    # one merged solve: rows 0..3k−1 M⁻¹Jᵀ, row 3k y_free
+    zero3k = torch.zeros((k3, q.shape[-1]), dtype=q.dtype, device=q.device)
+    sol = _chol_apply_e(Lm, [torch.cat([zero3k if JT[c] is None else JT[c],
+                                        rhs_free[c]]) for c in range(m)])
+    MiJt = [sol[c][:k3] for c in range(m)]
+    y_free = [sol[c][k3:] for c in range(m)]
+
+    bias = _contact_bias(ffm, quat, q, vb, qd, links, offsets)
+    a_star = _baumgarte(JT, vfull, R, pos, xs, anchors, baumgarte)
+    # G's lower triangle (the factor reads no other entry)
+    G_rows = [_sum_terms([J[r][c] * MiJt[c][:r + 1] for c in range(m)
+                          if J[r][c] is not None]) for r in range(k3)]
+    Jyf = _contract(JT, y_free)
+    rhs = -(Jyf + bias - (0.0 if a_star is None else a_star))
+    G = [[G_rows[r][s:s + 1] if s <= r else None for s in range(k3)]
+         for r in range(k3)]
+    lam = _chol_solve_act(_chol_factor_act(G, k3, reg=reg), rhs[:, None])[:, 0]
+    y = [y_free[c] + sum(MiJt[c][s:s + 1] * lam[s:s + 1] for s in range(k3))
+         for c in range(m)]
+    return torch.cat(y[:6]), torch.cat(y[6:]), lam
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _geom_copy(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device).reshape(-1, 3)
+
+
+def _device_geom(ffm, x, k):
+    """Foot offsets or anchors (k, 3) on the model's device, copied once a
+    set of values and kept, so a loop of calls on one stance makes no
+    host-to-device copy."""
+    if x is None:
+        return None
+    values = tuple(torch.as_tensor(x, dtype=torch.float64).reshape(-1)
+                   .tolist())
+    if len(values) != 3 * k:
+        raise ValueError(f"expected ({k}, 3) contact points, got "
+                         f"{len(values)} values")
+    return _geom_copy(values, ffm.dtype, torch.device(ffm.device))
+
+
+def _ff_states(ffm, quat, q, vb, qd, tau, pos=None):
+    n = ffm.n
+    return [(quat, 4, "quat"), (q, n, "n"), (vb, 6, "vb"), (qd, n, "n"),
+            (tau, n, "n")] + ([] if pos is None else [(pos, 3, "pos")])
+
+
+def fb_aba_fused(ffm, quat, q, vb, qd, tau, gravity=-9.81):
+    """Floating-base ABA: → (v̇b (6,B), q̈ (n,B)), O(n) a state."""
+    if on_cpu(q):
+        return fb_aba_plain(ffm, quat, q, vb, qd, tau, gravity)
+    B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau))
+    dvb, qdd = empty(ffm, 6, B), empty(ffm, ffm.n, B)
+    if B:
+        launch("fb_aba", "grid_fb_aba", ffm,
+               (quat.data_ptr(), q.data_ptr(), vb.data_ptr(), qd.data_ptr(),
+                tau.data_ptr(), dvb.data_ptr(), qdd.data_ptr()), B,
+               float(gravity))
+    return dvb, qdd
+
+
+def fb_fd_fused(ffm, quat, q, vb, qd, tau, gravity=-9.81):
+    """Free-flyer FD by the (6+n)² mass matrix and its Cholesky factor: →
+    (v̇b (6,B), q̈ (n,B))."""
+    if on_cpu(q):
+        return fb_fd_plain(ffm, quat, q, vb, qd, tau, gravity)
+    B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau))
+    dvb, qdd = empty(ffm, 6, B), empty(ffm, ffm.n, B)
+    if B:
+        launch("fb_fd", "grid_fb_fd", ffm,
+               (quat.data_ptr(), q.data_ptr(), vb.data_ptr(), qd.data_ptr(),
+                tau.data_ptr(), dvb.data_ptr(), qdd.data_ptr()), B,
+               float(gravity))
+    return dvb, qdd
+
+
+def stance_fd_fused(ffm, quat, pos, q, vb, qd, tau, links, offsets,
+                    anchors=None, gravity=-9.81, baumgarte=(0.0, 0.0),
+                    reg=0.0):
+    """Stance-constrained FD with the k points of ``links`` (body-frame
+    ``offsets`` (k, 3)) pinned to ``anchors`` (k, 3; None: where they are):
+    → (v̇b (6,B), q̈ (n,B), λ (3k,B)). The kernel is built per set of links;
+    offsets, anchors, gravity, ``baumgarte`` = (α, β) and ``reg`` are
+    run-time arguments."""
+    links = tuple(int(l) for l in links)
+    if on_cpu(q):
+        return stance_fd_plain(ffm, quat, pos, q, vb, qd, tau, links,
+                               offsets, anchors, gravity, baumgarte, reg)
+    B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau, pos))
+    geom = [_device_geom(ffm, x, len(links)) for x in (offsets, anchors)]
+    dvb, qdd = empty(ffm, 6, B), empty(ffm, ffm.n, B)
+    lam = empty(ffm, 3 * len(links), B)
+    if B:
+        launch("stance_fd", "grid_stance_fd", ffm,
+               (quat.data_ptr(), pos.data_ptr(), q.data_ptr(), vb.data_ptr(),
+                qd.data_ptr(), tau.data_ptr(), ptr(geom[0]), ptr(geom[1]),
+                dvb.data_ptr(), qdd.data_ptr(), lam.data_ptr()), B,
+               float(gravity), float(baumgarte[0]), float(baumgarte[1]),
+               float(reg), links=links)
+    return dvb, qdd, lam

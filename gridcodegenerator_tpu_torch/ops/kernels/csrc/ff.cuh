@@ -1,0 +1,844 @@
+// Floating-base (free-flyer) dynamics, one state per thread.
+//
+// The CUDA counterparts of the kernel bodies of
+// gridcodegenerator_tpu/ops/kernels/contact_fused.py (ported as the plain
+// versions of gridcodegenerator_tpu_torch/ops/kernels/contact_fused.py):
+//   fb_bias         _fb_bias_s (:153): the bias wrench of the base and the
+//                   joint torques, with a₀' = [0; −g·R[2, :]] entering
+//                   structurally
+//   fb_mass         _fb_mass_s (:197): the (6+n)² mass matrix by composite
+//                   inertias, lower triangle
+//   contact_rows    _fk_s (:113) and _ff_contact_rows_s (:426) along one
+//                   contact's chain (ancestors(link) ∪ {link}, ascending)
+// and the per-state bodies of the three kernels of ff.cu:
+//   fb_aba_state    _fb_aba_body (:1344): floating-base ABA, a 6×6 base
+//                   Cholesky
+//   fb_fd_state     _fb_fd_body (:1310): bias, mass matrix, its Cholesky
+//                   factor and one solve
+//   stance_state    _stance_body (:891): + contact rows, one merged solve
+//                   M⁻¹[Jᵀ | rhs], the Delassus G with reg, λ; the bias
+//                   J̇·[vb; q̇] is contact_rows instantiated on Dual<T>,
+//                   seeded with (quat, ½ quat ⊗ [0, ω_b]) and (q, q̇), its
+//                   tangent rows contracted with [vb; q̇]
+//
+// The arm is a compile-time constant as in rbd.cuh (-DGRID_N, -DGRID_PARENTS,
+// -DGRID_PRISMATIC), and the stance kernel's contact links too
+// (-DGRID_FF_K=<k> -DGRID_FF_LINKS=G(l0)G(l1)...): they fix which columns of
+// each contact row are nonzero. The numeric constants arrive in one packed
+// buffer (FreeFlyerModel.packed), staged in shared memory by ff.cu:
+//   Xb, Xs, Xc (36N each), S (6N), inertia (36N), damping (N), armature (N),
+//   I_base (36)
+// The foot offsets and anchors, gravity, the Baumgarte (α, β) and reg are
+// run-time arguments, and the kernels take the same branches as the plain
+// versions (α = 0, β = 0 or no anchors, reg = 0 skip their terms) uniformly
+// across the batch. Joint parents, types and the contact chains are read from
+// __constant__ tables (a constexpr local table indexed at run time is rebuilt
+// in local memory on every call).
+//
+// Every sum runs in the order of the plain version; the structural zeros the
+// plain versions form (x·0 terms of the contact rows) are formed here too,
+// and the zero columns outside a contact's chain are skipped, which changes
+// no value (x + 0 = x). nvcc's FMA contraction is the only difference in
+// rounding. Joint and column loops stay rolled (rbd.cuh).
+#pragma once
+
+#include "chol.cuh"
+#include "dual.cuh"
+
+#ifndef GRID_FF_K
+#error "compile with -DGRID_FF_K=<contacts> [-DGRID_FF_LINKS=G(l0)G(l1)...]"
+#endif
+
+namespace grid {
+
+constexpr int FF_M = 6 + N;                     // free-flyer velocity dof
+constexpr int FF_TRI = FF_M * (FF_M + 1) / 2;   // lower triangle of M
+constexpr int kFfConstCount = 152 * N + 36;
+
+#define G(x) x,
+__constant__ int c_ff_parent[N] = {GRID_PARENTS};
+__constant__ int c_ff_prism[N] = {GRID_PRISMATIC};
+#undef G
+
+__device__ __forceinline__ int ff_parent(int i) { return c_ff_parent[i]; }
+
+// packed lower triangle, row i ≥ column j
+__host__ __device__ constexpr int tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// ------------------------------------------------------ packed Cholesky
+// The left-looking column factor of chol.cuh (_chol_factor_act) on a packed
+// lower triangle, in place; reg is added to each diagonal entry before its
+// column update.
+template <typename T, int M>
+__device__ __forceinline__ void ptri_factor(T* A, T reg) {
+GRID_ROLLED
+  for (int j = 0; j < M; ++j) {
+GRID_ROLLED
+    for (int i = j; i < M; ++i) {
+      T c = A[tri(i, j)];
+      if (i == j && reg != T(0)) c = c + reg;
+GRID_ROLLED
+      for (int p = 0; p < j; ++p) c = c - A[tri(i, p)] * A[tri(j, p)];
+      A[tri(i, j)] = c;
+    }
+    const T s = sqrt(A[tri(j, j)]);
+GRID_ROLLED
+    for (int i = j; i < M; ++i) A[tri(i, j)] = A[tri(i, j)] / s;
+  }
+}
+
+// (L·Lᵀ)·x = r in place for K right-hand sides, entry by entry with each
+// row's terms in ascending order (_chol_apply_e); x(i, k) is a reference to
+// right-hand side k's row i (each caller indexes its own array, so no
+// pointer walks past the row it was taken from).
+template <typename T, int M, int K, typename Rhs>
+__device__ __forceinline__ void ptri_apply(const T* L, Rhs x) {
+GRID_ROLLED
+  for (int i = 0; i < M; ++i)
+GRID_ROLLED
+    for (int k = 0; k < K; ++k) {
+      T s = x(i, k);
+GRID_ROLLED
+      for (int p = 0; p < i; ++p) s = s + (-L[tri(i, p)]) * x(p, k);
+      x(i, k) = s / L[tri(i, i)];
+    }
+GRID_ROLLED
+  for (int i = M - 1; i >= 0; --i)
+GRID_ROLLED
+    for (int k = 0; k < K; ++k) {
+      T s = x(i, k);
+GRID_ROLLED
+      for (int p = i + 1; p < M; ++p) s = s + (-L[tri(p, i)]) * x(p, k);
+      x(i, k) = s / L[tri(i, i)];
+    }
+}
+
+// (L·Lᵀ)·x = r in place, one right-hand side, column-oriented: the back
+// substitution subtracts Σ_{r>j} L[r][j]·x[r] at once (_chol_solve_act).
+template <typename T, int M>
+__device__ __forceinline__ void ptri_solve(const T* L, T* x) {
+GRID_ROLLED
+  for (int j = 0; j < M; ++j) {
+    x[j] = x[j] / L[tri(j, j)];
+GRID_ROLLED
+    for (int r = j + 1; r < M; ++r) x[r] = x[r] - L[tri(r, j)] * x[j];
+  }
+GRID_ROLLED
+  for (int j = M - 1; j >= 0; --j) {
+    if (j + 1 < M) {
+      T corr = L[tri(j + 1, j)] * x[j + 1];
+GRID_ROLLED
+      for (int r = j + 2; r < M; ++r) corr += L[tri(r, j)] * x[r];
+      x[j] = (x[j] - corr) / L[tri(j, j)];
+    } else {
+      x[j] = x[j] / L[tri(j, j)];
+    }
+  }
+}
+
+// ----------------------------------------------------------- kinematics
+// joint i's transform entry e from (sin, cos) or q, as joint_transforms_bl
+template <typename TT>
+__device__ __forceinline__ TT xform_entry(const Robot<base_t<TT>>& R, int i,
+                                          int e, bool prism, TT f1, TT f2) {
+  if (prism) return R.Xb[i * 36 + e] + R.Xs[i * 36 + e] * f1;
+  return R.Xb[i * 36 + e] + R.Xs[i * 36 + e] * f1 + R.Xc[i * 36 + e] * f2;
+}
+
+template <typename TT>
+__device__ __forceinline__ void joint_args(int i, TT qi, bool* prism, TT* f1,
+                                           TT* f2) {
+  *prism = c_ff_prism[i] != 0;
+  if (*prism) {
+    *f1 = qi;
+    *f2 = qi;  // unused
+  } else {
+    sincos_t(qi, f1, f2);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void ff_transforms(const Robot<T>& R, const T* q,
+                                              T X[N][36]) {
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    bool prism;
+    T f1, f2;
+    joint_args(i, q[i], &prism, &f1, &f2);
+#pragma unroll
+    for (int e = 0; e < 36; ++e) X[i][e] = xform_entry(R, i, e, prism, f1, f2);
+  }
+}
+
+// R(quat), world ← base, row-major (_quat_rot_s)
+template <typename TT>
+__device__ __forceinline__ void quat_rot(const TT* qt, TT* Rm) {
+  using B = base_t<TT>;
+  const B one(1), two(2);
+  const TT w = qt[0], x = qt[1], y = qt[2], z = qt[3];
+  Rm[0] = one - two * (y * y + z * z);
+  Rm[1] = two * (x * y - w * z);
+  Rm[2] = two * (x * z + w * y);
+  Rm[3] = two * (x * y + w * z);
+  Rm[4] = one - two * (x * x + z * z);
+  Rm[5] = two * (y * z - w * x);
+  Rm[6] = two * (x * z - w * y);
+  Rm[7] = two * (y * z + w * x);
+  Rm[8] = one - two * (x * x + y * y);
+}
+
+// out[r] = Σ_k A[r][k]·x[k], 3×3 row-major (_mv3s)
+template <typename A, typename V, typename TT>
+__device__ __forceinline__ void mv3(const A* M, const V* x, TT* out) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    out[r] = M[r * 3] * x[0] + M[r * 3 + 1] * x[1] + M[r * 3 + 2] * x[2];
+}
+
+// ---------------------------------------------------------- the contacts
+#if GRID_FF_K > 0
+constexpr int FF_K = GRID_FF_K;
+constexpr int FF_K3 = 3 * FF_K;
+
+// each contact's chain: its link and the link's ancestors, ascending
+struct Chains {
+  int link[FF_K];
+  int len[FF_K];
+  int joint[FF_K][N];
+};
+
+#define G(x) x,
+__host__ __device__ constexpr Chains make_chains() {
+  constexpr int links[FF_K] = {GRID_FF_LINKS};
+  constexpr int par[N] = {GRID_PARENTS};
+  Chains c{};
+  for (int ci = 0; ci < FF_K; ++ci) {
+    int d = 0;
+    for (int j = links[ci]; j >= 0; j = par[j]) ++d;
+    c.link[ci] = links[ci];
+    c.len[ci] = d;
+    int t = d - 1;
+    for (int j = links[ci]; j >= 0; j = par[j]) c.joint[ci][t--] = j;
+  }
+  return c;
+}
+#undef G
+
+__host__ __device__ constexpr int max_chain() {
+  int d = 0;
+  for (int ci = 0; ci < FF_K; ++ci)
+    d = make_chains().len[ci] > d ? make_chains().len[ci] : d;
+  return d;
+}
+constexpr int FF_D = max_chain();   // the longest chain
+constexpr int FF_C = 6 + FF_D;      // stored columns of a contact's rows
+
+__constant__ Chains c_chains = make_chains();
+
+// The three world-frame rows of contact ci: columns [ω_b (3); v_b (3); the
+// chain's joints, ascending], and the point in base coordinates x_b. The
+// chain's poses come from the joint transforms on the way down (_fk_s:
+// Rs world ← link, ps), so the same code runs on T (the rows) and on Dual<T>
+// (their time derivative).
+template <typename TT>
+__device__ __forceinline__ void contact_rows(const Robot<base_t<TT>>& R,
+                                             int ci, const TT* q,
+                                             const TT* Rw,
+                                             const base_t<TT>* off,
+                                             TT rows[3][FF_C], TT* x_b) {
+  TT Rs[FF_D][9], ps[FF_D][3];
+  const int len = c_chains.len[ci];
+GRID_ROLLED
+  for (int t = 0; t < len; ++t) {
+    const int i = c_chains.joint[ci][t];
+    bool prism;
+    TT f1, f2;
+    joint_args(i, q[i], &prism, &f1, &f2);
+    TT E[9], Xl[9];  // X[0:3, 0:3] (child ← parent) and X[3:6, 0:3]
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        E[r * 3 + c] = xform_entry(R, i, r * 6 + c, prism, f1, f2);
+        Xl[r * 3 + c] = xform_entry(R, i, (3 + r) * 6 + c, prism, f1, f2);
+      }
+    // the joint origin in parent coordinates: r = unskew(−Eᵀ·Xl)
+    TT rv[3];
+    const int mr[3] = {2, 0, 1}, mc[3] = {1, 2, 0};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int a = mr[k], b = mc[k];
+      rv[k] = -(E[a] * Xl[b] + E[3 + a] * Xl[3 + b] + E[6 + a] * Xl[6 + b]);
+    }
+    if (t == 0) {  // a root joint: world ← link is Eᵀ
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) Rs[0][r * 3 + c] = E[c * 3 + r];
+        ps[0][r] = rv[r];
+      }
+    } else {
+      const TT* Rp = Rs[t - 1];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          Rs[t][r * 3 + c] = Rp[r * 3] * E[c * 3] + Rp[r * 3 + 1] * E[c * 3 + 1] +
+                             Rp[r * 3 + 2] * E[c * 3 + 2];
+      TT t3[3];
+      mv3(Rp, rv, t3);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) ps[t][r] = ps[t - 1][r] + t3[r];
+    }
+  }
+  const int l = len - 1;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    x_b[r] = ps[l][r] + (Rs[l][r * 3] * off[0] + Rs[l][r * 3 + 1] * off[1] +
+                         Rs[l][r * 3 + 2] * off[2]);
+  // ω_b columns R·(e_j × x_b): e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0,
+  // −x0), e_2 × x = (−x1, x0, 0)
+  const TT z = x_b[0] * base_t<TT>(0);
+  const TT ex[3][3] = {{z, -x_b[2], x_b[1]},
+                       {x_b[2], z, -x_b[0]},
+                       {-x_b[1], x_b[0], z}};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    TT col[3];
+    mv3(Rw, ex[j], col);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      rows[r][j] = col[r];
+      rows[r][3 + j] = Rw[r * 3 + j];
+    }
+  }
+  // joint columns R·(a_ang × (x_b − p_j) + a_lin)
+GRID_ROLLED
+  for (int t = 0; t < len; ++t) {
+    const int i = c_chains.joint[ci][t];
+    const base_t<TT>* S = R.S + 6 * i;
+    TT a_ang[3], a_lin[3], d[3], cr[3], w[3], col[3];
+    mv3(Rs[t], S, a_ang);
+    mv3(Rs[t], S + 3, a_lin);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) d[r] = x_b[r] - ps[t][r];
+    cross3(a_ang, d, cr);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) w[r] = cr[r] + a_lin[r];
+    mv3(Rw, w, col);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) rows[r][6 + t] = col[r];
+  }
+}
+#endif  // GRID_FF_K > 0
+
+// --------------------------------------------------- bias and mass matrix
+// f_b (6) and c_j (N): the bias at q̈ = 0 with a₀' = [0; a0] (_fb_bias_s)
+template <typename T>
+__device__ __forceinline__ void fb_bias(const Robot<T>& R, const T* Ib,
+                                        const T X[N][36], const T* a0,
+                                        const T* vb, const T* qd, T* f_b,
+                                        T* c_j) {
+  T v[N][6], a[N][6], f[N][6];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const int p = ff_parent(i);
+    const T* S = R.S + 6 * i;
+    const T* I = R.I + 36 * i;
+    T Sqd[6], t[6], ai[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) Sqd[r] = S[r] * qd[i];
+    matvec6(X[i], p < 0 ? vb : v[p], t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) v[i][r] = t[r] + Sqd[r];
+    if (p < 0) {
+#pragma unroll
+      for (int r = 0; r < 6; ++r)
+        ai[r] = X[i][r * 6 + 3] * a0[0] + X[i][r * 6 + 4] * a0[1] +
+                X[i][r * 6 + 5] * a0[2];
+    } else {
+      matvec6(X[i], a[p], ai);
+    }
+    crm_apply(v[i], Sqd, t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) a[i][r] = ai[r] + t[r];
+    T Iv[6], Ia[6];
+    matvec6(I, v[i], Iv);
+    matvec6(I, a[i], Ia);
+    crf_apply(v[i], Iv, t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) f[i][r] = Ia[r] + t[r];
+  }
+  {
+    T Ivb[6], t[6];
+    matvec6(Ib, vb, Ivb);
+    crf_apply(vb, Ivb, t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+      f_b[r] = (Ib[r * 6 + 3] * a0[0] + Ib[r * 6 + 4] * a0[1] +
+                Ib[r * 6 + 5] * a0[2]) + t[r];
+  }
+GRID_ROLLED
+  for (int i = N - 1; i >= 0; --i) {
+    const int p = ff_parent(i);
+    T t[6];
+    matvec6_T(X[i], f[i], t);
+    T* dst = p < 0 ? f_b : f[p];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) dst[r] = dst[r] + t[r];
+  }
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const T* S = R.S + 6 * i;
+    T acc = S[0] * f[i][0];
+#pragma unroll
+    for (int r = 1; r < 6; ++r) acc += S[r] * f[i][r];
+    c_j[i] = acc + R.damping[i] * qd[i];
+  }
+}
+
+// The lower triangle of the (6+N)² mass matrix into A (FF_TRI values,
+// structural zeros included) (_fb_mass_s)
+template <typename T>
+__device__ __forceinline__ void fb_mass(const Robot<T>& R, const T* Ib,
+                                        const T X[N][36], T* A) {
+  T IC[N][36], ICb[36];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 36; ++e) IC[i][e] = R.I[36 * i + e];
+#pragma unroll
+  for (int e = 0; e < 36; ++e) ICb[e] = Ib[e];
+GRID_ROLLED
+  for (int i = N - 1; i >= 0; --i) {
+    const int p = ff_parent(i);
+    T Y[36];
+    // Y = IC·X, then the parent's (or the base's) IC += Xᵀ·Y
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        T acc = IC[i][r * 6] * X[i][k];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += IC[i][r * 6 + c] * X[i][c * 6 + k];
+        Y[r * 6 + k] = acc;
+      }
+    T* dst = p < 0 ? ICb : IC[p];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        T acc = X[i][r] * Y[k];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += X[i][c * 6 + r] * Y[c * 6 + k];
+        dst[r * 6 + k] = dst[r * 6 + k] + acc;
+      }
+  }
+GRID_ROLLED
+  for (int e = 0; e < FF_TRI; ++e) A[e] = T(0);
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int c = 0; c <= r; ++c) A[tri(r, c)] = ICb[r * 6 + c];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const T* Si = R.S + 6 * i;
+    T F[6], t[6];
+    matvec6(IC[i], Si, F);
+    T d = Si[0] * F[0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) d += Si[c] * F[c];
+    A[tri(6 + i, 6 + i)] = d + R.armature[i];
+    int j = i;
+GRID_ROLLED
+    while (ff_parent(j) >= 0) {
+      matvec6_T(X[j], F, t);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) F[r] = t[r];
+      j = ff_parent(j);
+      const T* Sj = R.S + 6 * j;
+      T val = F[0] * Sj[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) val += F[c] * Sj[c];
+      A[tri(6 + i, 6 + j)] = val;
+    }
+    matvec6_T(X[j], F, t);  // into base coordinates
+#pragma unroll
+    for (int c = 0; c < 6; ++c) A[tri(6 + i, c)] = t[c];
+  }
+}
+
+// ------------------------------------------------------ per-state bodies
+// Inputs are batch-last: quat (4, B), pos (3, B), q, q̇, τ (N, B), vb (6, B);
+// element r of state b at r·B + b. The row loops unroll: rolled, nvcc 12.9
+// returned NaN for every state of the mass-matrix kernel at 12 and 28 joints
+// (not at 3), which the same body computes right when they unroll.
+
+template <typename T, int K>
+__device__ __forceinline__ void load_rows(const T* __restrict__ x,
+                                          long long B, long long b, T* out) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) out[r] = x[r * B + b];
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void store_rows(const T* in, long long B,
+                                           long long b, T* __restrict__ x) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) x[r * B + b] = in[r];
+}
+
+// a₀'s linear part −g·R[2, :] (minus_g = −gravity)
+template <typename T>
+__device__ __forceinline__ void base_gravity(const T* Rw, T minus_g, T* a0) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) a0[c] = minus_g * Rw[6 + c];
+}
+
+// (v̇b, q̈) by floating-base ABA — fb_aba_fused
+template <typename T>
+__device__ __forceinline__ void fb_aba_state(
+    const Robot<T>& R, const T* Ib, const T* quat, const T* q, const T* vb,
+    const T* qd, const T* tau, T* dvb_out, T* qdd_out, long long B,
+    long long b, T minus_g) {
+  T qt[4], qs[N], vbs[6], qds[N], taus[N];
+  load_rows<T, 4>(quat, B, b, qt);
+  load_rows<T, N>(q, B, b, qs);
+  load_rows<T, 6>(vb, B, b, vbs);
+  load_rows<T, N>(qd, B, b, qds);
+  load_rows<T, N>(tau, B, b, taus);
+  T X[N][36], Rw[9], a0[3];
+  ff_transforms(R, qs, X);
+  quat_rot(qt, Rw);
+  base_gravity(Rw, minus_g, a0);
+
+  T v[N][6], zeta[N][6], IA[N][36], pA[N][6], U[N][6], Dinv[N], ubar[N];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const int p = ff_parent(i);
+    const T* S = R.S + 6 * i;
+    const T* I = R.I + 36 * i;
+    T Sqd[6], t[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) Sqd[r] = S[r] * qds[i];
+    matvec6(X[i], p < 0 ? vbs : v[p], t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) v[i][r] = t[r] + Sqd[r];
+    crm_apply(v[i], Sqd, zeta[i]);
+    T Iv[6];
+    matvec6(I, v[i], Iv);
+    crf_apply(v[i], Iv, pA[i]);
+#pragma unroll
+    for (int e = 0; e < 36; ++e) IA[i][e] = I[e];
+  }
+  T IAb[36], pAb[6];
+  {
+    T Iv[6];
+    matvec6(Ib, vbs, Iv);
+    crf_apply(vbs, Iv, pAb);
+#pragma unroll
+    for (int e = 0; e < 36; ++e) IAb[e] = Ib[e];
+  }
+GRID_ROLLED
+  for (int i = N - 1; i >= 0; --i) {
+    const int p = ff_parent(i);
+    const T* S = R.S + 6 * i;
+    T Ui[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      T acc = IA[i][r * 6] * S[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) acc += IA[i][r * 6 + c] * S[c];
+      Ui[r] = acc;
+    }
+    T d = S[0] * Ui[0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) d += S[c] * Ui[c];
+    const T Di = T(1) / (d + R.armature[i]);
+    T SpA = S[0] * pA[i][0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) SpA += S[c] * pA[i][c];
+    const T ui = (taus[i] - R.damping[i] * qds[i]) - SpA;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) U[i][r] = Ui[r];
+    Dinv[i] = Di;
+    ubar[i] = ui;
+    T UDi[6], Ia[36], pa[6], t[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) UDi[r] = Ui[r] * Di;
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        Ia[r * 6 + c] = IA[i][r * 6 + c] - UDi[r] * Ui[c];
+    matvec6(Ia, zeta[i], t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) pa[r] = (pA[i][r] + t[r]) + UDi[r] * ui;
+    // the parent's (or the base's) IA += Xᵀ·(Iᵃ·X)
+    T IaX[36];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        T acc = Ia[r * 6] * X[i][k];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += Ia[r * 6 + c] * X[i][c * 6 + k];
+        IaX[r * 6 + k] = acc;
+      }
+    T* IAp = p < 0 ? IAb : IA[p];
+    T* pAp = p < 0 ? pAb : pA[p];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        T acc = X[i][r] * IaX[k];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += X[i][c * 6 + r] * IaX[c * 6 + k];
+        IAp[r * 6 + k] = IAp[r * 6 + k] + acc;
+      }
+    matvec6_T(X[i], pa, t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) pAp[r] = pAp[r] + t[r];
+  }
+  // the base: ā_b = −(Iᴬ_b)⁻¹·pᴬ_b
+  T ab[6], E[6][6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    ab[r] = -pAb[r];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) E[r][c] = IAb[r * 6 + c];
+  }
+  chol_factor<T, 6>(E);
+  chol_apply<T, 6>(E, ab);
+  T qdd[N];
+  T (*a)[6] = v;  // a reuses v's storage
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const int p = ff_parent(i);
+    const T* S = R.S + 6 * i;
+    T ap[6], t[6];
+    matvec6(X[i], p < 0 ? ab : a[p], t);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) ap[r] = t[r] + zeta[i][r];
+    T Ua = U[i][0] * ap[0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) Ua += U[i][c] * ap[c];
+    const T qi = Dinv[i] * (ubar[i] - Ua);
+    qdd[i] = qi;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) a[i][r] = ap[r] + S[r] * qi;
+  }
+  // v̇b = ā_b − a₀'
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ab[3 + c] = ab[3 + c] - a0[c];
+  store_rows<T, 6>(ab, B, b, dvb_out);
+  store_rows<T, N>(qdd, B, b, qdd_out);
+}
+
+// the shared front half: X, R(quat), the bias and the factored mass matrix;
+// x ← [−f_b; τ − c_j]
+template <typename T>
+__device__ __forceinline__ void fb_front(const Robot<T>& R, const T* Ib,
+                                         const T* qt, const T* qs,
+                                         const T* vbs, const T* qds,
+                                         const T* taus, T minus_g,
+                                         T X[N][36], T* Rw, T* A, T* x) {
+  T a0[3], f_b[6], c_j[N];
+  ff_transforms(R, qs, X);
+  quat_rot(qt, Rw);
+  base_gravity(Rw, minus_g, a0);
+  fb_bias(R, Ib, X, a0, vbs, qds, f_b, c_j);
+  fb_mass(R, Ib, X, A);
+  ptri_factor<T, FF_M>(A, T(0));
+#pragma unroll
+  for (int c = 0; c < 6; ++c) x[c] = -f_b[c];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) x[6 + i] = taus[i] - c_j[i];
+}
+
+// (v̇b, q̈) by the mass matrix — fb_fd_fused
+template <typename T>
+__device__ __forceinline__ void fb_fd_state(
+    const Robot<T>& R, const T* Ib, const T* quat, const T* q, const T* vb,
+    const T* qd, const T* tau, T* dvb_out, T* qdd_out, long long B,
+    long long b, T minus_g) {
+  T qt[4], qs[N], vbs[6], qds[N], taus[N];
+  load_rows<T, 4>(quat, B, b, qt);
+  load_rows<T, N>(q, B, b, qs);
+  load_rows<T, 6>(vb, B, b, vbs);
+  load_rows<T, N>(qd, B, b, qds);
+  load_rows<T, N>(tau, B, b, taus);
+  T X[N][36], Rw[9], A[FF_TRI], x[FF_M];
+  fb_front(R, Ib, qt, qs, vbs, qds, taus, minus_g, X, Rw, A, x);
+  ptri_apply<T, FF_M, 1>(A, [&](int i, int) -> T& { return x[i]; });
+  store_rows<T, 6>(x, B, b, dvb_out);
+  store_rows<T, N>(x + 6, B, b, qdd_out);
+}
+
+#if GRID_FF_K > 0
+// (v̇b, q̈, λ) with the FF_K contacts pinned — stance_fd_fused. off and anc
+// are (FF_K, 3) (anc may be null); alpha, beta, reg as in the plain version.
+template <typename T>
+__device__ __forceinline__ void stance_state(
+    const Robot<T>& R, const T* Ib, const T* quat, const T* pos, const T* q,
+    const T* vb, const T* qd, const T* tau, const T* __restrict__ off,
+    const T* __restrict__ anc, T* dvb_out, T* qdd_out, T* lam_out,
+    long long B, long long b, T minus_g, double alpha, double beta,
+    double reg) {
+  T qt[4], qs[N], vbs[6], qds[N], taus[N];
+  load_rows<T, 4>(quat, B, b, qt);
+  load_rows<T, N>(q, B, b, qs);
+  load_rows<T, 6>(vb, B, b, vbs);
+  load_rows<T, N>(qd, B, b, qds);
+  load_rows<T, N>(tau, B, b, taus);
+  T X[N][36], Rw[9], A[FF_TRI];
+  // sol's column s < 3k: row s of J (→ M⁻¹Jᵀ); column 3k: the free rhs
+  // (→ y_free)
+  T sol[FF_M][FF_K3 + 1];
+  T rhs_free[FF_M];
+  fb_front(R, Ib, qt, qs, vbs, qds, taus, minus_g, X, Rw, A, rhs_free);
+
+  T J[FF_K][3][FF_C], xb[FF_K][3];
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci)
+    contact_rows<T>(R, ci, qs, Rw, off + 3 * ci, J[ci], xb[ci]);
+GRID_ROLLED
+  for (int c = 0; c < FF_M; ++c) {
+GRID_ROLLED
+    for (int s = 0; s < FF_K3; ++s) sol[c][s] = T(0);
+    sol[c][FF_K3] = rhs_free[c];
+  }
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci)
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int s = 3 * ci + r;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sol[c][s] = J[ci][r][c];
+GRID_ROLLED
+      for (int t = 0; t < c_chains.len[ci]; ++t)
+        sol[6 + c_chains.joint[ci][t]][s] = J[ci][r][6 + t];
+    }
+  ptri_apply<T, FF_M, FF_K3 + 1>(
+      A, [&](int i, int k) -> T& { return sol[i][k]; });
+
+  // the bias J̇·[vb; q̇]: the rows on dual numbers along (quaṫ, q̇)
+  T bias[FF_K3];
+  {
+    using D = Dual<T>;
+    const T z = T(0);
+    // quaṫ = ½ quat ⊗ [0, ω_b]
+    const T aw = qt[0], ax = qt[1], ay = qt[2], az = qt[3];
+    const T bx = vbs[0], by = vbs[1], bz = vbs[2];
+    const T dq[4] = {
+        T(0.5) * (aw * z - ax * bx - ay * by - az * bz),
+        T(0.5) * (aw * bx + ax * z + ay * bz - az * by),
+        T(0.5) * (aw * by + ay * z + az * bx - ax * bz),
+        T(0.5) * (aw * bz + az * z + ax * by - ay * bx)};
+    D qtd[4], qsd[N], Rwd[9];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) qtd[k] = D(qt[k], dq[k]);
+GRID_ROLLED
+    for (int i = 0; i < N; ++i) qsd[i] = D(qs[i], qds[i]);
+    quat_rot(qtd, Rwd);
+GRID_ROLLED
+    for (int ci = 0; ci < FF_K; ++ci) {
+      D Jd[3][FF_C], xd[3];
+      contact_rows<D>(R, ci, qsd, Rwd, off + 3 * ci, Jd, xd);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        T acc = Jd[r][0].t * vbs[0];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += Jd[r][c].t * vbs[c];
+GRID_ROLLED
+        for (int t = 0; t < c_chains.len[ci]; ++t)
+          acc += Jd[r][6 + t].t * qds[c_chains.joint[ci][t]];
+        bias[3 * ci + r] = acc;
+      }
+    }
+  }
+
+  // rhs = −(J·y_free + bias − a*), a* = −2α·J·[vb; q̇] − β²·(x_w − anchor)
+  T rhs[FF_K3];
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci) {
+    T drift[3];
+    const bool pinned = beta != 0.0 && anc != nullptr;
+    if (pinned) {
+      T Rx[3];
+      mv3(Rw, xb[ci], Rx);
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        drift[d] = (pos[d * B + b] + Rx[d]) - anc[3 * ci + d];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int s = 3 * ci + r;
+      const int len = c_chains.len[ci];
+      T Jyf = J[ci][r][0] * sol[0][FF_K3];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) Jyf += J[ci][r][c] * sol[c][FF_K3];
+GRID_ROLLED
+      for (int t = 0; t < len; ++t)
+        Jyf += J[ci][r][6 + t] * sol[6 + c_chains.joint[ci][t]][FF_K3];
+      T e = Jyf + bias[s];
+      bool has_star = false;
+      T a_star = T(0);
+      if (alpha != 0.0) {
+        T Jv = J[ci][r][0] * vbs[0];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) Jv += J[ci][r][c] * vbs[c];
+GRID_ROLLED
+        for (int t = 0; t < len; ++t)
+          Jv += J[ci][r][6 + t] * qds[c_chains.joint[ci][t]];
+        a_star = T(-2.0 * alpha) * Jv;
+        has_star = true;
+      }
+      if (pinned) {
+        const T db = T(-beta * beta) * drift[r];
+        a_star = has_star ? a_star + db : db;
+        has_star = true;
+      }
+      rhs[s] = -(e - (has_star ? a_star : T(0)));
+    }
+  }
+
+  // the Delassus G = J·M⁻¹Jᵀ (lower triangle), its factor with reg, λ
+  T Gm[FF_K3 * (FF_K3 + 1) / 2];
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci)
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int row = 3 * ci + r;
+GRID_ROLLED
+      for (int s = 0; s <= row; ++s) {
+        T acc = J[ci][r][0] * sol[0][s];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += J[ci][r][c] * sol[c][s];
+GRID_ROLLED
+        for (int t = 0; t < c_chains.len[ci]; ++t)
+          acc += J[ci][r][6 + t] * sol[6 + c_chains.joint[ci][t]][s];
+        Gm[tri(row, s)] = acc;
+      }
+    }
+  ptri_factor<T, FF_K3>(Gm, T(reg));
+  ptri_solve<T, FF_K3>(Gm, rhs);
+
+  // y = y_free + M⁻¹Jᵀ·λ
+  T y[FF_M];
+GRID_ROLLED
+  for (int c = 0; c < FF_M; ++c) {
+    T acc = sol[c][0] * rhs[0];
+GRID_ROLLED
+    for (int s = 1; s < FF_K3; ++s) acc += sol[c][s] * rhs[s];
+    y[c] = sol[c][FF_K3] + acc;
+  }
+  store_rows<T, 6>(y, B, b, dvb_out);
+  store_rows<T, N>(y + 6, B, b, qdd_out);
+  store_rows<T, FF_K3>(rhs, B, b, lam_out);
+}
+#endif  // GRID_FF_K > 0
+
+}  // namespace grid

@@ -33,10 +33,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..api import _check_impl
+from ..api import _check_impl, _cols, _unflat
 from ..models.robot import _origin_xform, _require_device
 from ..models.topology import Topology
 from ..models.urdf import RobotDescription, rpy_to_matrix, skew
+from .freeflyer import quat_exp_body, quat_mul, quat_to_rot
 from .kernels import _build
 from .kernels import multidof_fused as _mf
 from .kernels import multidof_staged as _ms
@@ -134,12 +135,13 @@ def _slices(joint_types):
 
 
 def multidof_model_from_description(desc: RobotDescription,
-                                    dtype=torch.float32,
+                                    dtype=torch.float64,
                                     device="cuda") -> MultiDofModel:
     """The model of a URDF description with any mix of floating (7, 6
     coordinate slots), spherical (4, 3) and single-dof (1, 1) joints; the
     same float64 constants as the JAX package's
-    ``multidof_model_from_description``."""
+    ``multidof_model_from_description``, and its default dtype (float64:
+    pass ``dtype=torch.float32`` for the card's fast path)."""
     n = desc.n
     XT = np.zeros((n, 6, 6))
     S = np.zeros((n, 6, 6))
@@ -203,35 +205,6 @@ def neutral_q(model: MultiDofModel) -> torch.Tensor:
     return torch.as_tensor(q, dtype=model.dtype, device=model.device)
 
 
-# ------------------------------------------------------------ quaternions
-def _quat_to_rot(quat):
-    """(..., 4) unit quaternions (w, x, y, z) → (..., 3, 3), parent ← child."""
-    w, x, y, z = quat.unbind(-1)
-    return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
-                     2 * (x * z + w * y)], -1),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
-                     2 * (y * z - w * x)], -1),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
-                     1 - 2 * (x * x + y * y)], -1),
-    ], -2)
-
-
-def _quat_mul(a, b):
-    aw, av = a[..., :1], a[..., 1:]
-    bw, bv = b[..., :1], b[..., 1:]
-    return torch.cat([aw * bw - (av * bv).sum(-1, keepdim=True),
-                      aw * bv + bw * av + torch.linalg.cross(av, bv)], -1)
-
-
-def _quat_exp_body(omega_dt):
-    """exp(½·ω̂·|ω|dt) as a unit quaternion, (..., 3) → (..., 4); safe at
-    ω → 0."""
-    half = 0.5 * omega_dt
-    ang = torch.sqrt((half * half).sum(-1, keepdim=True) + 1e-30)
-    return torch.cat([torch.cos(ang), torch.sin(ang) / ang * half], -1)
-
-
 def md_tangent_apply(model: MultiDofModel, q, dq_tangent):
     """Retract tangent steps onto the configuration manifold, batched:
     q (..., nq), δ (..., nv) → (..., nq). Quaternion joints advance by
@@ -245,11 +218,11 @@ def md_tangent_apply(model: MultiDofModel, q, dq_tangent):
         d = dq_tangent[..., sv:sv + wv]
         if t in ("floating", "spherical"):
             quat = q[..., s:s + 4]
-            new = _quat_mul(quat, _quat_exp_body(d[..., :3]))
+            new = quat_mul(quat, quat_exp_body(d[..., :3]))
             parts.append(new / torch.linalg.vector_norm(new, dim=-1,
                                                         keepdim=True))
             if t == "floating":
-                rot = _quat_to_rot(quat)
+                rot = quat_to_rot(quat)
                 parts.append(q[..., s + 4:s + 7]
                              + (rot @ d[..., 3:, None])[..., 0])
         else:
@@ -275,16 +248,6 @@ def _check_md_states(model, states, names):
         raise ValueError(
             "state batch shapes disagree: "
             + ", ".join(f"{nm}={tuple(s.shape)}" for nm, s in named))
-
-
-def _cols(x):
-    """(..., k) batch first → (k, B) batch last, contiguous."""
-    return None if x is None else x.reshape(-1, x.shape[-1]).T.contiguous()
-
-
-def _unflat(out, batch_shape):
-    out = out.movedim(-1, 0).contiguous()
-    return out.reshape(batch_shape + tuple(out.shape[1:]))
 
 
 def md_inverse_dynamics_batched(model: MultiDofModel, q, qd, qdd=None,

@@ -163,10 +163,29 @@ def test_unported_options_raise():
         gt.forward_dynamics_gradient(m, q, q, q, impl="pallas")
 
 
+def test_unported_messages_name_roadmap_items_by_title():
+    """The "not ported yet" errors name their ROADMAP items by title, which
+    a renumbering of the queues leaves as it is."""
+    m = _tmodel("dpend")
+    q = torch.zeros((3, 2), dtype=torch.float64)
+    tier = "ROADMAP Queue 1, 'The per-state tier and differentiability'"
+    for call in (lambda: gt.forward_dynamics(m, q, q, q, impl="vmap"),
+                 lambda: gt.inverse_dynamics(m, q, q, q,
+                                             f_ext=torch.zeros((3, 2, 6)))):
+        with pytest.raises(NotImplementedError) as e:
+            call()
+        assert tier in str(e.value)
+    with pytest.raises(NotImplementedError) as e:
+        gt.direct_minv(m, q, dense=False)
+    assert ("ROADMAP Queue 1, 'The rest of the first-order API contract'"
+            in str(e.value))
+
+
 PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
                 "ops.kernels.so_fused", "ops.kernels.so_staged",
                 "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
+                "ops.freeflyer", "ops.contact",
                 "ops.kernels.multidof_fused", "ops.kernels.multidof_staged",
                 "models.robot", "utils.golden")
 
@@ -175,8 +194,9 @@ def test_port_imports_no_jax():
     """The port runs in a process where importing jax fails: every module,
     the single-kernel families on iiwa-14 and the staged ones on Atlas, the
     three second-order entries (on the double pendulum, to stay quick), the
-    four multi-dof entries (on the ball arm) and the two multi-dof
-    gradients of free Atlas (the staged multi-dof pipeline)."""
+    four multi-dof entries (on the ball arm), the two multi-dof
+    gradients of free Atlas (the staged multi-dof pipeline) and the
+    free-flyer FD and stance FD (on the 3-link chain)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -221,6 +241,21 @@ def test_port_imports_no_jax():
         "outs = (*gt.md_id_grad_batched(m, q, v, v),\n"
         "        *gt.md_forward_dynamics_gradient_batched(m, q, v, v))\n"
         "assert [tuple(o.shape) for o in outs] == [(2, 34, 34)] * 5\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
+        "from gridcodegenerator_tpu_torch.ops import contact, freeflyer\n"
+        "m = freeflyer.free_flyer_model(gt.parse_urdf(zoo.serial_chain(3)), "
+        "device='cpu')\n"
+        "quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2, dtype=torch.float64)\n"
+        "q = torch.full((2, 3), 0.2, dtype=torch.float64)\n"
+        "vb = torch.full((2, 6), 0.1, dtype=torch.float64)\n"
+        "pos = torch.zeros((2, 3), dtype=torch.float64)\n"
+        "outs = (*freeflyer.fb_forward_dynamics_batched(m, quat, q, vb, q, q),\n"
+        "        *freeflyer.fb_forward_dynamics_batched(m, quat, q, vb, q, q, "
+        "impl='chol'),\n"
+        "        *gt.fb_constrained_fd_batched(m, quat, pos, q, vb, q, q, (2,), "
+        "[[0.1, 0.0, 0.0]]))\n"
+        "assert [tuple(o.shape) for o in outs] == [(2, 6), (2, 3)] * 3 + "
+        "[(2, 3)]\n"
         "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"

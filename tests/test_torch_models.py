@@ -8,9 +8,13 @@ import torch
 import gridcodegenerator_tpu as g
 import gridcodegenerator_tpu_torch as gt
 from conftest import ROBOTS, get_setup
+from gridcodegenerator_tpu.models import urdf as jurdf
 from gridcodegenerator_tpu.models import zoo as jzoo
+from gridcodegenerator_tpu_torch.models import urdf as turdf
 from gridcodegenerator_tpu_torch.models import zoo as tzoo
 from gridcodegenerator_tpu_torch.models.robot import MODEL_FIELDS
+from gridcodegenerator_tpu_torch.ops import freeflyer as tff
+from gridcodegenerator_tpu_torch.ops.kernels import _build
 
 torch.set_num_threads(1)
 
@@ -30,6 +34,8 @@ FIXTURES = {
     "free_iiwa14": lambda z: z.with_free_joint(z.iiwa14(damping=0.1)),
     "free_atlas": lambda z: z.with_free_joint(z.atlas()),
     "expand_spherical": lambda z: z.expand_spherical(z.ball_arm(damping=0.1)),
+    "floating_base_hyq": lambda z: z.with_floating_base(z.hyq(damping=0.2)),
+    "floating_base_atlas": lambda z: z.with_floating_base(z.atlas()),
 }
 
 
@@ -128,6 +134,68 @@ def test_default_device_is_the_card(build):
 
 
 def test_accurate_trig_not_ported():
-    with pytest.raises(NotImplementedError, match="accurate_trig"):
+    with pytest.raises(NotImplementedError,
+                       match="accurate_trig.*ROADMAP Queue 1, 'The per-state "
+                             "tier and differentiability'"):
         gt.robot_model_from_description(gt.parse_urdf(ROBOTS["iiwa14"]),
                                         accurate_trig=True)
+
+
+def test_multidof_description_error_matches_jax():
+    """A description with ball or free joints is refused with the JAX
+    package's message, which names the multi-dof constructor."""
+    urdf = lambda z: z.with_free_joint(z.iiwa14())
+    with pytest.raises(ValueError) as ref:
+        g.robot_model_from_description(g.parse_urdf(urdf(jzoo)))
+    with pytest.raises(ValueError) as got:
+        gt.robot_model_from_description(gt.parse_urdf(urdf(tzoo)),
+                                        device="cpu")
+    assert str(got.value) == str(ref.value)
+    assert "multidof_model_from_description" in str(got.value)
+
+
+@pytest.mark.parametrize("name", ["free_hyq", "free_chain3"])
+def test_demote_floating_root_identical(name):
+    """The MJCF-style free root demoted to a free-flyer arm: every field
+    equal to the JAX package's demotion."""
+    urdf = {"free_hyq": lambda z: z.with_free_joint(z.hyq(damping=0.2)),
+            "free_chain3": lambda z: z.with_free_joint(
+                z.serial_chain(3, damping=0.1))}[name]
+    ref = jurdf.demote_floating_root(g.parse_urdf(urdf(jzoo)))
+    got = turdf.demote_floating_root(gt.parse_urdf(urdf(tzoo)))
+    assert got.name == ref.name and got.joint_types == ref.joint_types
+    assert got.topology.parents == ref.topology.parents
+    assert got.topology.joint_names == ref.topology.joint_names
+    assert got.topology.link_names == ref.topology.link_names
+    assert got.mimic == ref.mimic
+    for field in ("origin_xyz", "origin_rpy", "axis", "damping", "inertia",
+                  "base_inertia", "q_lower", "q_upper", "effort", "velocity",
+                  "armature", "frictionloss"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(ref, field), err_msg=field)
+    with pytest.raises(ValueError, match="not a floating root") as e:
+        turdf.demote_floating_root(gt.parse_urdf(tzoo.hyq()))
+    with pytest.raises(ValueError) as je:
+        jurdf.demote_floating_root(g.parse_urdf(jzoo.hyq()))
+    assert str(e.value) == str(je.value)
+
+
+def test_ff_build_keys_carry_the_links():
+    """A free flyer's libraries: the arm's key tagged "ff", one without
+    contacts (ABA and the mass-matrix FD) and one per set of contact links
+    (the stance kernel), each with its own macros and digest."""
+    m = tff.free_flyer_model(gt.parse_urdf(tzoo.hyq()), device="cpu")
+    arm_key = _build.topology_key(m.arm)
+    keys = {links: _build.topology_key(m, links)
+            for links in ((), (2, 5, 8, 11), (2, 5))}
+    for links, key in keys.items():
+        assert key == ("ff",) + arm_key + (links,)
+        assert _build._units(key) == ("ff.cu",)
+    assert _build.topology_key(m) == keys[()]
+    macros = {links: _build._macros(key) for links, key in keys.items()}
+    assert "-DGRID_FF_K=0" in macros[()]
+    assert not any(x.startswith("-DGRID_FF_LINKS") for x in macros[()])
+    assert "-DGRID_FF_K=4" in macros[(2, 5, 8, 11)]
+    assert "-DGRID_FF_LINKS=G(2)G(5)G(8)G(11)" in macros[(2, 5, 8, 11)]
+    digests = {_build._digest(k) for k in keys.values()}
+    assert len(digests) == 3 and _build._digest(arm_key) not in digests

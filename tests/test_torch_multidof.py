@@ -168,6 +168,20 @@ def test_md_model_default_device_and_packed_layout():
     assert m.to(dtype=torch.float32).packed.dtype == torch.float32
 
 
+def test_md_default_dtype_is_float64():
+    """The JAX package's default (float64): float64 states run on a model
+    built without a dtype, and float32 is asked for by name."""
+    desc = gt.parse_urdf(tzoo.ball_arm(damping=0.1))
+    m = gt.multidof_model_from_description(desc, device="cpu")
+    assert m.dtype == torch.float64 and m.packed.dtype == torch.float64
+    assert gt.multidof_model_from_description(
+        desc, dtype=torch.float32, device="cpu").dtype == torch.float32
+    _, tm, s = _case("ball")
+    q, qd, u = (torch.from_numpy(x) for x in s)
+    assert_close(gt.md_forward_dynamics_batched(m, q, qd, u),
+                 _jax_ref("ball", "aba")[0])
+
+
 @pytest.mark.parametrize("name", list(ROBOTS))
 def test_md_tangent_apply_matches_jax(name):
     jm, tm, (q, _, _) = _case(name)
