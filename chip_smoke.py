@@ -29,10 +29,13 @@ kernels/csrc`` and runs, on ``cuda:0``:
    multi-dof kernels (K1md with and without q̈, K2md with and without the
    bias force and q̈, K5md with and without the finish) and the CRBA FD on
    free Atlas, and forced on free iiwa-14 and the ball arm at column blocks
-   that cut a free or ball joint; the three free-flyer kernels of ff.cu
-   (ABA, the mass-matrix FD, the stance FD plain and with Baumgarte,
-   anchors and a Delassus ridge) on free-flyer HyQ, Atlas and the chain,
-   and in float64 with armature;
+   that cut a free or ball joint; the free-flyer kernels of ff.cu (ABA,
+   the mass-matrix FD, the stance FD plain and with Baumgarte, anchors and
+   a Delassus ridge, the ground step flat and on a 121² and a 151² height
+   grid, with and without a push, a soft contact and restitution, μ per
+   environment and foot) on free-flyer HyQ, Atlas and the chain, and in
+   float64 with armature; the step's float32 checks leave out, and count,
+   the states with a foot within 1e-5 of a contact switch;
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -75,7 +78,18 @@ F. the free-flyer paths at B = 2¹⁸, float32, on HyQ (four feet) and Atlas
    then the three kernels' times and bounds at both robots, the API times,
    the batched ``torch.linalg.cholesky`` + ``cholesky_solve`` pair on the
    same mass matrices, and profiler breakdowns of HyQ's stance and Atlas's
-   ABA (in a child process).
+   ABA (in a child process);
+S. the frictional ground step at B = 2¹⁸, float32, through
+   ``fb_step_ground_batched`` (benchmarks/bench_contact.py's states, μ 0.8,
+   30 sweeps): HyQ's four feet on the flat ground and on the bench's
+   121² height grid, Atlas's two feet on the flat ground — one launch a
+   call, a 256-state head against the plain version, the share of active
+   feet; HyQ's 16-step rollout at 2¹⁶ (``fb_simulate_ground_batched``, one
+   launch a step) against 16 single API steps, bit for bit; float64
+   invariants on 4096 states of each free flyer (a unit quaternion, pn ≥ 0
+   and 0 where inactive, the friction cone, a rollout equal to its steps);
+   then the step kernels' times and bounds, API times and env-steps/s, and
+   profiler breakdowns of HyQ's two steps (in a child process).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -84,6 +98,7 @@ kernels' JSON record; the last is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -111,6 +126,7 @@ from gridcodegenerator_tpu_torch.ops.kernels import multidof_fused as mdf
 from gridcodegenerator_tpu_torch.ops.kernels import multidof_staged as mds
 from gridcodegenerator_tpu_torch.ops import contact as tct
 from gridcodegenerator_tpu_torch.ops import freeflyer as tff
+from gridcodegenerator_tpu_torch.ops import terrain as ttr
 from gridcodegenerator_tpu_torch.ops.kernels import contact_fused as cff
 
 SEED = 0
@@ -232,6 +248,44 @@ FF_PHYS_STATES = 64
 FF_ABA_CHOL_TOL = 1e-11  # ABA vs the mass-matrix Cholesky, float64
 FF_CON_TOL = 1e-9        # J·y + J̇v − a*, relative (+ reg·|λ| with a ridge)
 FF_DYN_TOL = 1e-10       # M·y − [−f_b; τ − c_j] − Jᵀλ, relative
+# the ground step (benchmarks/bench_contact.py's shape): dt 1e-3, μ 0.8, 30
+# PGS sweeps; erp 0.2 and margin 1e-3 are the defaults
+STEP_DT = 1e-3
+STEP_MU = 0.8
+STEP_ITERS = 30
+STEP_MARGIN = 1e-3
+# height grids: bench_contact.py's bumpy ground (121 × 121 nodes) and one of
+# 151 × 151 past the JAX package's VMEM gate (tests/test_contact_fused.py)
+STEP_GRIDS = {"121": dict(amp=0.04, wavelength=1.1, extent=6.0, cell=0.1),
+              "151": dict(amp=0.04, wavelength=1.2, extent=6.0, cell=0.08)}
+# phase 1's step cases: name → (grid or None, with the options: a push of ±
+# STEP_PUSH, a soft contact (soft_contact_params(kp, kd, dt)) and
+# restitution); μ is drawn per environment and foot
+STEP_CASES = {"step_ground": (None, False),
+              "step_ground_soft": (None, True),
+              "step_ground_terrain": ("121", False),
+              "step_ground_terrain_151_soft": ("151", True)}
+STEP_PUSH = 20.0
+STEP_SOFT = (5e4, 2e3)
+STEP_RESTITUTION = 0.3
+# float32 checks leave out the states where a foot's float64 gap is within
+# this of the margin, or the foot within this many cells of a cell edge:
+# a switch there moves the state's impulses by O(1) in either version
+STEP_SWITCH = 1e-5
+# phase S: cell → (robot, grid or None). HyQ in bench_contact.py's states
+# (its feet 0.15 m into the ground: all four active); Atlas at the height
+# that puts its feet 1 cm into the ground at the zero posture
+STEP_PATHS = {"hyq": ("hyq", None), "hyq_terrain": ("hyq", "121"),
+              "atlas": ("atlas", None)}
+STEP_DEPTH = {"hyq": None, "atlas": 0.01}
+STEP_POSTURE_SPREAD = 0.05
+ROLLOUT_T = 16
+ROLLOUT_B = 1 << 16      # bench_contact.py's rollout shape
+STEP_INV_STATES = 4096   # the float64 invariants, each robot
+STEP_INV_T = 4
+QUAT_TOL = 1e-12         # | ‖quat⁺‖ − 1 |
+CONE_TOL = 1e-9          # ‖pt‖ ≤ μ·pn + CONE_TOL
+STEP_OPS_STATES = 16     # the bound's operations, averaged over these
 
 
 @contextmanager
@@ -605,6 +659,87 @@ def ff_args(s, with_pos):
     return tuple(s) if with_pos else (s[0], *s[2:])
 
 
+@functools.lru_cache(maxsize=None)
+def step_terrain(grid, dtype, device="cuda"):
+    """A height grid of STEP_GRIDS (None: the flat ground), made once."""
+    return (None if grid is None
+            else ttr.bumpy_terrain(**STEP_GRIDS[grid], dtype=dtype,
+                                   device=device))
+
+
+def step_fns(label, grid, opts, dtype, device="cuda"):
+    """A ground step's kernel and its plain version, each f(m, quat, pos,
+    q, vb, qd, tau, mu[, push]) → (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, p (3k, B)),
+    batch last: the robot's feet on the flat ground or the grid ``grid``,
+    and with ``opts`` a soft contact (STEP_SOFT) and restitution."""
+    links, off, _ = ff_geometry(label)
+    kw = dict(iters=STEP_ITERS, margin=STEP_MARGIN)
+    if opts:
+        erp, soft = tct.soft_contact_params(*STEP_SOFT, STEP_DT)
+        kw.update(erp=float(erp), softness=float(soft),
+                  restitution=STEP_RESTITUTION)
+    terr = step_terrain(grid, dtype, device)
+
+    def kern(m, *s):
+        push = s[7] if len(s) > 7 else None
+        if terr is None:
+            return cff.step_ground_fused(m, *s[:7], STEP_DT, links, off,
+                                         push=push, **kw)
+        return cff.step_ground_terrain_fused(m, *s[:7], STEP_DT, links, off,
+                                             terr, push=push, **kw)
+
+    def plain(m, *s):
+        return cff.step_ground_plain(m, *s[:7], STEP_DT, links, off,
+                                     push=s[7] if len(s) > 7 else None,
+                                     terrain=terr, **kw)
+    return kern, plain
+
+
+def step_inputs(m, B, gen, label, opts):
+    """A step's μ (k, B), per environment and foot in [0.3, 1.0], and with
+    ``opts`` a base push (6, B) of ± STEP_PUSH."""
+    k = len(FF_ROBOTS[label][1])
+    mu = torch.rand((k, B), generator=gen, device="cuda", dtype=m.dtype)
+    out = [mu * 0.7 + 0.3]
+    if opts:
+        out.append(torch.rand((6, B), generator=gen, device="cuda",
+                              dtype=m.dtype) * (2 * STEP_PUSH) - STEP_PUSH)
+    return out
+
+
+def step_feet(m, quat, pos, q, label, grid):
+    """The feet of batch-last states in float64: their gaps (k, B) — along
+    the surface normal on the grid ``grid`` — and their world positions
+    (k (3, B))."""
+    m64 = m.to(dtype=torch.float64)
+    quat, pos, q = (x.double() for x in (quat, pos, q))
+    links, off, _ = ff_geometry(label)
+    X = blops.joint_transforms_bl(
+        m64.arm, q, joints=cff._support(m64.arm.topology, links))
+    R = cff._quat_rot_s(quat)
+    J, xs = cff._ff_contact_rows_s(m64, X, R, links, off)
+    terr = step_terrain(grid, m.dtype, q.device.type)
+    if terr is not None:
+        terr = ttr.placed(terr, q.device, torch.float64)[0]
+    gaps, _ = cff._ground_rows(R, pos, J, xs, 0.0, STEP_MARGIN, terr)
+    return torch.cat(gaps), [pos + cff._mv3s(R, x) for x in xs]
+
+
+def step_switches(m, s, label, grid):
+    """(keep (B,), gaps (k, B)): ``keep`` marks the states none of whose
+    feet lies within STEP_SWITCH of a switch — its float64 gap of the
+    margin, or (on a grid) its position of a cell edge, in cells."""
+    gaps, feet = step_feet(m, *s[:3], label, grid)
+    near = (gaps - STEP_MARGIN).abs().lt(STEP_SWITCH).any(0)
+    terr = step_terrain(grid, m.dtype, s[0].device.type)
+    if terr is not None:
+        for p_w in feet:
+            u, v, _, _ = ttr.cell_index(terr, p_w[0], p_w[1])
+            near |= torch.minimum((u - u.round()).abs(),
+                                  (v - v.round()).abs()) < STEP_SWITCH
+    return ~near, gaps
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -655,13 +790,15 @@ def phase0_toolchain():
 
 _PTXAS_NAME = re.compile(
     r"(md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf|md_minv"
-    r"|md_grad_cols|fb_aba|fb_fd|stance_fd|fd_grad|id_grad|minv_dense|minv"
+    r"|md_grad_cols|fb_aba|fb_fd|stance_fd|step_ground|fd_grad|id_grad"
+    r"|minv_dense|minv"
     r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
     r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
                  "md_rnea": "qdd", "md_id_grad": "qdd", "md_vaf": "qdd",
-                 "md_minv": "rhs", "md_grad_cols": "finish"}
+                 "md_minv": "rhs", "md_grad_cols": "finish",
+                 "step_ground": "terrain"}
 
 
 def ptxas_report(log_text):
@@ -733,12 +870,14 @@ def build_all(models, staged=(), links=None):
 
 
 # ---------------------------------------------------------------- phase 1
-def check_against_plain(tag, got, plain, m, args):
+def check_against_plain(tag, got, plain, m, args, keep=None):
     """Hold a kernel's output to its plain version on the same inputs: in
     float64 directly; in float32 against the plain version run in float64
     on the same (upcast) inputs, beside the plain float32 version's own
-    error against that reference. Returns (max abs error, normwise
-    relative error)."""
+    error against that reference — on the states ``keep`` (a (B,) mask)
+    only, where it is given: a ground step's states whose float64 gap or
+    cell position lies within rounding of a switch (step_exclusions).
+    Returns (max abs error, normwise relative error)."""
     if m.dtype == torch.float64:
         ref = plain(m, *args)
         tol = REL_TOL[m.dtype]
@@ -746,6 +885,9 @@ def check_against_plain(tag, got, plain, m, args):
     else:
         ref = plain(m.to(dtype=torch.float64), *(x.double() for x in args))
         plain32 = plain(m, *args)
+        if keep is not None:
+            got, ref, plain32 = (tuple(o[..., keep] for o in _as_tuple(x))
+                                 for x in (got, ref, plain32))
         p_rel, p_st, _ = compare(plain32, ref)
         k_rel, k_st, _ = compare(got, plain32)
         del plain32
@@ -753,6 +895,9 @@ def check_against_plain(tag, got, plain, m, args):
         extra = (f"; plain f32 vs f64 plain: rel {p_rel:.3e} (per-state "
                  f"{p_st:.3e}); kernel vs plain f32: rel {k_rel:.3e} "
                  f"(per-state {k_st:.3e})")
+        if keep is not None:
+            extra += (f"; {int((~keep).sum())} of {keep.numel()} states "
+                      f"left out near a switch")
     rel, st, ab = compare(got, ref)
     ok = rel <= tol
     log(f"{tag}: rel {rel:.3e} (per-state {st:.3e}, abs {ab:.3e}) tol "
@@ -762,7 +907,7 @@ def check_against_plain(tag, got, plain, m, args):
     return ab, rel
 
 
-def run_pair(tag, key, kern, plain, m, args):
+def run_pair(tag, key, kern, plain, m, args, keep=None):
     """Launch a kernel once, check that it launched and is finite, and
     hold it to its plain version; returns (max abs error, relative)."""
     before = _launch.LAUNCHES[key]
@@ -770,7 +915,7 @@ def run_pair(tag, key, kern, plain, m, args):
     torch.cuda.synchronize()
     expect_launch(key, before, tag)
     check_finite(tag, got)
-    return check_against_plain(tag, got, plain, m, args)
+    return check_against_plain(tag, got, plain, m, args, keep)
 
 
 def phase1_second_order(label, m, q, qd, u, gen):
@@ -878,10 +1023,13 @@ def phase1_md_staged(gen):
 
 
 def phase1_free_flyer(gen):
-    """The three kernels of ff.cu (the stance twice: plain, and with
-    Baumgarte, anchors and a ridge) against their plain versions at
-    B = 1000 on free-flyer HyQ, Atlas and the 3-link chain: float64 and
-    float32, and float64 with armature."""
+    """The kernels of ff.cu — ABA, the mass-matrix FD, the stance (plain,
+    and with Baumgarte, anchors and a ridge) and the ground step (STEP_CASES:
+    flat and on both grids, with and without a push, a soft contact and
+    restitution, μ per environment and foot) — against their plain
+    versions at B = 1000 on free-flyer HyQ, Atlas and the 3-link chain:
+    float64 and float32 (the step's float32 away from a switch), and
+    float64 with armature."""
     for label in FF_ROBOTS:
         for dtype, arm in ((torch.float64, None), (torch.float32, None),
                            (torch.float64, FF_ARMATURE)):
@@ -893,6 +1041,15 @@ def phase1_free_flyer(gen):
             for name, (key, kern, plain, wp) in ff_pairs(label).items():
                 run_pair(f"{tag} {name}", key, kern, plain, m,
                          ff_args(s, wp))
+            for name, (grid, opts) in STEP_CASES.items():
+                kern, plain = step_fns(label, grid, opts, dtype)
+                keep = (None if dtype == torch.float64
+                        else step_switches(m, s, label, grid)[0])
+                run_pair(f"{tag} {name}",
+                         "step_ground" if grid is None
+                         else "step_ground_terrain", kern, plain, m,
+                         (*s, *step_inputs(m, PHASE1_B, gen, label, opts)),
+                         keep)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1429,17 +1586,19 @@ class OpCount(TorchDispatchMode):
         return out
 
 
-def ops_per_state(plain, m, make_args):
-    """Operations a state: the count at B = 2 less the count at B = 1 (the
-    constant-only work drops out), on CPU tensors of random states."""
+def ops_per_state(plain, m, make_args, states=1):
+    """Operations a state: the count at B = 1 + ``states`` less the count
+    at B = 1 (the constant-only work drops out), over ``states``, on CPU
+    tensors of random states — more than one where the work depends on
+    the state (a ground step's inactive contacts)."""
     mc = m.to(device="cpu", dtype=torch.float64)
     counts = []
-    for B in (1, 2):
+    for B in (1, 1 + states):
         args = make_args(mc, B)
         with OpCount() as c:
             plain(mc, *args)
         counts.append(c.ops)
-    return counts[1] - counts[0]
+    return (counts[1] - counts[0]) / states
 
 
 def nbytes(*ts):
@@ -1472,28 +1631,32 @@ def _staged_cpu_args(name):
 
 
 def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit,
-               repeat=None):
+               repeat=None, states=1, const_bytes=0):
     """Time a kernel and its plain version (plain, kernel, kernel, plain in
     one call), and its bound at these inputs: the plain version's
-    operations, less those of ``repeat`` — work the plain version does a
-    second time (a forward-mode pass re-evaluates its primal), which the
-    least work does once."""
+    operations (a state's, averaged over ``states``), less those of
+    ``repeat`` — work the plain version does a second time (a forward-mode
+    pass re-evaluates its primal), which the least work does once; bytes:
+    the inputs and outputs, and ``const_bytes`` read once (a height
+    grid)."""
     p1, n1 = time_plain_ms(plain, (m, *args))
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
     p2, n2 = time_plain_ms(plain, (m, *args))
     outs = _as_tuple(kern(m, *args))
-    total = ops_per_state(plain, m, make_cpu_args)
-    again = 0 if repeat is None else ops_per_state(repeat, m, make_cpu_args)
+    total = ops_per_state(plain, m, make_cpu_args, states)
+    again = (0 if repeat is None
+             else ops_per_state(repeat, m, make_cpu_args, states))
     ops = (total - again) * args[0].shape[-1]
-    b_ms, b_by = bound(ops, nbytes(*args, *outs))
+    nb = nbytes(*args, *outs) + const_bytes
+    b_ms, b_by = bound(ops, nb)
     k, p = min(k1, k2), min(p1, p2)
     log(f"phase3 {name} {label} f32 B={args[0].shape[-1]}: kernel "
         f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (median of "
         f"{TIMED_CALLS} / {n1},{n2}); bound {b_ms:.3f} ms by {b_by} "
-        f"({ops:.3e} ops = ({total} − {again}) a state, "
-        f"{nbytes(*args, *outs):.3e} B; roofline share {b_ms / k:.1%}); "
-        f"card {name_limit}")
+        f"({ops:.3e} ops = ({total:g} − {again:g}) a state, {nb:.3e} B, "
+        f"{nb / args[0].shape[-1]:.0f} B a state; roofline share "
+        f"{b_ms / k:.1%}); card {name_limit}")
     return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1640,7 +1803,8 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
     log(f"phase3 {name} {label} f32 B={B}: kernel {k1:.3f}/{k2:.3f} ms "
         f"(median of {TIMED_CALLS}), plain {p:.3f} ms (scaled ×"
         f"{PLAIN_SO_DIV} from B={Bp}, median of {calls}); bound {b_ms:.3f} ms"
-        f" by {b_by} ({ops:.3e} ops = ({total} − ({dirs * m.n} − 1)·{once}) "
+        f" by {b_by} ({ops:.3e} ops = ({total:g} − ({dirs * m.n} − 1)·"
+        f"{once:g}) "
         f"a state, {nbytes(*args, *outs):.3e} B; roofline share "
         f"{b_ms / k:.1%}); card {name_limit}")
     return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by)
@@ -2195,6 +2359,310 @@ def ff_profile_child():
                           f"fresh process)", name_limit)
 
 
+# ---------------------------------------------------------------- phase S
+@functools.lru_cache(maxsize=None)
+def stance_height(label):
+    """The base height of phase S's states: the bench's 0.5 m where
+    STEP_DEPTH is None (HyQ), else the height that puts the lowest foot
+    STEP_DEPTH into the ground at the identity attitude and the zero
+    posture."""
+    depth = STEP_DEPTH[label]
+    if depth is None:
+        return 0.5
+    m = ff_model(label, torch.float64)
+    one = torch.ones((1, 1), dtype=torch.float64, device="cuda")
+    quat = torch.cat([one, 0 * one, 0 * one, 0 * one])
+    q = torch.zeros((m.n, 1), dtype=torch.float64, device="cuda")
+    gaps, _ = step_feet(m, quat, 0 * quat[:3], q, label, None)
+    return float(-gaps.min()) - depth
+
+
+def step_states(m, B, gen, label, device="cuda"):
+    """bench_contact.py's stepper states, batch first: the identity
+    attitude, pos (0, 0, stance_height), the joints at the robot's posture
+    ± 0.05, vb and q̇ ± 0.3, τ ± 10 → ((quat, pos, q, vb, qd), tau)."""
+    _, _, _, posture, _ = FF_ROBOTS[label]
+
+    def uni(d, r):
+        return (torch.rand((B, d), generator=gen, device=device,
+                           dtype=m.dtype) * (2 * r) - r)
+    quat = torch.zeros((B, 4), dtype=m.dtype, device=device)
+    quat[:, 0] = 1.0
+    pos = torch.zeros((B, 3), dtype=m.dtype, device=device)
+    pos[:, 2] = stance_height(label)
+    mean = torch.tensor(posture, dtype=m.dtype, device=device).repeat(
+        m.n // len(posture))
+    q = mean + uni(m.n, STEP_POSTURE_SPREAD)
+    return (quat, pos, q, uni(6, 0.3), uni(m.n, 0.3)), uni(m.n, 10.0)
+
+
+def step_api(label, grid):
+    """Phase S's call of a cell: the public entry on batch-first states,
+    μ = 0.8, 30 sweeps (bench_contact.py), on the flat ground or a grid."""
+    links, off, _ = ff_geometry(label)
+    terr = step_terrain(grid, torch.float32)
+
+    def fb_step_ground_batched(m, state, tau):
+        return tct.fb_step_ground_batched(m, state, tau, STEP_DT, links, off,
+                                          mu=STEP_MU, iters=STEP_ITERS,
+                                          terrain=terr)
+    return fb_step_ground_batched
+
+
+def hyq_rollout(state, tau):
+    """HyQ's rollout (bench_contact.py's): the call, the first ROLLOUT_B
+    states and their τ held over ROLLOUT_T steps."""
+    links, off, _ = ff_geometry("hyq")
+
+    def fb_simulate_ground_batched(m, state, taus):
+        return tct.fb_simulate_ground_batched(m, state, taus, STEP_DT, links,
+                                              off, mu=STEP_MU,
+                                              iters=STEP_ITERS)
+    return (fb_simulate_ground_batched, tuple(x[:ROLLOUT_B] for x in state),
+            tau[:ROLLOUT_B][None].expand(ROLLOUT_T, -1, -1))
+
+
+def step_cols(m, state, tau, label, k=None):
+    """The first ``k`` of batch-first states as the step kernel's
+    batch-last arguments, μ = STEP_MU."""
+    cols = [x[:k].T.contiguous() for x in (*state, tau)]
+    mu = torch.full((len(FF_ROBOTS[label][1]), cols[0].shape[-1]), STEP_MU,
+                    dtype=m.dtype, device=cols[0].device)
+    return cols + [mu]
+
+
+def step_frame(m, label):
+    """ptxas's line for the float32 step kernels of ``label``'s feet."""
+    lib = _build.library(m, None, FF_ROBOTS[label][1])
+    return [ln.strip() for ln in ptxas_report(lib.logs["ff.cu"])
+            if "step_ground<float" in ln]
+
+
+def step_invariants(gen):
+    """Float64 checks on STEP_INV_STATES random states of each free flyer
+    (phase 1's, random attitudes: feet in and out of contact), flat and on
+    the 121² grid, that do not go through the plain version: a unit
+    quaternion, pn ≥ 0 and 0 where a foot is inactive, ‖pt‖ ≤ μ·pn, and a
+    rollout of STEP_INV_T steps equal to as many single steps, bit for
+    bit."""
+    for label in FF_ROBOTS:
+        m = ff_model(label, torch.float64)
+        s = ff_states(m, STEP_INV_STATES, gen, label)
+        mu = step_inputs(m, STEP_INV_STATES, gen, label, False)[0]
+        links, off, _ = ff_geometry(label)
+        for grid in (None, "121"):
+            kern, _ = step_fns(label, grid, False, torch.float64)
+            out = kern(m, *s, mu)
+            _, gaps = step_switches(m, s, label, grid)
+            active = gaps < STEP_MARGIN
+            imp = out[5]
+            pn = imp[2::3]
+            pt = torch.sqrt(imp[0::3] ** 2 + imp[1::3] ** 2)
+            quat_err = float((torch.linalg.vector_norm(out[0], dim=0)
+                              - 1).abs().max())
+            cone = float((pt - mu * pn).max())
+            ok = (quat_err <= QUAT_TOL and float(pn.min()) >= 0.0
+                  and not bool(pn[~active].any()) and cone <= CONE_TOL)
+            tag = (f"phaseS invariants {label} {grid or 'flat'} (f64, "
+                   f"{STEP_INV_STATES} states, {float(active.double().mean()):.1%}"
+                   f" of feet active)")
+            log(f"{tag}: |‖quat⁺‖ − 1| {quat_err:.2e} (bound {QUAT_TOL:.0e}),"
+                f" min pn {float(pn.min()):.3e}, max pn where inactive "
+                f"{float(pn[~active].abs().max()) if (~active).any() else 0.0:.1e}"
+                f", max ‖pt‖ − μ·pn {cone:.3e} (bound {CONE_TOL:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{tag}: an invariant fails")
+            # a rollout against single steps, batch first
+            state = tuple(x.T for x in s[:5])
+            taus = torch.rand((STEP_INV_T,) + tuple(s[5].T.shape),
+                              generator=gen, device="cuda",
+                              dtype=m.dtype) * 20 - 10
+            terr = step_terrain(grid, torch.float64)
+            kw = dict(mu=mu.T, iters=STEP_ITERS, terrain=terr)
+            final, imps = tct.fb_simulate_ground_batched(
+                m, state, taus, STEP_DT, links, off, **kw)
+            same = True
+            for t in range(STEP_INV_T):
+                state, imp1 = tct.fb_step_ground_batched(
+                    m, state, taus[t], STEP_DT, links, off, **kw)
+                same &= torch.equal(imp1, imps[t])
+            same &= all(torch.equal(a, b) for a, b in zip(state, final))
+            log(f"{tag}: a {STEP_INV_T}-step rollout equals "
+                f"{STEP_INV_T} single steps bit for bit: {same}")
+            if not same:
+                raise RuntimeError(f"{tag}: the rollout differs from its "
+                                   f"steps")
+
+
+def phaseS_ground_step(gen):
+    """The frictional ground step through ``fb_step_ground_batched`` at
+    B = 2¹⁸, float32, in each cell of STEP_PATHS: the counts set to 0 just
+    before the call and read just after (exactly one launch of its
+    kernel), its peak memory, the outputs' shapes, a 256-state head of
+    each output against the plain version (the float32 rule, away from a
+    switch), the share of active feet; then HyQ's rollout of ROLLOUT_T
+    steps at ROLLOUT_B (``fb_simulate_ground_batched``, one launch a step)
+    against as many single API steps, bit for bit; then the float64
+    invariants (step_invariants)."""
+    launches, max_abs, models, states = {}, {}, {}, {}
+    for cell, (label, grid) in STEP_PATHS.items():
+        if label not in models:
+            models[label] = ff_model(label)
+            states[label] = step_states(models[label], MAIN_B, gen, label)
+        m, (state, tau) = models[label], states[label]
+        fn = step_api(label, grid)
+        key = "step_ground" if grid is None else "step_ground_terrain"
+        k = len(FF_ROBOTS[label][1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _launch.reset_launches()
+        t0 = time.perf_counter()
+        nxt, imp = fn(m, state, tau)
+        torch.cuda.synchronize()
+        got = dict(_launch.LAUNCHES)
+        made = {k_: v for k_, v in got.items() if v}
+        tag = f"phaseS {cell} (n={m.n}, {k} feet)"
+        log(f"{tag} B={MAIN_B} (first call): "
+            f"{time.perf_counter() - t0:.3f} s; launches {made}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+        if made != {key: 1}:
+            raise RuntimeError(f"{tag}: launched {made}, not {{{key}: 1}}")
+        launches[cell] = got
+        for o, shape in zip((*nxt, imp), [(MAIN_B, d) for d in
+                                          (4, 3, m.n, 6, m.n)]
+                            + [(MAIN_B, k, 3)]):
+            if o.device.type != "cuda" or tuple(o.shape) != shape:
+                raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+        check_finite(tag, (*nxt, imp))
+        cols = step_cols(m, state, tau, label, PARITY_STATES)
+        head = (*(o[:PARITY_STATES].T for o in nxt),
+                imp[:PARITY_STATES].reshape(PARITY_STATES, 3 * k).T)
+        keep, _ = step_switches(m, cols, label, grid)
+        _, plain = step_fns(label, grid, False, m.dtype)
+        max_abs[cell], _ = check_against_plain(
+            f"{tag} API vs plain ({PARITY_STATES} states)", head, plain, m,
+            cols, keep)
+        _, gaps = step_switches(m, step_cols(m, state, tau, label,
+                                             STEP_INV_STATES), label, grid)
+        log(f"{tag}: {float((gaps < STEP_MARGIN).double().mean()):.1%} of "
+            f"the feet active ({STEP_INV_STATES} states), "
+            f"{float((imp[..., 2] > 0).double().mean()):.1%} carrying a "
+            f"normal impulse (all states)")
+        del nxt, imp
+
+    # HyQ's rollout: one launch a step, equal to single API steps
+    m = models["hyq"]
+    roll, sub, taus = hyq_rollout(*states["hyq"])
+    torch.cuda.synchronize()
+    _launch.reset_launches()
+    t0 = time.perf_counter()
+    final, imps = roll(m, sub, taus)
+    torch.cuda.synchronize()
+    got = dict(_launch.LAUNCHES)
+    made = {k_: v for k_, v in got.items() if v}
+    tag = f"phaseS hyq rollout T={ROLLOUT_T} B={ROLLOUT_B}"
+    log(f"{tag} (first call): {time.perf_counter() - t0:.3f} s; launches "
+        f"{made}")
+    if made != {"step_ground": ROLLOUT_T}:
+        raise RuntimeError(f"{tag}: launched {made}")
+    launches["hyq_rollout"] = got
+    fn = step_api("hyq", None)
+    s, same = sub, True
+    for t in range(ROLLOUT_T):
+        s, imp = fn(m, s, taus[t])
+        same &= torch.equal(imp, imps[t])
+    same &= all(torch.equal(a, b) for a, b in zip(s, final))
+    log(f"{tag}: equals {ROLLOUT_T} single API steps bit for bit: {same}")
+    if not same:
+        raise RuntimeError(f"{tag}: the rollout differs from its steps")
+    del final, imps, s
+    step_invariants(gen)
+    return launches, max_abs, models, states
+
+
+# JSON name → phase-S cell: where each step kernel is timed
+STEP_TIMED = {"step_ground": "hyq", "step_ground_terrain": "hyq_terrain",
+              "step_ground[atlas]": "atlas"}
+
+
+def _step_cpu_states(label):
+    """make_args for ops_per_state of a step kernel: CPU states drawn as
+    phase S's, from SEED."""
+    def make(mc, B):
+        gen = torch.Generator().manual_seed(SEED)
+        state, tau = step_states(mc, B, gen, label, device="cpu")
+        return step_cols(mc, state, tau, label)
+    return make
+
+
+def phase3_ground_step(models, states):
+    """Times of the step kernels and their plain version at phase S's
+    shapes, their bounds (the operations averaged over STEP_OPS_STATES
+    states drawn like the timed ones, beside the share of active feet
+    there; bytes with the height grid read once), the API times and
+    env-steps/s, HyQ's rollout, the ptxas frames, and profiler breakdowns
+    of HyQ's two cells (in a child process). No PyTorch call computes a
+    PGS step: no library time."""
+    name_limit = card()
+    times = {}
+    for name, cell in STEP_TIMED.items():
+        label, grid = STEP_PATHS[cell]
+        m, (state, tau) = models[label], states[label]
+        kern, plain = step_fns(label, grid, False, m.dtype)
+        cols = step_cols(m, state, tau, label)
+        terr = step_terrain(grid, m.dtype)
+        make = _step_cpu_states(label)
+        mc = m.to(device="cpu", dtype=torch.float64)
+        _, gaps = step_switches(mc, make(mc, STEP_OPS_STATES), label, grid)
+        log(f"phase3 {name}: the bound's {STEP_OPS_STATES} CPU states have "
+            f"{float((gaps < STEP_MARGIN).double().mean()):.1%} of their feet"
+            f" active; {STEP_ITERS} sweeps")
+        times[name] = time_entry(
+            cell, name, kern, plain, m, cols, make, name_limit,
+            states=STEP_OPS_STATES,
+            const_bytes=0 if terr is None else nbytes(terr.heights))
+        api = time_ms(step_api(label, grid), (m, state, tau))
+        log(f"phase3 fb_step_ground_batched API {cell} B={MAIN_B}: "
+            f"{api:.3f} ms (median of {TIMED_CALLS}; {MAIN_B / api * 1e3:.3e}"
+            f" env-steps/s; kernel {times[name]['ms']:.3f} ms, 1 launch a "
+            f"call); frame {step_frame(m, label)}; card {name_limit}")
+        del cols
+    roll, sub, taus = hyq_rollout(*states["hyq"])
+    ms = time_ms(roll, (models["hyq"], sub, taus), calls=5)
+    log(f"phase3 fb_simulate_ground_batched API hyq T={ROLLOUT_T} "
+        f"B={ROLLOUT_B}: {ms:.3f} ms (median of 5; "
+        f"{ROLLOUT_T * ROLLOUT_B / ms * 1e3:.3e} env-steps/s); card "
+        f"{name_limit}")
+    step_profile()
+    return times
+
+
+def step_profile():
+    """Profiler breakdowns of HyQ's flat and heightfield steps at MAIN_B,
+    in a child process (see md_profile)."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--step-profile"],
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"profile child failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-3000:]}")
+
+
+def step_profile_child():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    name_limit = card()
+    m = ff_model("hyq")
+    state, tau = step_states(m, MAIN_B, gen, "hyq")
+    for cell in ("hyq", "hyq_terrain"):
+        fn = step_api(*STEP_PATHS[cell])
+        profile_breakdown(fn, (m, state, tau), f"{fn.__name__} {cell} (a "
+                          f"fresh process)", name_limit)
+
+
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
 RECORD = [
     ("fd_grad", "fd_grad", "iiwa14", FUSED_SRC, TPU + "fused.py:394"),
@@ -2252,6 +2720,12 @@ RECORD = [
      TPU + "contact_fused.py:1329"),
     ("stance_fd[atlas]", "stance_fd", "ff_atlas:stance", FF_SRC,
      TPU + "contact_fused.py:1431"),
+    ("step_ground", "step_ground", "step_hyq", FF_SRC,
+     TPU + "contact_fused.py:1458"),
+    ("step_ground_terrain", "step_ground_terrain", "step_hyq_terrain", FF_SRC,
+     TPU + "contact_fused.py:1531"),
+    ("step_ground[atlas]", "step_ground", "step_atlas", FF_SRC,
+     TPU + "contact_fused.py:1458"),
 ]
 
 
@@ -2323,14 +2797,22 @@ def main():
     times.update(phase3_free_flyer(ff_models, ff_st))
     del ff_models, ff_st
     done("phase 3 free flyer")
+    st_launches, st_max_abs, st_models, st_st = phaseS_ground_step(gen)
+    done("phase S")
+    times.update(phase3_ground_step(st_models, st_st))
+    del st_models, st_st
+    done("phase 3 ground step")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
     max_abs.update(md_stage_abs)
     max_abs.update({name: ff_max_abs[f"{label}:{entry}"]
                     for name, (label, entry) in FF_TIMED.items()})
+    max_abs.update({name: st_max_abs[cell]
+                    for name, cell in STEP_TIMED.items()})
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
                      **md_launches,
-                     **{f"ff_{k}": v for k, v in ff_launches.items()}}
+                     **{f"ff_{k}": v for k, v in ff_launches.items()},
+                     **{f"step_{k}": v for k, v in st_launches.items()}}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": path_launches[path][key], "max_abs_err": max_abs[name],
@@ -2347,5 +2829,7 @@ if __name__ == "__main__":
         md_profile_child(sys.argv[2])
     elif sys.argv[1:2] == ["--ff-profile"]:
         ff_profile_child()
+    elif sys.argv[1:2] == ["--step-profile"]:
+        step_profile_child()
     else:
         main()

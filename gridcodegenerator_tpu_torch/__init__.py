@@ -36,6 +36,17 @@ Floating base (a quaternion free flyer over a single-dof arm;
     ``impl="chol"``)                     → ``ops.freeflyer.fb_forward_dynamics_batched``
   * stance-constrained FD (k pinned
     contact points, Delassus solve)      → :func:`fb_constrained_fd_batched`
+  * the frictional ground step (B
+    environments, PGS friction cones)    → :func:`fb_step_ground_batched`
+  * T ground steps                       → :func:`fb_simulate_ground_batched`
+  * the step helpers                     → :func:`pd_torque`,
+    :func:`clamp_effort`, :func:`joint_limit_torque`,
+    :func:`project_joint_limits`, :func:`soft_contact_params`
+
+Heightfield terrain for the ground step (``ops/terrain``): :class:`Terrain`,
+:func:`make_terrain`, :func:`flat_terrain`, :func:`slope_terrain`,
+:func:`bumpy_terrain`, :func:`terrain_height_grad`,
+:func:`terrain_surface`.
 """
 
 from .api import (
@@ -64,7 +75,25 @@ from .ops.multidof import (
     neutral_q,
 )
 from .models.urdf import RobotDescription, parse_urdf
-from .ops.contact import fb_constrained_fd_batched
+from .ops.contact import (
+    clamp_effort,
+    fb_constrained_fd_batched,
+    fb_simulate_ground_batched,
+    fb_step_ground_batched,
+    joint_limit_torque,
+    pd_torque,
+    project_joint_limits,
+    soft_contact_params,
+)
+from .ops.terrain import (
+    Terrain,
+    bumpy_terrain,
+    flat_terrain,
+    make_terrain,
+    slope_terrain,
+    terrain_height_grad,
+    terrain_surface,
+)
 from .utils.golden import GoldenDynamics
 
 __version__ = "0.1.0"
@@ -82,4 +111,9 @@ __all__ = [
     "md_forward_dynamics_batched", "md_id_grad_batched",
     "md_forward_dynamics_gradient_batched",
     "fb_constrained_fd_batched",
+    "fb_step_ground_batched", "fb_simulate_ground_batched", "pd_torque",
+    "clamp_effort", "joint_limit_torque", "project_joint_limits",
+    "soft_contact_params",
+    "Terrain", "make_terrain", "flat_terrain", "slope_terrain",
+    "bumpy_terrain", "terrain_height_grad", "terrain_surface",
 ]

@@ -8,7 +8,7 @@ families), ``csrc/staged.cu`` (the staged large-robot pipeline) and
 past ``MAX_MD_GRAD_NV`` velocity coordinates, ``csrc/md_staged.cu`` (the
 staged multi-dof pipeline); for a free flyer (``FreeFlyerModel``)
 ``csrc/ff.cu`` — its ABA and mass-matrix FD, or, in a library of its own
-for each set of contact links, its stance FD. All are built for ``sm_90a``
+for each set of contact links, its stance FD and its ground steps. All are built for ``sm_90a``
 at once, with the joint count, parent indices, joint types and contact
 links passed as ``-D`` macros (``csrc/rbd.cuh``, ``csrc/md.cuh``,
 ``csrc/ff.cuh``). A unit a robot does not build by
@@ -158,6 +158,15 @@ _UNITS = {
         # qdd, lam, B, gravity, alpha, beta, reg, stream
         "grid_stance_fd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _LL, _D, _D, _D, _D, _P),
+        # consts, quat, pos, q, vb, qd, tau, mu, push (or NULL), offsets,
+        # ridge, quat2, pos2, q2, vb2, qd2, imp, B, dt, ground_z, gravity,
+        # iters, erp, margin, restitution, stream
+        "grid_step_ground": (*(_P,) * 17, _LL, _D, _D, _D, _I, _D, _D, _D,
+                             _P),
+        # ..., imp, heights, B, dt, gravity, iters, erp, margin,
+        # restitution, H, W, cell, x0, y0, stream
+        "grid_step_ground_terrain": (*(_P,) * 18, _LL, _D, _D, _I, _D, _D,
+                                     _D, _I, _I, _D, _D, _D, _P),
     },
 }
 # the units a library holds by default: single-dof robots, multi-dof robots
@@ -266,8 +275,8 @@ def topology_key(model, links=None) -> tuple:
     coordinate slices (a ball root and a free root under the same parents
     build different libraries); for a free flyer (one with ``I_base``) the
     tag ``"ff"``, its arm's key and the contact ``links`` (empty: the ABA
-    and mass-matrix kernels; else the stance kernel of those links, whose
-    rows are zero outside each link's ancestors)."""
+    and mass-matrix kernels; else the stance and ground-step kernels of
+    those links, whose rows are zero outside each link's ancestors)."""
     parents = tuple(model.topology.parents)
     if hasattr(model, "v_slices"):
         return ("md", model.n, parents,

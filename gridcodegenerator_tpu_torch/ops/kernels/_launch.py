@@ -25,8 +25,9 @@ LAUNCHES = {
     # csrc/md_staged.cu: the staged multi-dof pipeline
     "md_vaf": 0, "md_minv": 0, "md_minv_qdd": 0, "md_grad_cols": 0,
     "md_grad_cols_finish": 0,
-    # csrc/ff.cu: the floating-base families
-    "fb_aba": 0, "fb_fd": 0, "stance_fd": 0,
+    # csrc/ff.cu: the floating-base families and the ground steps
+    "fb_aba": 0, "fb_fd": 0, "stance_fd": 0, "step_ground": 0,
+    "step_ground_terrain": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
@@ -83,7 +84,8 @@ def check_md(model, q, others) -> int:
 
 def check_ff(model, states) -> int:
     """Validate a floating-base launch's states, given as (tensor, rows,
-    label) — quat (4, B), q (n, B), vb (6, B), … —; returns B."""
+    label) — quat (4, B), q (n, B), vb (6, B), a step's μ (k, B) and push
+    (6, B), … —; returns B."""
     ref = states[0][0]
     _check_device(model, ref)
     for s, rows, label in states:
@@ -109,8 +111,8 @@ def ptr(x):
 def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
            *scalars, links=None) -> None:
     """Call ``entry`` of the model's kernel library (its unit built if it
-    is not yet; for the stance kernel, the library of ``links``) on the
-    current stream and count the launch under ``name``."""
+    is not yet; for the stance and step kernels, the library of ``links``)
+    on the current stream and count the launch under ``name``."""
     lib = _build.library(model, (_build.unit_of(entry),), links=links)
     device = model.device
     fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])

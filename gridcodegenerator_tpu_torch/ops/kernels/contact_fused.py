@@ -16,11 +16,16 @@ contact_fused.py``. It holds
   :func:`_mm33s`, the quaternion's rotation and product, :func:`_fk_s`),
   the free-flyer bias and mass matrix (:func:`_fb_bias_s`,
   :func:`_fb_mass_s`) and the contact rows (:func:`_ff_contact_rows_s`);
-* the bodies of three TPU kernels with their plain versions and wrappers:
+* the bodies of five TPU kernels with their plain versions and wrappers:
   ``fb_aba_fused`` (contact_fused.py:1413, the floating-base ABA),
-  ``fb_fd_fused`` (:1329, the (6+n)² mass matrix and its Cholesky solve)
-  and ``stance_fd_fused`` (:1431, stance-constrained FD through the
-  Delassus matrix).
+  ``fb_fd_fused`` (:1329, the (6+n)² mass matrix and its Cholesky solve),
+  ``stance_fd_fused`` (:1431, stance-constrained FD through the Delassus
+  matrix), and ``step_ground_fused`` (:1458) and
+  ``step_ground_terrain_fused`` (:1531), one frictional ground step on the
+  plane or a heightfield (the plain version :func:`step_ground_plain`, the
+  JAX ``_step_ground_body`` (:977) with its feet, push and softness: PGS on
+  the friction cones, :func:`_pgs_rows`; the heightfield's frames,
+  :func:`_ground_rows`; the attitude update, :func:`_quat_exp_s`).
 
 Entries are (1, B) tensors, ``None`` where structurally zero; every sum
 runs left to right, the order the CUDA kernels (``csrc/chol.cuh``,
@@ -28,8 +33,11 @@ runs left to right, the order the CUDA kernels (``csrc/chol.cuh``,
 version on CPU tensors and its kernel (``csrc/ff.cu``, built for the arm's
 topology, and for the stance kernel the contact links, at first use) on
 CUDA tensors, with no fallback from one to the other. The JAX package's
-lane-budget gates (``ff_workset_ok``, ``fb_aba_fused``'s test) and its XLA
-fallback fit a TPU tile; here one thread holds one state at every size.
+lane-budget gates (``ff_workset_ok``, ``fb_aba_fused``'s test,
+``terrain_fused_ok``) and its XLA fallback fit a TPU tile; here one thread
+holds one state at every size, and the height grid stays in device
+memory, so every grid runs the kernel. The TPU kernel's one-hot matmul
+gather of a foot's four grid nodes is an index gather here.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import functools
 import torch
 
 from .. import blops
+from .. import terrain as _terrain
 from ..so import jvp
 from ._launch import check_ff, empty, launch, on_cpu, ptr
 
@@ -408,10 +417,12 @@ def _ff_contact_rows_s(ffm, X, R, links, offsets):
 # the kernels' plain versions (any device): quat (4,B), pos (3,B), q, q̇, τ
 # (n,B), vb (6,B)
 # --------------------------------------------------------------------------
-def _rhs_free(f_b, c_j, tau):
-    """[−f_b; τ − c_j] as m (1,B) entries."""
-    return ([-f_b[c:c + 1] for c in range(6)]
-            + [tau[i:i + 1] - c_j[i:i + 1] for i in range(tau.shape[0])])
+def _rhs_free(f_b, c_j, tau, push=None):
+    """[−f_b; τ − c_j] as m (1,B) entries; with an external base wrench
+    ``push`` (6,B), [push − f_b; τ − c_j]."""
+    base = ([-f_b[c:c + 1] for c in range(6)] if push is None
+            else [push[c:c + 1] - f_b[c:c + 1] for c in range(6)])
+    return base + [tau[i:i + 1] - c_j[i:i + 1] for i in range(tau.shape[0])]
 
 
 def fb_fd_plain(ffm, quat, q, vb, qd, tau, gravity=-9.81):
@@ -584,6 +595,156 @@ def stance_fd_plain(ffm, quat, pos, q, vb, qd, tau, links, offsets,
 
 
 # --------------------------------------------------------------------------
+# the frictional ground step
+# --------------------------------------------------------------------------
+def _quat_exp_s(w_dt):
+    """(3,B) body rotation vectors → (4,B) unit quaternions exp(½·)."""
+    half = 0.5 * w_dt
+    ang = torch.sqrt(half[0:1] * half[0:1] + half[1:2] * half[1:2]
+                     + half[2:3] * half[2:3] + 1e-30)
+    s = torch.sin(ang) / ang
+    return torch.cat([torch.cos(ang), s * half[0:1], s * half[1:2],
+                      s * half[2:3]])
+
+
+def _pgs_rows(G, b, mu, active, k, iters, regs):
+    """Projected Gauss–Seidel on the Delassus rows (JAX ``_pgs_rows``,
+    :1128): G an entry view (``G[r][j]`` (1,B), both triangles), b 3k (1,B)
+    entries, mu (k,B), active k (1,B) 0/1 masks, ``regs`` the per-row ridge
+    (3k floats), applied algebraically — (G + reg·I)·p = G·p + reg·p — and
+    in the clipped diagonal. Each sweep visits the contacts in order; a
+    contact's three candidates use the impulses before its own update, its
+    normal one is clipped at 0 (and to 0 where inactive), its tangential
+    pair scaled into the cone ‖pt‖ ≤ μ·pn. → impulses (3k,B)."""
+    rows = 3 * k
+    diag = [torch.clamp(G[d][d] + regs[d], min=1e-9) for d in range(rows)]
+    p = [torch.zeros_like(b[0]) for _ in range(rows)]
+    for _ in range(iters):
+        for i in range(k):
+            s = 3 * i
+            cand = []
+            for d in range(3):
+                r = s + d
+                res = (_sum_terms([G[r][j] * p[j] for j in range(rows)])
+                       + regs[r] * p[r]) + b[r]
+                cand.append(p[r] - res / diag[r])
+            pn = torch.clamp(cand[2], min=0.0) * active[i]
+            norm_t = torch.sqrt(cand[0] * cand[0] + cand[1] * cand[1] + 1e-30)
+            scale = torch.clamp(mu[i:i + 1] * pn / norm_t, max=1.0)
+            p[s:s + 3] = [cand[0] * scale, cand[1] * scale, pn]
+    return torch.cat(p)
+
+
+def _ground_rows(R, pos, J, xs, ground_z, margin, terrain):
+    """Each foot's gap and active mask (k (1,B) each). On the flat ground
+    the gap is the world height above ``ground_z``; on a heightfield it is
+    measured along the surface normal, and the foot's three world rows of
+    J are rotated in place into its contact frame [t1; t2; n] (JAX
+    ``_step_ground_body``, :1011-1031)."""
+    gaps, active = [], []
+    for ci in range(len(xs)):
+        p_w = pos + _mv3s(R, xs[ci])
+        if terrain is None:
+            gap = p_w[2:3] - ground_z
+        else:
+            h, nrm = _terrain.terrain_surface(terrain, p_w[0:1], p_w[1:2])
+            C = _terrain.contact_frame(nrm)
+            old = J[3 * ci:3 * ci + 3]
+            J[3 * ci:3 * ci + 3] = [
+                [_sum_terms([C[r][w] * old[w][c] for w in range(3)
+                             if old[w][c] is not None])
+                 for c in range(len(old[0]))] for r in range(3)]
+            gap = (p_w[2:3] - h) * nrm[2]
+        gaps.append(gap)
+        active.append((gap < margin).to(pos.dtype))
+    return gaps, active
+
+
+def _softness_rows(softness, k, dtype=torch.float64):
+    """(3k,) per-row Delassus compliance from a scalar or per-contact (k,)
+    ``softness`` (JAX contact.py:993): each cone triplet shares its
+    contact's value, the tangent rows softening with the normal."""
+    s = torch.broadcast_to(torch.as_tensor(softness, dtype=dtype), (k,))
+    return s.repeat_interleave(3)
+
+
+def _ridge(softness, k):
+    """The Delassus ridge of each cone row, 3k floats: 1e-9, plus the
+    contact's compliance where ``softness`` is given (the JAX kernel's
+    ``eye_reg``, summed in float64)."""
+    if softness is None:
+        return (1e-9,) * (3 * k)
+    return tuple(1e-9 + s for s in _softness_rows(softness, k).tolist())
+
+
+def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
+                      ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
+                      margin=1e-3, restitution=0.0, push=None, softness=None,
+                      terrain=None):
+    """One frictional ground step (JAX ``_step_ground_body``, :977; its
+    feet rows, ``push``, ``softness`` and the heightfield): the free
+    velocity v_free = v + dt·M⁻¹[push − f_b; τ − c_j], the feet's rows J
+    (rotated into each foot's contact frame on a ``terrain``) and gaps, the
+    Delassus G = J·M⁻¹Jᵀ (its lower triangle, read both ways) and b =
+    J·v_free less v* = −erp·min(gap, 0)/dt − restitution·min(vn, 0) on the
+    normal rows, ``iters`` PGS sweeps for the impulses p (3k,B), v⁺ =
+    v_free + M⁻¹Jᵀ·p, the attitude quat ⊗ exp(½·ω⁺·dt) renormalised, pos
+    by the new rotation and q by q̇⁺. → (quat⁺ (4,B), pos⁺ (3,B), q⁺ (n,B),
+    vb⁺ (6,B), q̇⁺ (n,B), p (3k,B)). ``mu`` (k,B); ``push`` (6,B) or
+    None."""
+    links = tuple(int(l) for l in links)
+    m = 6 + ffm.n
+    k3 = 3 * len(links)
+    X = blops.joint_transforms_bl(ffm.arm, q)
+    R = _quat_rot_s(quat)
+    f_b, c_j = _fb_bias_s(ffm, X, R, vb, qd, gravity)
+    Lm = _chol_factor_ev(_fb_mass_s(ffm, X), m)
+    rhs_free = _rhs_free(f_b, c_j, tau, push)
+    v = _vfull_list(ffm, vb, qd)
+    J, xs = _ff_contact_rows_s(ffm, X, R, links, offsets)
+    if terrain is not None:
+        terrain = _terrain.placed(terrain, q.device, q.dtype)[0]
+    gaps, active = _ground_rows(R, pos, J, xs, ground_z, margin, terrain)
+    JT = _jt_stacks(J, m, q[0:1])
+
+    # one merged solve: rows 0..3k−1 M⁻¹Jᵀ, row 3k the free acceleration
+    zero3k = torch.zeros((k3, q.shape[-1]), dtype=q.dtype, device=q.device)
+    sol = _chol_apply_e(Lm, [torch.cat([zero3k if JT[c] is None else JT[c],
+                                        rhs_free[c]]) for c in range(m)])
+    MiJt = [sol[c][:k3] for c in range(m)]
+    v_free = [v[c] + dt * sol[c][k3:] for c in range(m)]
+
+    def row_dot(r, x):
+        return _sum_terms([J[r][c] * x[c] for c in range(m)
+                           if J[r][c] is not None])
+    G_low = [_sum_terms([J[r][c] * MiJt[c][:r + 1] for c in range(m)
+                         if J[r][c] is not None]) for r in range(k3)]
+    G = [[G_low[max(r, s)][min(r, s):min(r, s) + 1] for s in range(k3)]
+         for r in range(k3)]
+    b = [row_dot(r, v_free) for r in range(k3)]
+    for ci, gap in enumerate(gaps):
+        v_star = -erp * torch.clamp(gap, max=0.0) / dt
+        if restitution:
+            vn_now = row_dot(3 * ci + 2, v)
+            v_star = v_star - restitution * torch.clamp(vn_now, max=0.0)
+        b[3 * ci + 2] = b[3 * ci + 2] - v_star
+    p = _pgs_rows(G, b, mu, active, len(links), int(iters),
+                  _ridge(softness, len(links)))
+
+    v_new = torch.cat([v_free[c] + _sum_terms([MiJt[c][s:s + 1] * p[s:s + 1]
+                                               for s in range(k3)])
+                       for c in range(m)])
+    vb2, qd2 = v_new[:6], v_new[6:]
+    quat2 = _quat_mul_s(quat, _quat_exp_s(vb2[:3] * dt))
+    quat2 = quat2 / torch.sqrt(quat2[0:1] * quat2[0:1] + quat2[1:2] * quat2[1:2]
+                               + quat2[2:3] * quat2[2:3]
+                               + quat2[3:4] * quat2[3:4])
+    pos2 = pos + dt * _mv3s(_quat_rot_s(quat2), vb2[3:])
+    q2 = q + dt * qd2
+    return quat2, pos2, q2, vb2, qd2, p
+
+
+# --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=64)
@@ -664,3 +825,70 @@ def stance_fd_fused(ffm, quat, pos, q, vb, qd, tau, links, offsets,
                float(gravity), float(baumgarte[0]), float(baumgarte[1]),
                float(reg), links=links)
     return dvb, qdd, lam
+
+
+def _step_launch(ffm, name, entry, quat, pos, q, vb, qd, tau, mu, push,
+                 links, offsets, softness, extra_ptrs, scalars):
+    """Check a ground step's inputs, allocate its outputs (quat⁺ (4,B),
+    pos⁺ (3,B), q⁺ (n,B), vb⁺ (6,B), q̇⁺ (n,B), p (3k,B)) and launch
+    ``entry`` of the feet's library. The offsets and the per-row ridge are
+    device copies kept a set of values (:func:`_device_geom`)."""
+    n, k = ffm.n, len(links)
+    B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau, pos)
+                 + [(mu, k, "k")] + ([] if push is None
+                                     else [(push, 6, "push")]))
+    outs = tuple(empty(ffm, d, B) for d in (4, 3, n, 6, n, 3 * k))
+    if B:
+        ridge = _geom_copy(_ridge(softness, k), ffm.dtype,
+                           torch.device(ffm.device))
+        launch(name, entry, ffm,
+               (quat.data_ptr(), pos.data_ptr(), q.data_ptr(), vb.data_ptr(),
+                qd.data_ptr(), tau.data_ptr(), mu.data_ptr(), ptr(push),
+                _device_geom(ffm, offsets, k).data_ptr(), ridge.data_ptr(),
+                *(o.data_ptr() for o in outs), *extra_ptrs), B, *scalars,
+               links=links)
+    return outs
+
+
+def step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
+                      ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
+                      margin=1e-3, restitution=0.0, push=None, softness=None):
+    """One frictional step on the flat ground ``z = ground_z`` for the feet
+    ``links`` (body-frame ``offsets`` (k, 3)): batch-last states, ``mu``
+    (k,B), optional ``push`` (6,B) and ``softness`` (scalar or (k,)) →
+    (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k,B)). The kernel is built per
+    set of feet; everything else is a run-time argument."""
+    links = tuple(int(l) for l in links)
+    if on_cpu(q):
+        return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
+                                 links, offsets, ground_z, gravity, iters,
+                                 erp, margin, restitution, push, softness)
+    return _step_launch(
+        ffm, "step_ground", "grid_step_ground", quat, pos, q, vb, qd, tau, mu,
+        push, links, offsets, softness, (),
+        (float(dt), float(ground_z), float(gravity), int(iters), float(erp),
+         float(margin), float(restitution)))
+
+
+def step_ground_terrain_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links,
+                              offsets, terrain, gravity=-9.81, iters=30,
+                              erp=0.2, margin=1e-3, restitution=0.0,
+                              push=None, softness=None):
+    """:func:`step_ground_fused` on a bilinear heightfield ``terrain``
+    (:class:`..terrain.Terrain`): each foot's gap along the surface normal
+    and its rows in its contact frame. The grid is read from device memory
+    (kept on the model's device, in its dtype, once a terrain), so every
+    grid size runs the kernel."""
+    links = tuple(int(l) for l in links)
+    if on_cpu(q):
+        return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
+                                 links, offsets, 0.0, gravity, iters, erp,
+                                 margin, restitution, push, softness, terrain)
+    terr, x0, y0 = _terrain.placed(terrain, ffm.device, ffm.dtype)
+    H, W = terr.heights.shape
+    return _step_launch(
+        ffm, "step_ground_terrain", "grid_step_ground_terrain", quat, pos, q,
+        vb, qd, tau, mu, push, links, offsets, softness,
+        (terr.heights.data_ptr(),),
+        (float(dt), float(gravity), int(iters), float(erp), float(margin),
+         float(restitution), int(H), int(W), float(terr.cell), x0, y0))

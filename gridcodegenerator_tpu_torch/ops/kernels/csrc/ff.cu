@@ -4,6 +4,9 @@
 //   fb_aba_fused    (contact_fused.py:1413) -> grid_fb_aba_{f32,f64}
 //   fb_fd_fused     (contact_fused.py:1329) -> grid_fb_fd_{f32,f64}
 //   stance_fd_fused (contact_fused.py:1431) -> grid_stance_fd_{f32,f64}
+//   step_ground_fused (contact_fused.py:1458) -> grid_step_ground_{f32,f64}
+//   step_ground_terrain_fused (contact_fused.py:1531)
+//                   -> grid_step_ground_terrain_{f32,f64}
 // Each Pallas kernel ran its body on a VMEM tile of 128 states, and robots
 // past the tile's budget fell back to plain XLA (_xla_fallback,
 // ff_workset_ok). Here the same bodies (ff.cuh) run per thread on the
@@ -21,9 +24,20 @@
 // recomputes the chains' rows on dual numbers for the bias. The robot
 // constants (152n + 36 values) are staged in shared memory once per block.
 //
+// The ground step (step_ground_kernel<T, kTerrain>, flat or on a
+// heightfield) reuses the stance's front half and rows, and adds the full
+// Delassus rows, b, the PGS sweeps and the integration: its per-state
+// arrays are X, the packed M and its factor, the feet's rows, the merged
+// solve's (6+n) × (3k+1) right-hand sides and G's triangle. The sweeps are a
+// run-time loop (iters) whose rows and columns unroll, so G, the impulses,
+// b and the diagonal live in registers at HyQ's 3k = 12 in f32. The height
+// grid is read from device memory (four read-only loads a foot), which
+// lifts the TPU kernel's VMEM gate (terrain_fused_ok): every grid size runs
+// the kernel.
+//
 // A library is built per topology: with -DGRID_FF_K=0 it holds the ABA and
 // mass-matrix kernels, with the contact links (-DGRID_FF_K=k
-// -DGRID_FF_LINKS=...) the stance kernel of those links alone.
+// -DGRID_FF_LINKS=...) the stance and ground-step kernels of those links.
 #include <cuda_runtime.h>
 
 #include "ff.cuh"
@@ -130,6 +144,65 @@ stance_fd_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
                      anc, dvb, qdd, lam, B, b, minus_g, alpha, beta, reg);
 }
 
+template <typename T, bool kTerrain>
+__global__ void __launch_bounds__(kThreads)
+step_ground_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
+                   const T* __restrict__ pos, const T* __restrict__ q,
+                   const T* __restrict__ vb, const T* __restrict__ qd,
+                   const T* __restrict__ tau, const T* __restrict__ mu,
+                   const T* __restrict__ push, const T* __restrict__ off,
+                   const T* __restrict__ ridge, T* __restrict__ quat2,
+                   T* __restrict__ pos2, T* __restrict__ q2,
+                   T* __restrict__ vb2, T* __restrict__ qd2,
+                   T* __restrict__ imp, long long B, grid::StepParams<T> sp,
+                   grid::Heightfield<T> hf) {
+  const T* sm = stage_constants(consts);
+  const grid::Robot<T> R(sm);
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::step_state<T, kTerrain>(R, sm + 152 * grid::N, quat, pos, q, vb, qd,
+                                tau, mu, push, off, ridge, sp, hf, quat2,
+                                pos2, q2, vb2, qd2, imp, B, b);
+}
+
+// push == nullptr: no external base wrench; heights == nullptr: the plane
+// z = ground_z, else the H × W heightfield (ground_z unused)
+template <typename T>
+int step(const void* consts, const void* quat, const void* pos,
+         const void* q, const void* vb, const void* qd, const void* tau,
+         const void* mu, const void* push, const void* off,
+         const void* ridge, void* quat2, void* pos2, void* q2, void* vb2,
+         void* qd2, void* imp, const void* heights, long long B, double dt,
+         double ground_z, double gravity, int iters, double erp,
+         double margin, double restitution, int H, int W, double cell,
+         double x0, double y0, void* stream) {
+  const grid::StepParams<T> sp{
+      static_cast<T>(dt),     static_cast<T>(ground_z),
+      static_cast<T>(-gravity), static_cast<T>(-erp),
+      static_cast<T>(margin), static_cast<T>(restitution), iters};
+  const grid::Heightfield<T> hf{in<T>(heights), H, W, static_cast<T>(cell),
+                                static_cast<T>(x0), static_cast<T>(y0)};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (heights == nullptr) {
+    step_ground_kernel<T, false><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                                   s>>>(
+        in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
+        in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
+        in<T>(ridge), static_cast<T*>(quat2), static_cast<T*>(pos2),
+        static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
+        static_cast<T*>(imp), B, sp, hf);
+  } else {
+    step_ground_kernel<T, true><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                                  s>>>(
+        in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
+        in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
+        in<T>(ridge), static_cast<T*>(quat2), static_cast<T*>(pos2),
+        static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
+        static_cast<T*>(imp), B, sp, hf);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // anchors == nullptr pins each point where it is (no β term)
 template <typename T>
 int stance(const void* consts, const void* quat, const void* pos,
@@ -208,6 +281,66 @@ int grid_stance_fd_f64(const void* consts, const void* quat, const void* pos,
                        void* stream) {
   return stance<double>(consts, quat, pos, q, vb, qd, tau, off, anc, dvb,
                         qdd, lam, B, gravity, alpha, beta, reg, stream);
+}
+
+// the flat ground: ..., imp, B, dt, ground_z, gravity, iters, erp, margin,
+// restitution, stream
+int grid_step_ground_f32(const void* consts, const void* quat,
+                         const void* pos, const void* q, const void* vb,
+                         const void* qd, const void* tau, const void* mu,
+                         const void* push, const void* off, const void* ridge,
+                         void* quat2, void* pos2, void* q2, void* vb2,
+                         void* qd2, void* imp, long long B, double dt,
+                         double ground_z, double gravity, int iters,
+                         double erp, double margin, double restitution,
+                         void* stream) {
+  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, ridge,
+                     quat2, pos2, q2, vb2, qd2, imp, nullptr, B, dt, ground_z,
+                     gravity, iters, erp, margin, restitution, 0, 0, 0.0, 0.0,
+                     0.0, stream);
+}
+int grid_step_ground_f64(const void* consts, const void* quat,
+                         const void* pos, const void* q, const void* vb,
+                         const void* qd, const void* tau, const void* mu,
+                         const void* push, const void* off, const void* ridge,
+                         void* quat2, void* pos2, void* q2, void* vb2,
+                         void* qd2, void* imp, long long B, double dt,
+                         double ground_z, double gravity, int iters,
+                         double erp, double margin, double restitution,
+                         void* stream) {
+  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off,
+                      ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, dt,
+                      ground_z, gravity, iters, erp, margin, restitution, 0,
+                      0, 0.0, 0.0, 0.0, stream);
+}
+
+// the heightfield: ..., imp, heights, B, dt, gravity, iters, erp, margin,
+// restitution, H, W, cell, x0, y0, stream
+int grid_step_ground_terrain_f32(
+    const void* consts, const void* quat, const void* pos, const void* q,
+    const void* vb, const void* qd, const void* tau, const void* mu,
+    const void* push, const void* off, const void* ridge, void* quat2,
+    void* pos2, void* q2, void* vb2, void* qd2, void* imp,
+    const void* heights, long long B, double dt, double gravity, int iters,
+    double erp, double margin, double restitution, int H, int W, double cell,
+    double x0, double y0, void* stream) {
+  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, ridge,
+                     quat2, pos2, q2, vb2, qd2, imp, heights, B, dt, 0.0,
+                     gravity, iters, erp, margin, restitution, H, W, cell, x0,
+                     y0, stream);
+}
+int grid_step_ground_terrain_f64(
+    const void* consts, const void* quat, const void* pos, const void* q,
+    const void* vb, const void* qd, const void* tau, const void* mu,
+    const void* push, const void* off, const void* ridge, void* quat2,
+    void* pos2, void* q2, void* vb2, void* qd2, void* imp,
+    const void* heights, long long B, double dt, double gravity, int iters,
+    double erp, double margin, double restitution, int H, int W, double cell,
+    double x0, double y0, void* stream) {
+  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off,
+                      ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, dt,
+                      0.0, gravity, iters, erp, margin, restitution, H, W,
+                      cell, x0, y0, stream);
 }
 #endif  // GRID_FF_K
 

@@ -20,18 +20,25 @@
 //                   J̇·[vb; q̇] is contact_rows instantiated on Dual<T>,
 //                   seeded with (quat, ½ quat ⊗ [0, ω_b]) and (q, q̇), its
 //                   tangent rows contracted with [vb; q̇]
+//   step_state      _step_ground_body (:977) with its feet rows, push and
+//                   softness: the free velocity, the feet's gaps (on a
+//                   heightfield along the normal, the rows in the contact
+//                   frame: terrain_frame, _terrain_surface_s :735), G and b,
+//                   PGS on the friction cones (_pgs_rows :1128) and the
+//                   manifold integration (_quat_exp_s :104)
 //
 // The arm is a compile-time constant as in rbd.cuh (-DGRID_N, -DGRID_PARENTS,
-// -DGRID_PRISMATIC), and the stance kernel's contact links too
+// -DGRID_PRISMATIC), and the stance and step kernels' contact links too
 // (-DGRID_FF_K=<k> -DGRID_FF_LINKS=G(l0)G(l1)...): they fix which columns of
 // each contact row are nonzero. The numeric constants arrive in one packed
 // buffer (FreeFlyerModel.packed), staged in shared memory by ff.cu:
 //   Xb, Xs, Xc (36N each), S (6N), inertia (36N), damping (N), armature (N),
 //   I_base (36)
-// The foot offsets and anchors, gravity, the Baumgarte (α, β) and reg are
-// run-time arguments, and the kernels take the same branches as the plain
-// versions (α = 0, β = 0 or no anchors, reg = 0 skip their terms) uniformly
-// across the batch. Joint parents, types and the contact chains are read from
+// The foot offsets and anchors, gravity, the Baumgarte (α, β), reg and the
+// step's dt, ground_z, μ, push, ridge, sweeps, erp, margin, restitution and
+// height grid are run-time arguments, and the kernels take the same branches
+// as the plain versions (α = 0, β = 0 or no anchors, reg = 0, restitution = 0
+// skip their terms) uniformly across the batch. Joint parents, types and the contact chains are read from
 // __constant__ tables (a constexpr local table indexed at run time is rebuilt
 // in local memory on every call).
 //
@@ -838,6 +845,291 @@ GRID_ROLLED
   store_rows<T, 6>(y, B, b, dvb_out);
   store_rows<T, N>(y + 6, B, b, qdd_out);
   store_rows<T, FF_K3>(rhs, B, b, lam_out);
+}
+
+// ------------------------------------------------------- the ground step
+// read-only loads of the height grid (a plain load where this compiles as
+// host C++)
+#ifdef __CUDA_ARCH__
+#define GRID_LDG(p) __ldg(p)
+#else
+#define GRID_LDG(p) (*(p))
+#endif
+
+// The run-time scalars of the frictional ground step, in T (the plain
+// version's Python floats meet its tensors in their dtype).
+template <typename T>
+struct StepParams {
+  T dt, ground_z, minus_g, neg_erp, margin, restitution;
+  int iters;
+};
+
+// A bilinear heightfield: node (i, j) at (x0 + i·cell, y0 + j·cell) is
+// h[i·W + j], read from device memory (no grid size is too large).
+template <typename T>
+struct Heightfield {
+  const T* __restrict__ h;
+  int H, W;
+  T cell, x0, y0;
+};
+
+// Height and contact frame rows C = [t1; t2; n] at world (px, py)
+// (terrain_height_grad, terrain_surface and contact_frame of
+// ops/terrain.py): the cell index clipped to the grid, so outside it the
+// edge cell's surface continues. t1 = (n_z, 0, −n_x)/‖·‖ has a structural
+// zero, whose products the rows skip (x + 0·y = x).
+template <typename T>
+__device__ __forceinline__ void terrain_frame(const Heightfield<T>& hf, T px,
+                                              T py, T* h, T C[3][3]) {
+  const T one(1);
+  const T u = (px - hf.x0) / hf.cell;
+  const T v = (py - hf.y0) / hf.cell;
+  T iu = floor(u), iv = floor(v);
+  iu = iu < T(0) ? T(0) : (iu > T(hf.H - 2) ? T(hf.H - 2) : iu);
+  iv = iv < T(0) ? T(0) : (iv > T(hf.W - 2) ? T(hf.W - 2) : iv);
+  const T fu = u - iu, fv = v - iv;
+  const int idx = static_cast<int>(iu) * hf.W + static_cast<int>(iv);
+  const T h00 = GRID_LDG(hf.h + idx), h10 = GRID_LDG(hf.h + idx + hf.W);
+  const T h01 = GRID_LDG(hf.h + idx + 1);
+  const T h11 = GRID_LDG(hf.h + idx + hf.W + 1);
+  *h = (one - fu) * (one - fv) * h00 + fu * (one - fv) * h10 +
+       (one - fu) * fv * h01 + fu * fv * h11;
+  const T hx = ((one - fv) * (h10 - h00) + fv * (h11 - h01)) / hf.cell;
+  const T hy = ((one - fu) * (h01 - h00) + fu * (h11 - h10)) / hf.cell;
+  const T inv = one / sqrt(hx * hx + hy * hy + one);
+  const T nx = -hx * inv, ny = -hy * inv, nz = inv;
+  const T it = one / sqrt(nz * nz + nx * nx);
+  C[0][0] = nz * it;
+  C[0][1] = T(0);
+  C[0][2] = -nx * it;
+  C[1][0] = ny * C[0][2];                   // − n_z·0
+  C[1][1] = nz * C[0][0] - nx * C[0][2];
+  C[1][2] = -(ny * C[0][0]);                // n_x·0 − n_y·t1_x
+  C[2][0] = nx;
+  C[2][1] = ny;
+  C[2][2] = nz;
+}
+
+// a ⊗ b, (w, x, y, z) (_quat_mul_s)
+template <typename T>
+__device__ __forceinline__ void quat_mul4(const T* a, const T* b, T* out) {
+  out[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
+  out[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
+  out[2] = a[0] * b[2] + a[2] * b[0] + a[3] * b[1] - a[1] * b[3];
+  out[3] = a[0] * b[3] + a[3] * b[0] + a[1] * b[2] - a[2] * b[1];
+}
+
+// Entry (r, j) of the symmetric Delassus G from its packed lower triangle;
+// r and j are compile-time constants in the unrolled sweep.
+template <typename T>
+__device__ __forceinline__ T g_at(const T* Gm, int r, int j) {
+  return r >= j ? Gm[tri(r, j)] : Gm[tri(j, r)];
+}
+
+// One frictional ground step of FF_K feet — step_ground_fused (kTerrain
+// false: the plane z = ground_z) and step_ground_terrain_fused (true: the
+// heightfield hf). mu (FF_K, B); push (6, B) or null; off (FF_K, 3); ridge
+// (3·FF_K) the Delassus ridge of each cone row. Outputs quat⁺, pos⁺, q⁺,
+// vb⁺, q̇⁺ and the impulses (3·FF_K, B).
+template <typename T, bool kTerrain>
+__device__ __forceinline__ void step_state(
+    const Robot<T>& R, const T* Ib, const T* quat, const T* pos, const T* q,
+    const T* vb, const T* qd, const T* tau, const T* mu, const T* push,
+    const T* __restrict__ off, const T* __restrict__ ridge,
+    const StepParams<T>& sp, const Heightfield<T>& hf, T* quat_out,
+    T* pos_out, T* q_out, T* vb_out, T* qd_out, T* imp_out, long long B,
+    long long b) {
+  T qt[4], ps[3], qs[N], vbs[6], qds[N], taus[N];
+  load_rows<T, 4>(quat, B, b, qt);
+  load_rows<T, 3>(pos, B, b, ps);
+  load_rows<T, N>(q, B, b, qs);
+  load_rows<T, 6>(vb, B, b, vbs);
+  load_rows<T, N>(qd, B, b, qds);
+  load_rows<T, N>(tau, B, b, taus);
+  T X[N][36], Rw[9], A[FF_TRI], rhs_free[FF_M];
+  fb_front(R, Ib, qt, qs, vbs, qds, taus, sp.minus_g, X, Rw, A, rhs_free);
+  if (push != nullptr) {
+    // push − f_b (fb_front left −f_b)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) rhs_free[c] = push[c * B + b] + rhs_free[c];
+  }
+
+  // the feet's rows (rotated into each contact frame on a heightfield),
+  // gaps and active masks
+  T J[FF_K][3][FF_C], gap[FF_K];
+  bool active[FF_K];
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci) {
+    T xb[3], t3[3];
+    contact_rows<T>(R, ci, qs, Rw, off + 3 * ci, J[ci], xb);
+    mv3(Rw, xb, t3);
+    T pw[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pw[d] = ps[d] + t3[d];
+    if constexpr (kTerrain) {
+      T h, C[3][3];
+      terrain_frame(hf, pw[0], pw[1], &h, C);
+      const int cols = 6 + c_chains.len[ci];
+GRID_ROLLED
+      for (int c = 0; c < cols; ++c) {
+        const T o0 = J[ci][0][c], o1 = J[ci][1][c], o2 = J[ci][2][c];
+        J[ci][0][c] = C[0][0] * o0 + C[0][2] * o2;
+        J[ci][1][c] = C[1][0] * o0 + C[1][1] * o1 + C[1][2] * o2;
+        J[ci][2][c] = C[2][0] * o0 + C[2][1] * o1 + C[2][2] * o2;
+      }
+      gap[ci] = (pw[2] - h) * C[2][2];
+    } else {
+      gap[ci] = pw[2] - sp.ground_z;
+    }
+    active[ci] = gap[ci] < sp.margin;
+  }
+
+  // one merged solve: sol[c][s < 3k] = (M⁻¹Jᵀ)[c][s], sol[c][3k] = the
+  // free acceleration
+  T sol[FF_M][FF_K3 + 1];
+GRID_ROLLED
+  for (int c = 0; c < FF_M; ++c) {
+GRID_ROLLED
+    for (int s = 0; s < FF_K3; ++s) sol[c][s] = T(0);
+    sol[c][FF_K3] = rhs_free[c];
+  }
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci)
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int s = 3 * ci + r;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sol[c][s] = J[ci][r][c];
+GRID_ROLLED
+      for (int t = 0; t < c_chains.len[ci]; ++t)
+        sol[6 + c_chains.joint[ci][t]][s] = J[ci][r][6 + t];
+    }
+  ptri_apply<T, FF_M, FF_K3 + 1>(
+      A, [&](int i, int k) -> T& { return sol[i][k]; });
+  T v[FF_M], vfree[FF_M];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) v[c] = vbs[c];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) v[6 + i] = qds[i];
+GRID_ROLLED
+  for (int c = 0; c < FF_M; ++c) vfree[c] = v[c] + sp.dt * sol[c][FF_K3];
+
+  // the Delassus G = J·M⁻¹Jᵀ (lower triangle) and b = J·v_free − v* (v* on
+  // the normal rows)
+  T Gm[FF_K3 * (FF_K3 + 1) / 2], bb[FF_K3];
+GRID_ROLLED
+  for (int ci = 0; ci < FF_K; ++ci) {
+    const int len = c_chains.len[ci];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int row = 3 * ci + r;
+GRID_ROLLED
+      for (int s = 0; s <= row; ++s) {
+        T acc = J[ci][r][0] * sol[0][s];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) acc += J[ci][r][c] * sol[c][s];
+GRID_ROLLED
+        for (int t = 0; t < len; ++t)
+          acc += J[ci][r][6 + t] * sol[6 + c_chains.joint[ci][t]][s];
+        Gm[tri(row, s)] = acc;
+      }
+      T acc = J[ci][r][0] * vfree[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) acc += J[ci][r][c] * vfree[c];
+GRID_ROLLED
+      for (int t = 0; t < len; ++t)
+        acc += J[ci][r][6 + t] * vfree[6 + c_chains.joint[ci][t]];
+      bb[row] = acc;
+    }
+    const T gmin = gap[ci] < T(0) ? gap[ci] : T(0);
+    T v_star = sp.neg_erp * gmin / sp.dt;
+    if (sp.restitution != T(0)) {
+      T vn = J[ci][2][0] * v[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) vn += J[ci][2][c] * v[c];
+GRID_ROLLED
+      for (int t = 0; t < len; ++t)
+        vn += J[ci][2][6 + t] * v[6 + c_chains.joint[ci][t]];
+      v_star = v_star - sp.restitution * (vn < T(0) ? vn : T(0));
+    }
+    bb[3 * ci + 2] = bb[3 * ci + 2] - v_star;
+  }
+
+  // projected Gauss–Seidel (_pgs_rows): the sweeps are a run-time loop,
+  // the rows and columns inside one unroll (G, p, b in registers)
+  T reg[FF_K3], diag[FF_K3], p[FF_K3], muv[FF_K];
+#pragma unroll
+  for (int r = 0; r < FF_K3; ++r) {
+    reg[r] = ridge[r];
+    const T d = Gm[tri(r, r)] + reg[r];
+    diag[r] = d > T(1e-9) ? d : T(1e-9);
+    p[r] = T(0);
+  }
+#pragma unroll
+  for (int ci = 0; ci < FF_K; ++ci) muv[ci] = mu[ci * B + b];
+GRID_ROLLED
+  for (int it = 0; it < sp.iters; ++it) {
+#pragma unroll
+    for (int ci = 0; ci < FF_K; ++ci) {
+      T cand[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int r = 3 * ci + d;
+        T acc = g_at(Gm, r, 0) * p[0];
+#pragma unroll
+        for (int j = 1; j < FF_K3; ++j) acc += g_at(Gm, r, j) * p[j];
+        const T res = (acc + reg[r] * p[r]) + bb[r];
+        cand[d] = p[r] - res / diag[r];
+      }
+      const T pn = active[ci] ? (cand[2] > T(0) ? cand[2] : T(0)) : T(0);
+      const T norm_t = sqrt(cand[0] * cand[0] + cand[1] * cand[1] + T(1e-30));
+      const T ratio = muv[ci] * pn / norm_t;
+      const T scale = ratio < T(1) ? ratio : T(1);
+      p[3 * ci] = cand[0] * scale;
+      p[3 * ci + 1] = cand[1] * scale;
+      p[3 * ci + 2] = pn;
+    }
+  }
+
+  // v⁺ = v_free + M⁻¹Jᵀ·p; the attitude by quat ⊗ exp(½·ω⁺·dt),
+  // renormalised; pos by the new rotation; q by q̇⁺
+  T vn[FF_M];
+GRID_ROLLED
+  for (int c = 0; c < FF_M; ++c) {
+    T acc = sol[c][0] * p[0];
+#pragma unroll
+    for (int s = 1; s < FF_K3; ++s) acc += sol[c][s] * p[s];
+    vn[c] = vfree[c] + acc;
+  }
+  T half[3], e[4], q2[4], R2[9], t3[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) half[c] = T(0.5) * (vn[c] * sp.dt);
+  const T ang =
+      sqrt(half[0] * half[0] + half[1] * half[1] + half[2] * half[2] +
+           T(1e-30));
+  T sa, ca;
+  sincos_t(ang, &sa, &ca);
+  const T sr = sa / ang;
+  e[0] = ca;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) e[1 + c] = sr * half[c];
+  quat_mul4(qt, e, q2);
+  const T qn =
+      sqrt(q2[0] * q2[0] + q2[1] * q2[1] + q2[2] * q2[2] + q2[3] * q2[3]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) q2[c] = q2[c] / qn;
+  quat_rot(q2, R2);
+  mv3(R2, vn + 3, t3);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) ps[d] = ps[d] + sp.dt * t3[d];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) qs[i] = qs[i] + sp.dt * vn[6 + i];
+  store_rows<T, 4>(q2, B, b, quat_out);
+  store_rows<T, 3>(ps, B, b, pos_out);
+  store_rows<T, N>(qs, B, b, q_out);
+  store_rows<T, 6>(vn, B, b, vb_out);
+  store_rows<T, N>(vn + 6, B, b, qd_out);
+  store_rows<T, FF_K3>(p, B, b, imp_out);
 }
 #endif  // GRID_FF_K > 0
 

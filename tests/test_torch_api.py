@@ -185,7 +185,7 @@ PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels._launch", "ops.kernels.fused", "ops.kernels.staged",
                 "ops.kernels.so_fused", "ops.kernels.so_staged",
                 "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
-                "ops.freeflyer", "ops.contact",
+                "ops.freeflyer", "ops.contact", "ops.terrain",
                 "ops.kernels.multidof_fused", "ops.kernels.multidof_staged",
                 "models.robot", "utils.golden")
 
@@ -195,8 +195,9 @@ def test_port_imports_no_jax():
     the single-kernel families on iiwa-14 and the staged ones on Atlas, the
     three second-order entries (on the double pendulum, to stay quick), the
     four multi-dof entries (on the ball arm), the two multi-dof
-    gradients of free Atlas (the staged multi-dof pipeline) and the
-    free-flyer FD and stance FD (on the 3-link chain)."""
+    gradients of free Atlas (the staged multi-dof pipeline), the
+    free-flyer FD and stance FD, and the ground step (flat and on a
+    heightfield) and its rollout (on the 3-link chain)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -257,6 +258,18 @@ def test_port_imports_no_jax():
         "assert [tuple(o.shape) for o in outs] == [(2, 6), (2, 3)] * 3 + "
         "[(2, 3)]\n"
         "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
+        "terr = gt.bumpy_terrain(extent=2.0, cell=0.25, dtype=torch.float64, "
+        "device='cpu')\n"
+        "state = (quat, pos, q, vb, q)\n"
+        "for kw in ({}, {'terrain': terr}):\n"
+        "    nxt, imp = gt.fb_step_ground_batched(m, state, q, 1e-3, (2,), "
+        "[[0.1, 0.0, 0.0]], **kw)\n"
+        "    assert [tuple(o.shape) for o in (*nxt, imp)] == [(2, 4), (2, 3), "
+        "(2, 3), (2, 6), (2, 3), (2, 1, 3)]\n"
+        "    assert all(bool(torch.isfinite(o).all()) for o in (*nxt, imp))\n"
+        "final, imps = gt.fb_simulate_ground_batched(m, state, q.expand(3, -1,"
+        " -1), 1e-3, (2,), [[0.1, 0.0, 0.0]])\n"
+        "assert tuple(imps.shape) == (3, 2, 1, 3)\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"
         "print('ok')\n")
