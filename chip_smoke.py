@@ -14,8 +14,10 @@ kernels/csrc`` and runs, on ``cuda:0``:
    Atlas), with the staged multi-dof unit of every multi-dof robot the
    routes phase or phase 1 takes through it, and of three free flyers
    (HyQ, Atlas, a 3-link chain: the ABA and mass-matrix library and the
-   stance library of their feet), all at once (nvcc seconds and ptxas's
-   register / stack frame / spill report per kernel);
+   stance library of their feet), and the ground steps' libraries (the md
+   step of the ball ant from MJCF with and without its torso sphere and of
+   free HyQ; HyQ's step with its ground geoms), all at once (nvcc seconds
+   and ptxas's register / stack frame / spill report per kernel);
 1. every kernel against its plain PyTorch version at a ragged B = 1000
    (the B = 4096 heads of phases 2 and A check the main-path kernels at a
    full tile), in float64 and float32: the single-kernel families on iiwa-14
@@ -34,8 +36,16 @@ kernels/csrc`` and runs, on ``cuda:0``:
    a Delassus ridge, the ground step flat and on a 121² and a 151² height
    grid, with and without a push, a soft contact and restitution, μ per
    environment and foot) on free-flyer HyQ, Atlas and the chain, and in
-   float64 with armature; the step's float32 checks leave out, and count,
-   the states with a foot within 1e-5 of a contact switch;
+   float64 with armature; HyQ's step with its 14 ground-geom contacts
+   (bench_contact.py:230-234) flat and on the 121² grid; the md step
+   (md_step.cu) on the ball ant with its torso sphere, with softness,
+   restitution and the knees' projected limits, with its feet only, and on
+   free HyQ; the step's float32 checks leave out, and count, the states
+   with a contact within 1e-5 of a switch, and the float64 checks with
+   ground geoms the states whose plain version moves by more than 1e-13
+   under ± 2e-16 input changes (near-duplicate contacts make the Delassus
+   matrix rank-deficient there); then free HyQ's md step against its
+   free-flyer step on 4096 float64 states (v⁺ and impulses, 1e-10);
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -77,8 +87,8 @@ F. the free-flyer paths at B = 2¹⁸, float32, on HyQ (four feet) and Atlas
    and without Baumgarte) against their constraint and dynamics equations;
    then the three kernels' times and bounds at both robots, the API times,
    the batched ``torch.linalg.cholesky`` + ``cholesky_solve`` pair on the
-   same mass matrices, and profiler breakdowns of HyQ's stance and Atlas's
-   ABA (in a child process);
+   same mass matrices (the profiler breakdowns of HyQ's stance and Atlas's
+   ABA come from phase 3 ground step's child process);
 S. the frictional ground step at B = 2¹⁸, float32, through
    ``fb_step_ground_batched`` (benchmarks/bench_contact.py's states, μ 0.8,
    30 sweeps): HyQ's four feet on the flat ground and on the bench's
@@ -89,7 +99,18 @@ S. the frictional ground step at B = 2¹⁸, float32, through
    invariants on 4096 states of each free flyer (a unit quaternion, pn ≥ 0
    and 0 where inactive, the friction cone, a rollout equal to its steps);
    then the step kernels' times and bounds, API times and env-steps/s, and
-   profiler breakdowns of HyQ's two steps (in a child process).
+   profiler breakdowns (in one child process: the free-flyer kernels',
+   HyQ's two steps and the two cells below); then the
+   multi-dof step through ``md_step_ground_batched`` on the ball ant (feet
+   and torso sphere, μ 0.7 / 0.6, dt 2e-3; bench_contact.py:258-295) and
+   HyQ's step with its ground geoms (bench_contact.py:225-256), 2¹⁸
+   float32, one launch a call, heads against the plain versions, the
+   active-contact shares, float64 invariants of the md step on 4096 ball-ant
+   states (unit quaternions, pn ≥ 0 and 0 off contact, the friction cones
+   with each contact's μ, the knees inside their projected limits), and
+   both kernels' times, bounds, API times and frames; their profiles come
+   from phase 3 ground step's child process (alone:
+   ``chip_smoke.py --step-profile``).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -128,6 +149,9 @@ from gridcodegenerator_tpu_torch.ops import contact as tct
 from gridcodegenerator_tpu_torch.ops import freeflyer as tff
 from gridcodegenerator_tpu_torch.ops import terrain as ttr
 from gridcodegenerator_tpu_torch.ops.kernels import contact_fused as cff
+from gridcodegenerator_tpu_torch.ops.kernels import md_contact_fused as mdsf
+from gridcodegenerator_tpu_torch.ops import md_blops as tmdb
+from gridcodegenerator_tpu_torch.ops import md_contact as tmc
 
 SEED = 0
 MAIN_B = 1 << 18
@@ -148,7 +172,6 @@ ATLAS_HEAD_FACTOR = 2.0
 REL_TOL = {torch.float64: 1e-11, torch.float32: 1e-5}
 F32_PLAIN_FACTOR = 2.0
 TIMED_CALLS = 10
-PLAIN_BUDGET_MS = 1500.0   # fewer timed calls for plain versions above it
 PHASE1_B = 1000            # ragged: not a multiple of the 128-thread block
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
 # and HBM3
@@ -161,6 +184,7 @@ SO_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/so.cu"
 MD_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md.cu"
 MD_STAGED_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md_staged.cu"
 FF_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/ff.cu"
+MD_STEP_SRC = "gridcodegenerator_tpu_torch/ops/kernels/csrc/md_step.cu"
 # second order: 2¹⁶ states (e.g. 512 DDP rollouts × 128 knots); the plain
 # versions are timed at a quarter of it and scaled
 HESS_B = 1 << 16
@@ -286,6 +310,42 @@ STEP_INV_T = 4
 QUAT_TOL = 1e-12         # | ‖quat⁺‖ − 1 |
 CONE_TOL = 1e-9          # ‖pt‖ ≤ μ·pn + CONE_TOL
 STEP_OPS_STATES = 16     # the bound's operations, averaged over these
+# HyQ's ground geoms (bench_contact.py:230-234): a torso capsule on the
+# base and a capsule along each shin, 4 + 10 contacts; their μ_ground
+STEP_GEOMS = dict(links=(-1, 2, 5, 8, 11),
+                  a=[[-0.35, 0.0, -0.02]] + [[0.0, 0.0, 0.0]] * 4,
+                  b=[[0.35, 0.0, -0.02]] + [[0.3, 0.0, 0.0]] * 4,
+                  r=[0.18, 0.03, 0.03, 0.03, 0.03])
+STEP_MU_GROUND = 0.6
+# the checks of a step with ground geoms hold each round-off-sensitive state
+# on its own: one whose plain float64 version moves by more than REL_TOL /
+# SENS_MARGIN of the checked dtype when its inputs move by ± about one ulp
+# of that dtype (SENS_ULP, relative; the largest move of SENS_DRAWS random
+# draws). Near-duplicate contacts (a shin tip beside its foot) make the
+# Delassus G rank-deficient, and the PGS sweeps then amplify round-off, so
+# no two orderings of the same sums agree there to REL_TOL. Such a state's
+# error may reach SENS_C times its measured sensitivity (in float32 the
+# larger of that and the plain float32 version's own error there); every
+# other state takes the normwise check.
+SENS_ULP = {torch.float64: 2e-16, torch.float32: 6e-8}
+SENS_DRAWS = 8
+SENS_MARGIN = 10.0
+SENS_C = 10.0
+# the multi-dof step (bench_contact.py:258-295): the ball ant from MJCF
+# (free joint, four ball hips, four hinge knees; nq 27, nv 22), its four
+# foot sites and its torso sphere (r 0.18, μ_ground 0.6), dt 2e-3, μ 0.7
+MD_STEP_DT = 2e-3
+MD_STEP_MU = 0.7
+MD_TORSO = dict(links=(0,), a=[[0.0, 0.0, 0.0]], r=0.18)
+# phase 1's md cases: name → (robot, with the torso sphere, with softness
+# + restitution + the knees' projected limits)
+MD_STEP_CASES = {"md_step_ground": ("ball_ant", True, False),
+                 "md_step_ground_soft_limits": ("ball_ant", True, True),
+                 "md_step_ground_feet": ("ball_ant", False, False),
+                 "md_step_ground_free_hyq": ("free_hyq", False, False)}
+MD_KNEE_LIMITS = (0.2, 1.2)   # each knee's range in the limits case
+MD_CROSS_STATES = 4096   # md step vs the free-flyer step, float64
+MD_CROSS_TOL = 1e-10
 
 
 @contextmanager
@@ -667,12 +727,31 @@ def step_terrain(grid, dtype, device="cuda"):
                                    device=device))
 
 
-def step_fns(label, grid, opts, dtype, device="cuda"):
+@functools.lru_cache(maxsize=None)
+def step_geoms(dtype, device="cuda"):
+    """HyQ's ground geoms (STEP_GEOMS) in ``dtype`` on ``device``."""
+    g = STEP_GEOMS
+    return gt.make_geoms(g["links"], g["a"], g["b"], g["r"], dtype=dtype,
+                         device=device)
+
+
+def step_contacts(label, geoms):
+    """The contact count of a step: the robot's feet, and HyQ's geoms'
+    endpoint spheres with ``geoms``."""
+    return (len(FF_ROBOTS[label][1])
+            + (gt.n_ground_contacts(step_geoms(torch.float64, "cpu"))
+               if geoms else 0))
+
+
+def step_fns(label, grid, opts, dtype, device="cuda", geoms=False):
     """A ground step's kernel and its plain version, each f(m, quat, pos,
-    q, vb, qd, tau, mu[, push]) → (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, p (3k, B)),
-    batch last: the robot's feet on the flat ground or the grid ``grid``,
-    and with ``opts`` a soft contact (STEP_SOFT) and restitution."""
+    q, vb, qd, tau, mu[, push]) → (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, p (3k_t, B)),
+    batch last: the robot's feet (and with ``geoms`` HyQ's ground geoms) on
+    the flat ground or the grid ``grid``, and with ``opts`` a soft contact
+    (STEP_SOFT) and restitution."""
     links, off, _ = ff_geometry(label)
+    gg = step_geoms(dtype, device) if geoms else None
+    static = cff.ground_geoms_static(gg)
     kw = dict(iters=STEP_ITERS, margin=STEP_MARGIN)
     if opts:
         erp, soft = tct.soft_contact_params(*STEP_SOFT, STEP_DT)
@@ -684,21 +763,22 @@ def step_fns(label, grid, opts, dtype, device="cuda"):
         push = s[7] if len(s) > 7 else None
         if terr is None:
             return cff.step_ground_fused(m, *s[:7], STEP_DT, links, off,
-                                         push=push, **kw)
+                                         push=push, ground_geoms=gg, **kw)
         return cff.step_ground_terrain_fused(m, *s[:7], STEP_DT, links, off,
-                                             terr, push=push, **kw)
+                                             terr, push=push,
+                                             ground_geoms=gg, **kw)
 
     def plain(m, *s):
         return cff.step_ground_plain(m, *s[:7], STEP_DT, links, off,
                                      push=s[7] if len(s) > 7 else None,
-                                     terrain=terr, **kw)
+                                     terrain=terr, ground_static=static, **kw)
     return kern, plain
 
 
-def step_inputs(m, B, gen, label, opts):
-    """A step's μ (k, B), per environment and foot in [0.3, 1.0], and with
-    ``opts`` a base push (6, B) of ± STEP_PUSH."""
-    k = len(FF_ROBOTS[label][1])
+def step_inputs(m, B, gen, label, opts, geoms=False):
+    """A step's μ (k_t, B), per environment and contact in [0.3, 1.0], and
+    with ``opts`` a base push (6, B) of ± STEP_PUSH."""
+    k = step_contacts(label, geoms)
     mu = torch.rand((k, B), generator=gen, device="cuda", dtype=m.dtype)
     out = [mu * 0.7 + 0.3]
     if opts:
@@ -707,29 +787,45 @@ def step_inputs(m, B, gen, label, opts):
     return out
 
 
-def step_feet(m, quat, pos, q, label, grid):
-    """The feet of batch-last states in float64: their gaps (k, B) — along
-    the surface normal on the grid ``grid`` — and their world positions
-    (k (3, B))."""
+def step_feet(m, quat, pos, q, label, grid, geoms=False):
+    """The contacts of batch-last states in float64 — the feet, and with
+    ``geoms`` HyQ's geom spheres: their gaps (k_t, B), along the surface
+    normal on the grid ``grid``, and their world points (k_t (3, B); a
+    sphere's centre)."""
     m64 = m.to(dtype=torch.float64)
     quat, pos, q = (x.double() for x in (quat, pos, q))
     links, off, _ = ff_geometry(label)
+    static = cff.ground_geoms_static(step_geoms(torch.float64, "cpu")
+                              if geoms else None)
+    glinks = tuple(l for l in cff.geom_links(static) if l >= 0)
     X = blops.joint_transforms_bl(
-        m64.arm, q, joints=cff._support(m64.arm.topology, links))
+        m64.arm, q, joints=cff._support(m64.arm.topology, links + glinks))
     R = cff._quat_rot_s(quat)
-    J, xs = cff._ff_contact_rows_s(m64, X, R, links, off)
+    fk = cff._fk_s(m64.arm, X, cff._support(m64.arm.topology,
+                                            links + glinks))
+    J, xs = cff._ff_contact_rows_s(m64, X, R, links, off, fk)
     terr = step_terrain(grid, m.dtype, q.device.type)
     if terr is not None:
         terr = ttr.placed(terr, q.device, torch.float64)[0]
     gaps, _ = cff._ground_rows(R, pos, J, xs, 0.0, STEP_MARGIN, terr)
-    return torch.cat(gaps), [pos + cff._mv3s(R, x) for x in xs]
+    points = [pos + cff._mv3s(R, x) for x in xs]
+    if static:
+        _, g_gaps, _ = cff._ground_geom_rows(m64, R, pos, *fk, static, 0.0,
+                                             STEP_MARGIN, terr)
+        gaps = gaps + g_gaps
+        one = pos[0:1] * 0.0 + 1.0
+        points += [pos + cff._mv3s(R, torch.cat([one * c for c in e])
+                                   if l < 0 else
+                                   fk[1][l] + cff._mv3s_c(fk[0][l], e))
+                   for l, e, _ in static]
+    return torch.cat(gaps), points
 
 
-def step_switches(m, s, label, grid):
-    """(keep (B,), gaps (k, B)): ``keep`` marks the states none of whose
-    feet lies within STEP_SWITCH of a switch — its float64 gap of the
+def step_switches(m, s, label, grid, geoms=False):
+    """(keep (B,), gaps (k_t, B)): ``keep`` marks the states none of whose
+    contacts lies within STEP_SWITCH of a switch — its float64 gap of the
     margin, or (on a grid) its position of a cell edge, in cells."""
-    gaps, feet = step_feet(m, *s[:3], label, grid)
+    gaps, feet = step_feet(m, *s[:3], label, grid, geoms)
     near = (gaps - STEP_MARGIN).abs().lt(STEP_SWITCH).any(0)
     terr = step_terrain(grid, m.dtype, s[0].device.type)
     if terr is not None:
@@ -789,7 +885,8 @@ def phase0_toolchain():
 
 
 _PTXAS_NAME = re.compile(
-    r"(md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf|md_minv"
+    r"(md_step_ground|md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf"
+    r"|md_minv"
     r"|md_grad_cols|fb_aba|fb_fd|stance_fd|step_ground|fd_grad|id_grad"
     r"|minv_dense|minv"
     r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
@@ -829,6 +926,22 @@ def _with_staged(m):
     return tuple(dict.fromkeys(units + (_build.MD_STAGED_UNIT,)))
 
 
+def step_builds():
+    """The ground steps' libraries this slice adds, label → (model, contact
+    links): the md step of the ball ant with and without its torso sphere
+    and of free HyQ, and HyQ's free-flyer step with its ground geoms."""
+    feet, _, _ = md_step_contacts("ball_ant", True)
+    gl = cff.geom_links(cff.ground_geoms_static(step_geoms(torch.float64, "cpu")))
+    return {
+        "ball_ant (md step, torso)": (md_step_model("ball_ant"), feet + (0,)),
+        "ball_ant (md step, feet)": (md_step_model("ball_ant"), feet),
+        "free_hyq (md step)": (md_step_model("free_hyq"),
+                               md_step_contacts("free_hyq", False)[0]),
+        "hyq (free flyer, ground geoms)": (ff_model("hyq"),
+                                           FF_ROBOTS["hyq"][1] + gl),
+    }
+
+
 def build_all(models, staged=(), links=None):
     """Build every topology at once (one nvcc per source and topology), the
     staged multi-dof unit too for the labels in ``staged``, a free flyer's
@@ -852,6 +965,9 @@ def build_all(models, staged=(), links=None):
         if hasattr(m, "I_base"):
             what = (f"free flyer, contact links {links[label]}"
                     if links.get(label) else "free flyer")
+        elif hasattr(m, "nv") and links.get(label):
+            what = (f"nq={m.nq}, nv={m.nv}, the ground step of contact "
+                    f"links {links[label]}")
         elif hasattr(m, "nv"):
             what = (f"nq={m.nq}, nv={m.nv}, single-thread gradient kernels "
                     f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}"
@@ -870,44 +986,119 @@ def build_all(models, staged=(), links=None):
 
 
 # ---------------------------------------------------------------- phase 1
-def check_against_plain(tag, got, plain, m, args, keep=None):
+def state_errors(got, ref):
+    """Each state's largest error of ``got`` against ``ref`` (B,), every
+    output relative to its largest magnitude over the batch (at least 1),
+    as ``compare`` scales it."""
+    err = None
+    for a, b in zip(_as_tuple(got), _as_tuple(ref)):
+        d = ((a.double() - b.double()).abs().reshape(-1, a.shape[-1]).amax(0)
+             / b.double().abs().max().clamp(min=1.0))
+        err = d if err is None else torch.maximum(err, d)
+    return err
+
+
+def sensitivity(plain, m64, args64, ref, dtype):
+    """Each state's sensitivity (B,) for a check in ``dtype``: the largest
+    move of the plain float64 version's outputs ``ref`` (state_errors) when
+    every input moves by a random ± SENS_ULP[dtype] relative, over
+    SENS_DRAWS draws (in one call: the draws side by side in the batch)."""
+    B = args64[0].shape[-1]
+    gen = torch.Generator(device=args64[0].device)
+    gen.manual_seed(SEED)
+    moved = [(x.repeat(*(1,) * (x.dim() - 1), SENS_DRAWS)
+              * (1 + (torch.rand(x.shape[:-1] + (SENS_DRAWS * B,),
+                                 generator=gen, device=x.device,
+                                 dtype=x.dtype) * 2 - 1) * SENS_ULP[dtype]))
+             for x in args64]
+    outs = _as_tuple(plain(m64, *moved))
+    return torch.stack([state_errors(tuple(o[..., d * B:(d + 1) * B]
+                                           for o in outs), ref)
+                        for d in range(SENS_DRAWS)]).amax(0)
+
+
+def check_sensitive(got, ref, scale, sel, tol):
+    """Hold each state of the mask ``sel`` on its own: its error against
+    ``ref`` (state_errors) at most max(tol, SENS_C·scale) there. Returns
+    (ok, the log's account, the max abs error there)."""
+    if not bool(sel.any()):
+        return True, "; no state is round-off-sensitive", 0.0
+    err = state_errors(got, ref)[sel]
+    ratio = float((err / (SENS_C * scale[sel]).clamp(min=tol)).max())
+    _, _, ab = compare(tuple(o[..., sel] for o in _as_tuple(got)),
+                       tuple(o[..., sel] for o in _as_tuple(ref)))
+    return ratio <= 1.0, (
+        f"; {int(sel.sum())} of {sel.numel()} states round-off-sensitive "
+        f"(sensitivity up to {float(scale[sel].max()):.3e}), each held to "
+        f"max(tol, {SENS_C:g}x its own): worst error {float(err.max()):.3e},"
+        f" worst error/bound {ratio:.3f} {'ok' if ratio <= 1.0 else 'FAIL'}"
+        ), ab
+
+
+def check_against_plain(tag, got, plain, m, args, keep=None,
+                        sensitive=False):
     """Hold a kernel's output to its plain version on the same inputs: in
     float64 directly; in float32 against the plain version run in float64
     on the same (upcast) inputs, beside the plain float32 version's own
     error against that reference — on the states ``keep`` (a (B,) mask)
     only, where it is given: a ground step's states whose float64 gap or
-    cell position lies within rounding of a switch (step_exclusions).
-    Returns (max abs error, normwise relative error)."""
+    cell position lies within rounding of a switch (step_exclusions). With
+    ``sensitive``, the round-off-sensitive states are held each on its own
+    (check_sensitive) and the rest normwise. Returns (max abs error,
+    normwise relative error)."""
+    sens_ok, note, s_ab = True, "", 0.0
     if m.dtype == torch.float64:
         ref = plain(m, *args)
         tol = REL_TOL[m.dtype]
-        extra = ""
+        if sensitive:
+            sens = sensitivity(plain, m, args, ref, m.dtype)
+            out = sens > tol / SENS_MARGIN
+            sens_ok, note, s_ab = check_sensitive(got, ref, sens, out, tol)
+            got, ref = (tuple(o[..., ~out] for o in _as_tuple(x))
+                        for x in (got, ref))
+        extra = note
     else:
-        ref = plain(m.to(dtype=torch.float64), *(x.double() for x in args))
+        m64, args64 = m.to(dtype=torch.float64), [x.double() for x in args]
+        ref = plain(m64, *args64)
         plain32 = plain(m, *args)
-        if keep is not None:
-            got, ref, plain32 = (tuple(o[..., keep] for o in _as_tuple(x))
+        rest = keep
+        if sensitive:
+            sens = sensitivity(plain, m64, args64, ref, m.dtype)
+            out = sens > REL_TOL[m.dtype] / SENS_MARGIN
+            if keep is not None:
+                out = out & keep
+            rest = ~out if keep is None else keep & ~out
+            scale = torch.maximum(sens, state_errors(plain32, ref))
+            s_got, s_ref = got, ref
+        if rest is not None:
+            got, ref, plain32 = (tuple(o[..., rest] for o in _as_tuple(x))
                                  for x in (got, ref, plain32))
         p_rel, p_st, _ = compare(plain32, ref)
         k_rel, k_st, _ = compare(got, plain32)
         del plain32
         tol = max(REL_TOL[m.dtype], F32_PLAIN_FACTOR * p_rel)
+        if sensitive:
+            sens_ok, note, s_ab = check_sensitive(s_got, s_ref, scale, out,
+                                                  tol)
         extra = (f"; plain f32 vs f64 plain: rel {p_rel:.3e} (per-state "
                  f"{p_st:.3e}); kernel vs plain f32: rel {k_rel:.3e} "
                  f"(per-state {k_st:.3e})")
         if keep is not None:
             extra += (f"; {int((~keep).sum())} of {keep.numel()} states "
                       f"left out near a switch")
+        extra += note
     rel, st, ab = compare(got, ref)
-    ok = rel <= tol
+    ok = rel <= tol and sens_ok
+    ab = max(ab, s_ab)
     log(f"{tag}: rel {rel:.3e} (per-state {st:.3e}, abs {ab:.3e}) tol "
-        f"{tol:.1e} {'ok' if ok else 'FAIL'}{extra}")
+        f"{tol:.1e}{' (the other states)' if note else ''} "
+        f"{'ok' if ok else 'FAIL'}{extra}")
     if not ok:
         raise RuntimeError(f"{tag}: kernel disagrees with its plain version")
     return ab, rel
 
 
-def run_pair(tag, key, kern, plain, m, args, keep=None):
+def run_pair(tag, key, kern, plain, m, args, keep=None, sensitive=False):
     """Launch a kernel once, check that it launched and is finite, and
     hold it to its plain version; returns (max abs error, relative)."""
     before = _launch.LAUNCHES[key]
@@ -915,7 +1106,7 @@ def run_pair(tag, key, kern, plain, m, args, keep=None):
     torch.cuda.synchronize()
     expect_launch(key, before, tag)
     check_finite(tag, got)
-    return check_against_plain(tag, got, plain, m, args, keep)
+    return check_against_plain(tag, got, plain, m, args, keep, sensitive)
 
 
 def phase1_second_order(label, m, q, qd, u, gen):
@@ -1050,6 +1241,201 @@ def phase1_free_flyer(gen):
                          else "step_ground_terrain", kern, plain, m,
                          (*s, *step_inputs(m, PHASE1_B, gen, label, opts)),
                          keep)
+            if label != "hyq" or arm is not None:
+                continue
+            # HyQ with its ground geoms (14 contacts), flat and on the grid
+            for grid in (None, "121"):
+                kern, plain = step_fns(label, grid, False, dtype, geoms=True)
+                f64 = dtype == torch.float64
+                run_pair(f"{tag} step_ground{'' if grid is None else '_terrain'}"
+                         f"_geoms ({step_contacts(label, True)} contacts)",
+                         "step_ground" if grid is None
+                         else "step_ground_terrain", kern, plain, m,
+                         (*s, *step_inputs(m, PHASE1_B, gen, label, False,
+                                           geoms=True)),
+                         None if f64 else step_switches(m, s, label, grid,
+                                                        geoms=True)[0],
+                         sensitive=True)
+
+
+# ------------------------------------------------------ the multi-dof step
+@functools.lru_cache(maxsize=None)
+def ant_geometry():
+    """The ball ant's MJCF document, its foot links and offsets (k, 3)."""
+    src = zoo.ball_ant_mjcf()
+    sites = gt.mjcf_sites(src)
+    return (src, tuple(sites[f"foot{k}"].link for k in range(4)),
+            np.stack([sites[f"foot{k}"].pos for k in range(4)]))
+
+
+def md_step_model(label, dtype=torch.float32, device="cuda"):
+    """The ball ant (from MJCF) or free HyQ as a multi-dof model."""
+    desc = gt.parse_mjcf(ant_geometry()[0]) if label == "ball_ant" else (
+        gt.parse_urdf(zoo.with_free_joint(FF_ROBOTS["hyq"][0])))
+    return gt.multidof_model_from_description(desc, dtype=dtype,
+                                              device=device)
+
+
+def md_step_contacts(label, torso):
+    """(feet links, offsets, ground geoms or None) of a multi-dof step: the
+    ball ant's feet (and torso sphere), free HyQ's feet (links shifted by
+    its free joint)."""
+    if label == "ball_ant":
+        _, feet, offs = ant_geometry()
+    else:
+        feet = tuple(l + 1 for l in FF_ROBOTS["hyq"][1])
+        offs = np.tile(FF_ROBOTS["hyq"][2], (len(feet), 1))
+    return feet, offs, torso
+
+
+@functools.lru_cache(maxsize=None)
+def md_torso(dtype, device="cuda"):
+    t = MD_TORSO
+    return gt.make_geoms(t["links"], t["a"], r=t["r"], dtype=dtype,
+                         device=device)
+
+
+def md_knee_limits(m):
+    """(lo, hi) (nq,): the ball ant's knees in MD_KNEE_LIMITS, ±inf on the
+    free and ball slots."""
+    lo = torch.full((m.nq,), -float("inf"), dtype=torch.float64)
+    hi = torch.full((m.nq,), float("inf"), dtype=torch.float64)
+    for i, t in enumerate(m.joint_types):
+        if t == "revolute":
+            lo[m.q_slices[i][0]], hi[m.q_slices[i][0]] = MD_KNEE_LIMITS
+    return lo, hi
+
+
+def md_step_fns(label, torso, opts, dtype, device="cuda"):
+    """The md step's kernel and its plain version, each f(m, q, qd, tau,
+    mu) → (q⁺ (nq, B), v⁺ (nv, B), p (3k_t, B)), batch last; with ``opts``
+    a soft contact, restitution and the knees' limits projected after the
+    step (as the entry does)."""
+    feet, offs, _ = md_step_contacts(label, torso)
+    gg = md_torso(dtype, device) if torso else None
+    static = cff.ground_geoms_static(gg)
+    kw = dict(iters=STEP_ITERS, margin=STEP_MARGIN)
+    if opts:
+        erp, soft = tct.soft_contact_params(*STEP_SOFT, MD_STEP_DT)
+        kw.update(erp=float(erp), softness=float(soft),
+                  restitution=STEP_RESTITUTION)
+
+    def limited(m, out):
+        if not opts:
+            return out
+        lo, hi = md_knee_limits(m)
+        q2, v2 = tmc.md_project_joint_limits(m, out[0].T, out[1].T, lo, hi)
+        return q2.T, v2.T, out[2]
+
+    def kern(m, *s):
+        return limited(m, mdsf.md_step_ground_fused(
+            m, *s, MD_STEP_DT, feet, offs, ground_geoms=gg, **kw))
+
+    def plain(m, *s):
+        return limited(m, mdsf.md_step_ground_plain(
+            m, *s, MD_STEP_DT, feet, offs, ground_static=static, **kw))
+    return kern, plain
+
+
+def md_step_states(m, B, gen, device="cuda"):
+    """bench_contact.py's md states (:277-285): neutral_q ⊕ a tangent step
+    in U(±0.25), the base height raised by U(0, 0.15) (feet and torso in
+    touch range), q̇ ± 0.4, τ ± 3 — (q, qd, tau), batch first."""
+    def uni(d, r):
+        return (torch.rand((B, d), generator=gen, device=device,
+                           dtype=m.dtype) * (2 * r) - r)
+    q = gt.md_tangent_apply(m, gt.neutral_q(m).expand(B, -1), uni(m.nv, 0.25))
+    q[:, 6] += torch.rand(B, generator=gen, device=device,
+                          dtype=m.dtype) * 0.15
+    return q, uni(m.nv, 0.4), uni(m.nv, 3.0)
+
+
+def md_step_gaps(m, q, label, torso):
+    """Float64 gaps (k_t, B) of batch-last md states: the feet's, then the
+    torso sphere's less its radius."""
+    feet, offs, _ = md_step_contacts(label, torso)
+    m64 = m.to(dtype=torch.float64)
+    q = q.double()
+    static = cff.ground_geoms_static(md_torso(torch.float64, q.device.type)
+                              if torso else None)
+    contacts = ([(l, [float(x) for x in offs[i]], 0.0)
+                 for i, l in enumerate(feet)]
+                + [(l, list(e), r) for l, e, r in static])
+    Rs, ps = cff._fk_s(m64, tmdb.md_transforms_bl(m64, q),
+                       cff._support(m64.topology, [c[0] for c in contacts]))
+    return torch.cat([(ps[l] + cff._mv3s_c(Rs[l], e))[2:3] - r
+                      for l, e, r in contacts])
+
+
+def md_step_keep(m, q_bl, label, torso):
+    """The states none of whose contacts' float64 gap lies within
+    STEP_SWITCH of the margin."""
+    gaps = md_step_gaps(m, q_bl, label, torso)
+    return ~(gaps - STEP_MARGIN).abs().lt(STEP_SWITCH).any(0)
+
+
+def md_step_mu(m, B, gen, label, torso):
+    """μ (k_t, B): the feet's per environment in [0.3, 1.0], the torso
+    sphere's STEP_MU_GROUND."""
+    feet = md_step_contacts(label, torso)[0]
+    mu = (torch.rand((1, B), generator=gen, device="cuda", dtype=m.dtype)
+          * 0.7 + 0.3).expand(len(feet), B)
+    if torso:
+        mu = torch.cat([mu, torch.full((1, B), STEP_MU_GROUND,
+                                       dtype=m.dtype, device="cuda")])
+    return mu.contiguous()
+
+
+def phase1_md_step(gen):
+    """The md step kernel (md_step.cu) against its plain version at B =
+    1000, float64 and float32, in MD_STEP_CASES: the ball ant with its
+    torso sphere, with softness, restitution and the knees' projected
+    limits, its feet only, and free HyQ's feet. The float32 checks leave
+    out, and count, the states with a contact's float64 gap within
+    STEP_SWITCH of the margin."""
+    for name, (label, torso, opts) in MD_STEP_CASES.items():
+        for dtype in (torch.float64, torch.float32):
+            m = md_step_model(label, dtype)
+            s = [x.T.contiguous() for x in md_step_states(m, PHASE1_B, gen)]
+            mu = md_step_mu(m, PHASE1_B, gen, label, torso)
+            kern, plain = md_step_fns(label, torso, opts, dtype)
+            keep = (None if dtype == torch.float64
+                    else md_step_keep(m, s[0], label, torso))
+            run_pair(f"phase1 {label} {str(dtype)[6:]} B={PHASE1_B} {name}",
+                     "md_step_ground", kern, plain, m, (*s, mu), keep)
+
+
+def md_cross_check(gen):
+    """Free HyQ's md step against its free-flyer step on the same float64
+    states (ff_states: random attitudes, feet in and out of contact), μ
+    0.7: v⁺ and the impulses agree to MD_CROSS_TOL — two formulations of
+    one velocity step (tests/test_md_contact.py:49-88; the configurations
+    differ at O(dt²))."""
+    ffm = ff_model("hyq", torch.float64)
+    mdm = md_step_model("free_hyq", torch.float64)
+    quat, pos, q, vb, qd, tau = ff_states(ffm, MD_CROSS_STATES, gen, "hyq")
+    links, off, _ = ff_geometry("hyq")
+    B = MD_CROSS_STATES
+    mu = torch.full((len(links), B), MD_STEP_MU, dtype=torch.float64,
+                    device="cuda")
+    ff = cff.step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, STEP_DT,
+                               links, off, iters=STEP_ITERS)
+    feet, offs, _ = md_step_contacts("free_hyq", False)
+    md = mdsf.md_step_ground_fused(
+        mdm, torch.cat([quat, pos, q]), torch.cat([vb, qd]),
+        torch.cat([torch.zeros_like(vb), tau]), mu, STEP_DT, feet, offs,
+        iters=STEP_ITERS)
+    torch.cuda.synchronize()
+    rel, st, ab = compare((md[1], md[2]), (torch.cat([ff[3], ff[4]]), ff[5]))
+    active = float((ff[5][2::3] > 0).double().mean())
+    ok = rel <= MD_CROSS_TOL
+    log(f"phase1 md vs free-flyer step, free HyQ (f64, {B} states, "
+        f"{active:.1%} of feet pushed): v⁺ and impulses rel {rel:.3e} "
+        f"(per-state {st:.3e}, abs {ab:.3e}) tol {MD_CROSS_TOL:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the md step and the free-flyer step disagree")
+
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1523,13 +1909,12 @@ def time_ms(fn, args, calls=TIMED_CALLS, warmup=2):
 
 
 def time_plain_ms(fn, args):
-    """A plain version's time: fewer timed calls when one call is long."""
-    t0 = time.perf_counter()
+    """A plain version's time: one call after a first one (the warm-up).
+    A reference, not a claim: it is timed once to keep the script within
+    its budget."""
     fn(*args)
     torch.cuda.synchronize()
-    first = (time.perf_counter() - t0) * 1e3
-    calls = int(min(TIMED_CALLS, max(3, PLAIN_BUDGET_MS // max(first, 1e-3))))
-    return time_ms(fn, args, calls=calls, warmup=1), calls
+    return time_ms(fn, args, calls=1, warmup=0)
 
 
 class OpCount(TorchDispatchMode):
@@ -1639,10 +2024,10 @@ def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit,
     pass re-evaluates its primal), which the least work does once; bytes:
     the inputs and outputs, and ``const_bytes`` read once (a height
     grid)."""
-    p1, n1 = time_plain_ms(plain, (m, *args))
+    p1 = time_plain_ms(plain, (m, *args))
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
-    p2, n2 = time_plain_ms(plain, (m, *args))
+    p2 = time_plain_ms(plain, (m, *args))
     outs = _as_tuple(kern(m, *args))
     total = ops_per_state(plain, m, make_cpu_args, states)
     again = (0 if repeat is None
@@ -1653,7 +2038,7 @@ def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit,
     k, p = min(k1, k2), min(p1, p2)
     log(f"phase3 {name} {label} f32 B={args[0].shape[-1]}: kernel "
         f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (median of "
-        f"{TIMED_CALLS} / {n1},{n2}); bound {b_ms:.3f} ms by {b_by} "
+        f"{TIMED_CALLS} / 1); bound {b_ms:.3f} ms by {b_by} "
         f"({ops:.3e} ops = ({total:g} − {again:g}) a state, {nb:.3e} B, "
         f"{nb / args[0].shape[-1]:.0f} B a state; roofline share "
         f"{b_ms / k:.1%}); card {name_limit}")
@@ -1784,12 +2169,7 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
     B = args[0].shape[-1]
     Bp = B // PLAIN_SO_DIV
     pargs = tuple(a[..., :Bp].contiguous() for a in args)
-    t0 = time.perf_counter()
-    plain(m, *pargs)
-    torch.cuda.synchronize()
-    first = (time.perf_counter() - t0) * 1e3
-    calls = int(max(1, min(3, PLAIN_BUDGET_MS // max(first, 1e-3))))
-    p = time_ms(plain, (m, *pargs), calls=calls, warmup=0) * PLAIN_SO_DIV
+    p = time_plain_ms(plain, (m, *pargs)) * PLAIN_SO_DIV
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
     outs = _as_tuple(kern(m, *args))
@@ -1802,7 +2182,7 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
     k = min(k1, k2)
     log(f"phase3 {name} {label} f32 B={B}: kernel {k1:.3f}/{k2:.3f} ms "
         f"(median of {TIMED_CALLS}), plain {p:.3f} ms (scaled ×"
-        f"{PLAIN_SO_DIV} from B={Bp}, median of {calls}); bound {b_ms:.3f} ms"
+        f"{PLAIN_SO_DIV} from B={Bp}, one call); bound {b_ms:.3f} ms"
         f" by {b_by} ({ops:.3e} ops = ({total:g} − ({dirs * m.n} − 1)·"
         f"{once:g}) "
         f"a state, {nbytes(*args, *outs):.3e} B; roofline share "
@@ -2291,9 +2671,9 @@ def phase3_free_flyer(models, states):
     """Times of the ff.cu kernels and their plain versions at phase F's
     shapes, their bounds, the API times, the batched Cholesky pair
     (``torch.linalg.cholesky`` + ``torch.cholesky_solve``) on the same
-    mass matrices — the last step of the mass-matrix FD alone —, and
-    profiler breakdowns of HyQ's stance and Atlas's ABA (in a child
-    process)."""
+    mass matrices — the last step of the mass-matrix FD alone (profiler
+    breakdowns of HyQ's stance and Atlas's ABA come from phase 3 ground
+    step's child process, step_profile)."""
     name_limit = card()
     times = {}
     for name, (label, entry) in FF_TIMED.items():
@@ -2329,34 +2709,7 @@ def phase3_free_flyer(models, states):
             f"(the mass-matrix FD's last step alone; no PyTorch call "
             f"computes the free-flyer FD); card {name_limit}")
         del M, rhs
-    ff_profile()
     return times
-
-
-def ff_profile():
-    """Profiler breakdowns of HyQ's stance FD and Atlas's ABA at MAIN_B, in
-    a child process (see md_profile)."""
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--ff-profile"],
-        capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.splitlines():
-        log(line)
-    if proc.returncode != 0:
-        raise RuntimeError(f"profile child failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-3000:]}")
-
-
-def ff_profile_child():
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    name_limit = card()
-    for label, entry in (("hyq", "stance"), ("atlas", "aba")):
-        m = ff_model(label)
-        fn, _, kname = ff_entries(label)[entry]
-        s = ff_args(ff_states(m, MAIN_B, gen, label, layout="Bd"),
-                    ff_pairs(label)[kname][3])
-        profile_breakdown(fn, (m, *s), f"{fn.__name__} free {label} (a "
-                          f"fresh process)", name_limit)
 
 
 # ---------------------------------------------------------------- phase S
@@ -2433,9 +2786,7 @@ def step_cols(m, state, tau, label, k=None):
 
 def step_frame(m, label):
     """ptxas's line for the float32 step kernels of ``label``'s feet."""
-    lib = _build.library(m, None, FF_ROBOTS[label][1])
-    return [ln.strip() for ln in ptxas_report(lib.logs["ff.cu"])
-            if "step_ground<float" in ln]
+    return lib_frame(m, FF_ROBOTS[label][1], "ff.cu", "step_ground")
 
 
 def step_invariants(gen):
@@ -2639,8 +2990,10 @@ def phase3_ground_step(models, states):
 
 
 def step_profile():
-    """Profiler breakdowns of HyQ's flat and heightfield steps at MAIN_B,
-    in a child process (see md_profile)."""
+    """Profiler breakdowns of the free-flyer kernels, HyQ's flat and
+    heightfield steps, HyQ's step with ground geoms and the ball ant's md
+    step at MAIN_B, in one child process (step_profile_child; see
+    md_profile)."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--step-profile"],
         capture_output=True, text=True, timeout=600)
@@ -2652,15 +3005,281 @@ def step_profile():
 
 
 def step_profile_child():
+    """step_profile's child (``--step-profile``): profiler breakdowns of
+    HyQ's stance FD and Atlas's ABA, HyQ's flat and heightfield steps, the
+    ball ant's md step and HyQ's step with ground geoms, all at MAIN_B."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     name_limit = card()
+    for label, entry in (("hyq", "stance"), ("atlas", "aba")):
+        m = ff_model(label)
+        fn, _, kname = ff_entries(label)[entry]
+        s = ff_args(ff_states(m, MAIN_B, gen, label, layout="Bd"),
+                    ff_pairs(label)[kname][3])
+        profile_breakdown(fn, (m, *s), f"{fn.__name__} free {label} (a "
+                          f"fresh process)", name_limit)
     m = ff_model("hyq")
     state, tau = step_states(m, MAIN_B, gen, "hyq")
     for cell in ("hyq", "hyq_terrain"):
         fn = step_api(*STEP_PATHS[cell])
         profile_breakdown(fn, (m, state, tau), f"{fn.__name__} {cell} (a "
                           f"fresh process)", name_limit)
+    profile_breakdown(geoms_api, (m, *step_states(m, MAIN_B, gen, "hyq")),
+                      "fb_step_ground_batched hyq_geoms (a fresh process)",
+                      name_limit)
+    m = md_step_model("ball_ant")
+    fn = md_api(m)
+    profile_breakdown(fn, (m, *md_step_states(m, MAIN_B, gen)),
+                      f"{fn.__name__} ball_ant (a fresh process)",
+                      name_limit)
+
+
+# ------------------------------------------ phase S: md step, ground geoms
+def md_api(m, torso=True, **kw):
+    """Phase S's md call: md_step_ground_batched on batch-first states,
+    μ MD_STEP_MU, the torso sphere with STEP_MU_GROUND, STEP_ITERS
+    sweeps (bench_contact.py:270-274)."""
+    feet, offs, _ = md_step_contacts("ball_ant", torso)
+
+    def md_step_ground_batched(m, q, qd, tau):
+        return gt.md_step_ground_batched(
+            m, q, qd, tau, MD_STEP_DT, feet, offs, mu=MD_STEP_MU,
+            iters=STEP_ITERS, ground_geoms=md_torso(m.dtype, m.device.type)
+            if torso else None, mu_ground=STEP_MU_GROUND, **kw)
+    return md_step_ground_batched
+
+
+def geoms_api(m, state, tau):
+    """Phase S's ground-geom cell (bench_contact.py:236-240): HyQ's feet and
+    geoms, μ STEP_MU, μ_ground STEP_MU_GROUND."""
+    links, off, _ = ff_geometry("hyq")
+    return tct.fb_step_ground_batched(
+        m, state, tau, STEP_DT, links, off, mu=STEP_MU, iters=STEP_ITERS,
+        ground_geoms=step_geoms(m.dtype), mu_ground=STEP_MU_GROUND)
+
+
+def geoms_cols(m, state, tau, k=None):
+    """The first ``k`` HyQ states as the step kernel's batch-last
+    arguments, μ STEP_MU on the feet and STEP_MU_GROUND on the geoms."""
+    cols = [x[:k].T.contiguous() for x in (*state, tau)]
+    B = cols[0].shape[-1]
+    kf = len(FF_ROBOTS["hyq"][1])
+    mu = torch.cat([torch.full((kf, B), STEP_MU, dtype=m.dtype,
+                               device=cols[0].device),
+                    torch.full((step_contacts("hyq", True) - kf, B),
+                               STEP_MU_GROUND, dtype=m.dtype,
+                               device=cols[0].device)])
+    return cols + [mu]
+
+
+def md_cols(m, q, qd, tau, k=None):
+    """The first ``k`` md states as the kernel's batch-last arguments, μ
+    MD_STEP_MU on the feet and STEP_MU_GROUND on the torso."""
+    cols = [x[:k].T.contiguous() for x in (q, qd, tau)]
+    B = cols[0].shape[-1]
+    mu = torch.tensor([MD_STEP_MU] * 4 + [STEP_MU_GROUND], dtype=m.dtype,
+                      device=cols[0].device)[:, None].expand(5, B)
+    return cols + [mu.contiguous()]
+
+
+def _first_call(tag, fn, args, expect):
+    """Run a phase-S call with the counts set to 0 just before it; it must
+    make exactly the launches ``expect``. → (outputs, the counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    got = dict(_launch.LAUNCHES)
+    made = {k_: v for k_, v in got.items() if v}
+    log(f"{tag} B={MAIN_B} (first call): {time.perf_counter() - t0:.3f} s;"
+        f" launches {made}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    if made != expect:
+        raise RuntimeError(f"{tag}: launched {made}, not {expect}")
+    return out, got
+
+
+def md_invariants(gen):
+    """Float64 checks on STEP_INV_STATES ball-ant states through the entry
+    with the torso sphere and the knees' projected limits, that do not go
+    through the plain version: every quaternion of q⁺ (the free joint's
+    and the four ball hips') unit to QUAT_TOL, pn ≥ 0 and 0 where a
+    contact is inactive, ‖pt‖ ≤ μ·pn + CONE_TOL with each contact's own μ
+    (the torso's STEP_MU_GROUND), and the knees inside their limits."""
+    m = md_step_model("ball_ant", torch.float64)
+    q, qd, tau = md_step_states(m, STEP_INV_STATES, gen)
+    lo, hi = md_knee_limits(m)
+    (q2, v2), imp = md_api(m, limits=(lo, hi))(m, q, qd, tau)
+    gaps = md_step_gaps(m, q.T.contiguous(), "ball_ant", True)
+    active = (gaps < STEP_MARGIN).T                       # (B, 5)
+    quat_err = max(float((torch.linalg.vector_norm(q2[:, s:s + 4], dim=1)
+                          - 1).abs().max())
+                   for (s, w) in m.q_slices if w == 4 or w == 7)
+    mu = torch.tensor([MD_STEP_MU] * 4 + [STEP_MU_GROUND],
+                      dtype=torch.float64, device="cuda")
+    pn = imp[..., 2]
+    cone = float((torch.sqrt(imp[..., 0] ** 2 + imp[..., 1] ** 2)
+                  - mu * pn).max())
+    knees = [s for (s, w), t in zip(m.q_slices, m.joint_types)
+             if t == "revolute"]
+    inside = bool(((q2[:, knees] >= MD_KNEE_LIMITS[0])
+                   & (q2[:, knees] <= MD_KNEE_LIMITS[1])).all())
+    ok = (quat_err <= QUAT_TOL and float(pn.min()) >= 0.0
+          and not bool(pn[~active].any()) and cone <= CONE_TOL and inside)
+    tag = (f"phaseS md invariants ball_ant (f64, {STEP_INV_STATES} states, "
+           f"{float(active.double().mean()):.1%} of contacts active)")
+    log(f"{tag}: |‖quat⁺‖ − 1| {quat_err:.2e} over the free joint and four "
+        f"ball hips (bound {QUAT_TOL:.0e}), min pn {float(pn.min()):.3e}, "
+        f"pn where inactive "
+        f"{float(pn[~active].abs().max()) if (~active).any() else 0.0:.1e}, "
+        f"max ‖pt‖ − μ·pn {cone:.3e} (bound {CONE_TOL:.0e}), knees inside "
+        f"{MD_KNEE_LIMITS}: {inside} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{tag}: an invariant fails")
+
+
+def phaseS_md_and_geoms(gen):
+    """The multi-dof step through ``md_step_ground_batched`` on the ball ant
+    (feet and torso sphere) and HyQ's step with its ground geoms through
+    ``fb_step_ground_batched``, B = 2¹⁸, float32, bench_contact.py's
+    states: one launch a call, shapes, a 256-state head against the plain
+    version (the float32 rule, away from a switch), the share of active
+    contacts; then the md float64 invariants (md_invariants)."""
+    launches, max_abs, models, states = {}, {}, {}, {}
+    m = md_step_model("ball_ant")
+    q, qd, tau = md_step_states(m, MAIN_B, gen)
+    models["md"], states["md"] = m, (q, qd, tau)
+    tag = f"phaseS md_ball_ant (nq={m.nq}, nv={m.nv}, 5 contacts)"
+    ((q2, v2), imp), launches["md_ball_ant"] = _first_call(
+        tag, md_api(m), (m, q, qd, tau), {"md_step_ground": 1})
+    for o, shape in zip((q2, v2, imp), ((MAIN_B, m.nq), (MAIN_B, m.nv),
+                                        (MAIN_B, 5, 3))):
+        if o.device.type != "cuda" or tuple(o.shape) != shape:
+            raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+    check_finite(tag, (q2, v2, imp))
+    cols = md_cols(m, q, qd, tau, PARITY_STATES)
+    _, plain = md_step_fns("ball_ant", True, False, m.dtype)
+    head = (q2[:PARITY_STATES].T, v2[:PARITY_STATES].T,
+            imp[:PARITY_STATES].reshape(PARITY_STATES, 15).T)
+    max_abs["md_ball_ant"], _ = check_against_plain(
+        f"{tag} API vs plain ({PARITY_STATES} states)", head, plain, m, cols,
+        md_step_keep(m, cols[0], "ball_ant", True))
+    gaps = md_step_gaps(m, q[:STEP_INV_STATES].T.contiguous(), "ball_ant",
+                        True)
+    log(f"{tag}: {float((gaps < STEP_MARGIN).double().mean()):.1%} of the "
+        f"contacts active ({STEP_INV_STATES} states), "
+        f"{float((imp[..., 2] > 0).double().mean()):.1%} carrying a normal "
+        f"impulse (all states)")
+    del q2, v2, imp
+
+    m = ff_model("hyq")
+    state, tau = step_states(m, MAIN_B, gen, "hyq")
+    models["hyq_geoms"], states["hyq_geoms"] = m, (state, tau)
+    k = step_contacts("hyq", True)
+    tag = f"phaseS hyq_geoms (n={m.n}, {k} contacts)"
+    (nxt, imp), launches["hyq_geoms"] = _first_call(
+        tag, geoms_api, (m, state, tau), {"step_ground": 1})
+    for o, shape in zip((*nxt, imp), [(MAIN_B, d) for d in
+                                      (4, 3, m.n, 6, m.n)] + [(MAIN_B, k, 3)]):
+        if o.device.type != "cuda" or tuple(o.shape) != shape:
+            raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+    check_finite(tag, (*nxt, imp))
+    cols = geoms_cols(m, state, tau, PARITY_STATES)
+    head = (*(o[:PARITY_STATES].T for o in nxt),
+            imp[:PARITY_STATES].reshape(PARITY_STATES, 3 * k).T)
+    keep, _ = step_switches(m, cols, "hyq", None, geoms=True)
+    _, plain = step_fns("hyq", None, False, m.dtype, geoms=True)
+    max_abs["hyq_geoms"], _ = check_against_plain(
+        f"{tag} API vs plain ({PARITY_STATES} states)", head, plain, m, cols,
+        keep, sensitive=True)
+    _, gaps = step_switches(m, geoms_cols(m, state, tau, STEP_INV_STATES),
+                            "hyq", None, geoms=True)
+    log(f"{tag}: {float((gaps < STEP_MARGIN).double().mean()):.1%} of the "
+        f"contacts active ({STEP_INV_STATES} states; feet "
+        f"{float((gaps[:4] < STEP_MARGIN).double().mean()):.1%}, geoms "
+        f"{float((gaps[4:] < STEP_MARGIN).double().mean()):.1%}), "
+        f"{float((imp[..., 2] > 0).double().mean()):.1%} carrying a normal "
+        f"impulse (all states)")
+    del nxt, imp
+    md_invariants(gen)
+    return launches, max_abs, models, states
+
+
+def _md_cpu_step_states(mc, B):
+    gen = torch.Generator().manual_seed(SEED)
+    q, qd, tau = md_step_states(mc, B, gen, device="cpu")
+    return md_cols(mc, q, qd, tau)
+
+
+def _geoms_cpu_states(mc, B):
+    gen = torch.Generator().manual_seed(SEED)
+    state, tau = step_states(mc, B, gen, "hyq", device="cpu")
+    return geoms_cols(mc, state, tau)
+
+
+def lib_frame(m, links, unit, name):
+    """ptxas's lines for the float32 kernel ``name`` of a library."""
+    lib = _build.library(m, None, links)
+    return [ln.strip() for ln in ptxas_report(lib.logs[unit])
+            if f"{name}<float" in ln]
+
+
+def phase3_md_and_geoms(models, states):
+    """Times of the md step kernel and the step kernel with ground geoms
+    and their plain versions at phase S's shapes, their bounds (the
+    operations averaged over STEP_OPS_STATES CPU states drawn like the
+    timed ones, beside the share of active contacts there), the API times
+    and env-steps/s, the ptxas frames, and profiler breakdowns of both
+    calls (printed by phase 3 ground step's child process, step_profile).
+    No PyTorch call computes a PGS step: no library time."""
+    name_limit = card()
+    times = {}
+    m = models["md"]
+    q, qd, tau = states["md"]
+    kern, plain = md_step_fns("ball_ant", True, False, m.dtype)
+    mc = m.to(device="cpu", dtype=torch.float64)
+    gaps = md_step_gaps(mc, _md_cpu_step_states(mc, STEP_OPS_STATES)[0],
+                        "ball_ant", True)
+    log(f"phase3 md_step_ground: the bound's {STEP_OPS_STATES} CPU states "
+        f"have {float((gaps < STEP_MARGIN).double().mean()):.1%} of their "
+        f"contacts active; {STEP_ITERS} sweeps")
+    times["md_step_ground"] = time_entry(
+        "md_ball_ant", "md_step_ground", kern, plain, m,
+        md_cols(m, q, qd, tau), _md_cpu_step_states, name_limit,
+        states=STEP_OPS_STATES)
+    api = time_ms(md_api(m), (m, q, qd, tau))
+    feet = md_step_contacts("ball_ant", True)[0]
+    log(f"phase3 md_step_ground_batched API ball_ant B={MAIN_B}: {api:.3f} "
+        f"ms (median of {TIMED_CALLS}; {MAIN_B / api * 1e3:.3e} env-steps/s;"
+        f" kernel {times['md_step_ground']['ms']:.3f} ms, 1 launch a call); "
+        f"frame {lib_frame(m, feet + (0,), 'md_step.cu', 'md_step_ground')};"
+        f" card {name_limit}")
+
+    m = models["hyq_geoms"]
+    state, tau = states["hyq_geoms"]
+    kern, plain = step_fns("hyq", None, False, m.dtype, geoms=True)
+    mc = m.to(device="cpu", dtype=torch.float64)
+    _, gaps = step_switches(mc, _geoms_cpu_states(mc, STEP_OPS_STATES),
+                            "hyq", None, geoms=True)
+    log(f"phase3 step_ground[hyq_geoms]: the bound's {STEP_OPS_STATES} CPU "
+        f"states have {float((gaps < STEP_MARGIN).double().mean()):.1%} of "
+        f"their contacts active; {STEP_ITERS} sweeps")
+    times["step_ground[hyq_geoms]"] = time_entry(
+        "hyq_geoms", "step_ground[hyq_geoms]", kern, plain, m,
+        geoms_cols(m, state, tau), _geoms_cpu_states, name_limit,
+        states=STEP_OPS_STATES)
+    api = time_ms(geoms_api, (m, state, tau))
+    links = FF_ROBOTS["hyq"][1] + cff.geom_links(
+        cff.ground_geoms_static(step_geoms(m.dtype)))
+    log(f"phase3 fb_step_ground_batched API hyq_geoms B={MAIN_B}: "
+        f"{api:.3f} ms (median of {TIMED_CALLS}; "
+        f"{MAIN_B / api * 1e3:.3e} env-steps/s; kernel "
+        f"{times['step_ground[hyq_geoms]']['ms']:.3f} ms, 1 launch a call); "
+        f"frame {lib_frame(m, links, 'ff.cu', 'step_ground')}; card "
+        f"{name_limit}")
+    return times
 
 
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
@@ -2726,6 +3345,10 @@ RECORD = [
      TPU + "contact_fused.py:1531"),
     ("step_ground[atlas]", "step_ground", "step_atlas", FF_SRC,
      TPU + "contact_fused.py:1458"),
+    ("step_ground[hyq_geoms]", "step_ground", "step_hyq_geoms", FF_SRC,
+     TPU + "contact_fused.py:1458"),
+    ("md_step_ground", "md_step_ground", "step_md_ball_ant", MD_STEP_SRC,
+     TPU + "md_contact_fused.py:185"),
 ]
 
 
@@ -2751,11 +3374,15 @@ def main():
                       for label in MD_ROBOTS},
                    **{f"{label} (free flyer{', stance' if k else ''})":
                       ff_model(label)
-                      for label in FF_ROBOTS for k in (False, True)}},
+                      for label in FF_ROBOTS for k in (False, True)},
+                   **{label: model for label, (model, _) in
+                      step_builds().items()}},
                   staged={f"{label} (multi-dof)" for label in
                           (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
-                  links={f"{label} (free flyer, stance)": FF_ROBOTS[label][1]
-                         for label in FF_ROBOTS})
+                  links={**{f"{label} (free flyer, stance)":
+                            FF_ROBOTS[label][1] for label in FF_ROBOTS},
+                         **{label: links for label, (_, links) in
+                            step_builds().items()}})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
@@ -2763,6 +3390,8 @@ def main():
     phase1_multidof(gen)
     md_stage_abs = phase1_md_staged(gen)
     phase1_free_flyer(gen)
+    phase1_md_step(gen)
+    md_cross_check(gen)
     done("phase 1")
     m, launches, max_abs, parity = phase2_main_path(gen)
     done("phase 2")
@@ -2802,6 +3431,12 @@ def main():
     times.update(phase3_ground_step(st_models, st_st))
     del st_models, st_st
     done("phase 3 ground step")
+    md_launches2, md_max_abs2, md_models2, md_st2 = phaseS_md_and_geoms(gen)
+    st_launches.update(md_launches2)
+    done("phase S md step and ground geoms")
+    times.update(phase3_md_and_geoms(md_models2, md_st2))
+    del md_models2, md_st2
+    done("phase 3 md step and ground geoms")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
     max_abs.update(md_stage_abs)
@@ -2809,6 +3444,8 @@ def main():
                     for name, (label, entry) in FF_TIMED.items()})
     max_abs.update({name: st_max_abs[cell]
                     for name, cell in STEP_TIMED.items()})
+    max_abs["md_step_ground"] = md_max_abs2["md_ball_ant"]
+    max_abs["step_ground[hyq_geoms]"] = md_max_abs2["hyq_geoms"]
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
                      **md_launches,
                      **{f"ff_{k}": v for k, v in ff_launches.items()},
@@ -2827,8 +3464,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--md-profile"]:
         md_profile_child(sys.argv[2])
-    elif sys.argv[1:2] == ["--ff-profile"]:
-        ff_profile_child()
     elif sys.argv[1:2] == ["--step-profile"]:
         step_profile_child()
     else:

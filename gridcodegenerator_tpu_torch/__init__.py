@@ -43,6 +43,21 @@ Floating base (a quaternion free flyer over a single-dof arm;
     :func:`clamp_effort`, :func:`joint_limit_torque`,
     :func:`project_joint_limits`, :func:`soft_contact_params`
 
+The multi-dof ground step (``ops/md_contact``): B ball-hip / free-joint
+robots on frictional ground, feet and ground-geom spheres →
+:func:`md_step_ground_batched`.
+
+Capsule and sphere geoms (``ops/collision``), the steppers'
+``ground_geoms=``: :class:`Geoms`, :class:`Obstacles`,
+:class:`CollisionModel`, :func:`make_geoms`, :func:`make_obstacles`,
+:func:`auto_pairs`, :func:`make_collision_model`,
+:func:`n_ground_contacts`.
+
+The MJCF front end (``models/mjcf``): :func:`parse_mjcf`,
+:func:`mjcf_sites`, :func:`mjcf_actuators`, :func:`mjcf_loops`,
+:func:`mjcf_welds`, :func:`mjcf_tendons`, :func:`mjcf_collision_model`,
+:class:`MjcfSite`, :class:`MjcfActuation`, :class:`MjcfTendons`.
+
 Heightfield terrain for the ground step (``ops/terrain``): :class:`Terrain`,
 :func:`make_terrain`, :func:`flat_terrain`, :func:`slope_terrain`,
 :func:`bumpy_terrain`, :func:`terrain_height_grad`,
@@ -75,6 +90,20 @@ from .ops.multidof import (
     neutral_q,
 )
 from .models.urdf import RobotDescription, parse_urdf
+from .models.mjcf import (MjcfActuation, MjcfSite, MjcfTendons,
+                          mjcf_actuators, mjcf_collision_model, mjcf_loops,
+                          mjcf_sites, mjcf_tendons, mjcf_welds, parse_mjcf)
+from .ops.collision import (
+    CollisionModel,
+    Geoms,
+    Obstacles,
+    auto_pairs,
+    make_collision_model,
+    make_geoms,
+    make_obstacles,
+    n_ground_contacts,
+)
+from .ops.md_contact import md_step_ground_batched
 from .ops.contact import (
     clamp_effort,
     fb_constrained_fd_batched,
@@ -100,7 +129,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "RobotModel", "RobotDescription", "Topology", "GoldenDynamics",
-    "load_robot", "parse_urdf", "robot_model_from_description",
+    "load_robot", "parse_urdf", "parse_mjcf", "mjcf_collision_model",
+    "mjcf_sites", "mjcf_actuators", "mjcf_loops", "mjcf_welds",
+    "mjcf_tendons", "MjcfTendons", "MjcfSite", "MjcfActuation",
+    "robot_model_from_description",
     "from_jax_arrays",
     "inverse_dynamics", "bias_force", "direct_minv", "forward_dynamics",
     "inverse_dynamics_gradient", "forward_dynamics_gradient",
@@ -109,11 +141,13 @@ __all__ = [
     "MultiDofModel", "multidof_model_from_description", "md_from_jax_arrays",
     "neutral_q", "md_tangent_apply", "md_inverse_dynamics_batched",
     "md_forward_dynamics_batched", "md_id_grad_batched",
-    "md_forward_dynamics_gradient_batched",
+    "md_forward_dynamics_gradient_batched", "md_step_ground_batched",
     "fb_constrained_fd_batched",
     "fb_step_ground_batched", "fb_simulate_ground_batched", "pd_torque",
     "clamp_effort", "joint_limit_torque", "project_joint_limits",
     "soft_contact_params",
     "Terrain", "make_terrain", "flat_terrain", "slope_terrain",
     "bumpy_terrain", "terrain_height_grad", "terrain_surface",
+    "Geoms", "Obstacles", "CollisionModel", "make_geoms", "make_obstacles",
+    "auto_pairs", "make_collision_model", "n_ground_contacts",
 ]

@@ -6,7 +6,9 @@ they are: the single-dof robots, and the multi-dof ones — the ball-joint arm
 (:func:`with_free_joint`) and the revolute rewrite of ball joints
 (:func:`expand_spherical`); and the Euler-chain floating base
 (:func:`with_floating_base`), the emulation the free-flyer slice is checked
-against. The MJCF fixtures wait for their slice of the port.
+against; and the MJCF fixtures, the hinge-legged ant (:func:`ant_mjcf`)
+and the ball-hip ant with a free joint (:func:`ball_ant_mjcf`), read by
+:mod:`.mjcf`.
 
 The reference relies on external URDFs fed through ``URDFParser``
 (``README.md:8,20``); its benchmark configs name iiwa-14
@@ -483,6 +485,115 @@ def expand_spherical(urdf: str) -> str:
     for ln in new_links:
         ET.SubElement(root, "link", dict(name=ln))
     return ET.tostring(root, encoding="unicode")
+
+
+
+def ant_mjcf(damping: float = 0.5, sensors: bool = False) -> str:
+    """MuJoCo-style quadruped 'ant' as an MJCF document (the MJCF front-end
+    fixture): torso sphere welded to the root (its inertia lands in
+    ``base_inertia`` — the free-flyer base), four 2-joint legs mounted at
+    90° yaw increments via DEGREE-mode eulers, capsule geoms supplying the
+    inertia (no explicit <inertial> — exercises geom-derived mass), a
+    <default> class tree for the joints, joint ranges, foot <site>
+    anchors at the shin capsule tips (offsets (0.4, 0, 0) on the shin
+    links — read them with ``mjcf_sites``), and an <actuator> block of
+    torque motors (gear 30, ctrlrange ±1 — ``mjcf_actuators``)."""
+    legs, motors = [], []
+    for k in range(4):
+        ang = 45 + 90 * k
+        legs.append(f"""
+    <body name="hip{k}" pos="0.2 0 0" euler="0 0 {ang}">
+      <joint name="hip{k}_j" axis="0 0 1" range="-35 35"/>
+      <geom type="capsule" size="0.046" fromto="0 0 0 0.28 0 0"/>
+      <body name="shin{k}" pos="0.28 0 0">
+        <joint name="knee{k}_j" axis="0 1 0" range="25 100" class="knee"/>
+        <geom type="capsule" size="0.046" fromto="0 0 0 0.4 0 0"/>
+        <site name="foot{k}" pos="0.4 0 0"/>
+      </body>
+    </body>""")
+        motors.append(
+            f'    <motor name="m_hip{k}" joint="hip{k}_j"/>\n'
+            f'    <motor name="m_knee{k}" joint="knee{k}_j" gear="45"/>')
+    # sensors=True appends a torso IMU site + the standard MuJoCo RL
+    # sensor suite (IMU triple, world trackers, encoders on leg 0, foot
+    # touch sensors, one actuator-force readout) — the mjcf_sensors
+    # fixture
+    sens = "" if not sensors else f"""
+  <sensor>
+    <gyro name="gyro" site="imu"/>
+    <accelerometer name="acc" site="imu"/>
+    <velocimeter name="vel" site="imu"/>
+    <framepos name="imu_pos" objtype="site" objname="imu"/>
+    <framequat name="imu_quat" objtype="site" objname="imu"/>
+    <framelinvel name="imu_linvel" objtype="site" objname="imu"/>
+    <frameangvel name="imu_angvel" objtype="site" objname="imu"/>
+    <jointpos name="hip0_pos" joint="hip0_j"/>
+    <jointvel name="knee0_vel" joint="knee0_j"/>
+    {''.join(f'<touch name="touch{k}" site="foot{k}"/>' for k in range(4))}
+    <actuatorfrc name="f_hip0" actuator="m_hip0"/>
+  </sensor>"""
+    imu = '<site name="imu" pos="0 0 0.05"/>' if sensors else ""
+    return f"""
+<mujoco model="ant">
+  <compiler angle="degree"/>
+  <default>
+    <joint damping="{damping}" armature="0.01"/>
+    <default class="knee"><joint damping="{2 * damping}"/></default>
+    <geom density="900"/>
+    <motor gear="30" ctrlrange="-1 1"/>
+  </default>
+  <worldbody>
+    <body name="torso">
+      <geom type="sphere" size="0.25" density="400"/>
+      {imu}
+      {''.join(legs)}
+    </body>
+  </worldbody>
+  <actuator>
+{chr(10).join(motors)}
+  </actuator>{sens}
+</mujoco>
+"""
+
+
+def ball_ant_mjcf(damping: float = 1.2, sensors: bool = False) -> str:
+    """Free-floating quadruped with BALL (3-dof spherical) hips and revolute
+    knees — the multi-dof contact fixture (freejoint base ⊕ 4×(ball ⊕
+    hinge): nq = 7+4·(4+1) = 27, nv = 6+4·(3+1) = 22). Foot <site> anchors
+    at the shin tips; one torso sphere geom for geom-vs-ground contact.
+    The multi-dof ground step's robot (``md_step_ground_batched``;
+    ``chip_smoke.py`` runs it at full width on the card)."""
+    legs = []
+    for k in range(4):
+        ang = 45 + 90 * k
+        legs.append(f"""
+      <body name="hip{k}" pos="0.18 0 0" euler="0 0 {ang}">
+        <joint name="hip{k}_j" type="ball" damping="{damping}"/>
+        <geom type="capsule" size="0.04" fromto="0 0 0 0.22 0 0"/>
+        <body name="shin{k}" pos="0.22 0 0">
+          <joint name="knee{k}_j" axis="0 1 0" damping="{damping}"/>
+          <geom type="capsule" size="0.04" fromto="0 0 0 0.3 0 0"/>
+          <site name="foot{k}" pos="0.3 0 0"/>
+        </body>
+      </body>""")
+    sens = "" if not sensors else """
+  <sensor>
+    <gyro name="gyro" site="imu"/>
+    <accelerometer name="acc" site="imu"/>
+    <velocimeter name="vel" site="imu"/>
+    <framepos name="imu_pos" objtype="site" objname="imu"/>
+    <jointvel name="knee0_vel" joint="knee0_j"/>
+    <touch name="touch0" site="foot0"/>
+  </sensor>"""
+    imu = '<site name="imu" pos="0 0 0.04"/>' if sensors else ""
+    return f"""
+<mujoco model="ball_ant"><compiler angle="degree"/>
+  <default><geom density="800"/></default>
+  <worldbody><body name="torso"><freejoint/>
+    <geom type="sphere" size="0.18" density="500"/>
+    {imu}
+    {''.join(legs)}
+  </body></worldbody>{sens}</mujoco>"""
 
 
 ZOO = {

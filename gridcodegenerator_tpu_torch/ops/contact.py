@@ -17,8 +17,9 @@ port to it directly.
 
 The ground step (:func:`fb_step_ground_batched`, and T of them in
 :func:`fb_simulate_ground_batched`) advances B frictional environments —
-the parallel-RL shape — by one velocity step: the feet's unilateral
-contacts with the flat ground or a heightfield (:mod:`.terrain`), a
+the parallel-RL shape — by one velocity step: the unilateral contacts of
+the feet and of ground geoms' endpoint spheres (:mod:`.collision`) with the
+flat ground or a heightfield (:mod:`.terrain`), a
 projected Gauss–Seidel solve of the friction cones on the Delassus
 operator, and semi-implicit integration on the quaternion manifold. It runs
 the step kernels of :mod:`.kernels.contact_fused` on CUDA tensors and their
@@ -37,7 +38,7 @@ from .freeflyer import FreeFlyerModel, _check_ff_states
 from .kernels import contact_fused as _cf
 
 # ROADMAP items are named by title, which a renumbering leaves as it is
-_GROUND_TWO = "ROADMAP Queue 1, 'Ground stepping, part two'"
+_GROUND_THREE = "ROADMAP Queue 1, 'Ground stepping, part three'"
 _KIN_CONTACT = "ROADMAP Queue 1, 'The rest of kinematics and contact'"
 
 
@@ -181,9 +182,8 @@ def _check_step_options(options, limits, limit_mode, diff_mode, relax):
                          f"got {diff_mode!r}")
     for name, value in options.items():
         if value is not None:
-            item = (_GROUND_TWO if name in ("collision", "mu_collision",
-                                            "ground_geoms", "mu_ground",
-                                            "loops") else _KIN_CONTACT)
+            item = (_GROUND_THREE if name in ("collision", "mu_collision",
+                                              "loops") else _KIN_CONTACT)
             raise NotImplementedError(f"{name}= is not ported yet: {item}")
     if limits is not None and limit_mode == "impulse":
         raise NotImplementedError(
@@ -196,10 +196,40 @@ def _check_step_options(options, limits, limit_mode, diff_mode, relax):
             f"relax != 1 is not ported yet: {_KIN_CONTACT}")
 
 
+def _geom_links_ok(geoms, lo, n, what):
+    """Raise the JAX package's error for a ground geom on a link outside
+    [lo, n)."""
+    bad = [l for l in geoms.links if not lo <= l < n]
+    if bad:
+        raise ValueError(f"{what} links {bad} out of range [{lo}, {n})"
+                         + ("" if lo < 0 else
+                            " — the multi-dof stack has no base link; "
+                            "attach torso geoms to the floating joint's "
+                            "link"))
+
+
+def _contact_mu(mu, mu_ground, k, static, B, dtype, device):
+    """The friction coefficients of every cone row as one batch-last (k_t,
+    B) tensor: the k feet's from ``mu`` (:func:`_mu_to_bl`), then the
+    ground-geom contacts' from ``mu_ground`` — or, where it is None, from
+    ``mu`` itself, per environment where ``mu`` is (the JAX XLA body's
+    rule, contact.py:1779)."""
+    mu_bl = _mu_to_bl(mu, k, B, dtype, device)
+    if not static:
+        return mu_bl
+    kg = len(static)
+    mu_g = _mu_to_bl(mu if mu_ground is None else mu_ground, kg, B, dtype,
+                     device)
+    if tuple(mu_g.shape) != (kg, B):
+        raise ValueError(f"the ground geoms' mu must broadcast to ({kg}, "
+                         f"{B}), got {tuple(mu_g.shape)}: pass mu_ground")
+    return torch.cat([mu_bl, mu_g])
+
+
 def _step_bl(ffm, s, tau, mu, push, dt, links, offsets, ground_z, terrain,
              limits, kw):
     """One step on batch-last states s = (quat, pos, q, vb, q̇) → (quat⁺,
-    pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k,B)), with the joint limits
+    pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k_t,B)), with the joint limits
     projected."""
     if terrain is None:
         out = _cf.step_ground_fused(ffm, *s, tau, mu, dt, links, offsets,
@@ -242,28 +272,32 @@ def fb_step_ground_batched(ffm: FreeFlyerModel, state, tau, dt, links,
                            softness=None, tendons=None):
     """B frictional ground environments advanced by one step: ``state =
     (quat (B,4), pos (B,3), q (B,n), vb (B,6), qd (B,n))``, ``tau (B,n)`` →
-    (next state, impulses (B,k,3)) — one launch of the step kernel on CUDA
-    tensors.
+    (next state, impulses (B,k_t,3)) — one launch of the step kernel on
+    CUDA tensors.
 
     ``links`` and ``offsets`` (k, 3) place the feet; ``mu`` is a scalar,
     (k,) per foot, or (B,) or (B, k) per environment; ``terrain`` a
     :class:`.terrain.Terrain` in place of the plane ``z = ground_z``;
     ``erp`` the share of a penetration recovered a step, ``margin`` the gap
     under which a foot is active, ``restitution`` the bounce of the normal
-    velocity; ``f_base`` (B,6) an external base wrench; ``softness``
-    (scalar or (k,), see :func:`soft_contact_params`) a compliance on each
-    foot's rows; ``effort`` (n,) clamps τ first; ``limits`` = (lo, hi) (n,)
-    projects q⁺ and q̇⁺ onto the joint ranges (``limit_mode="project"``).
-    ``impl``: ``"auto"``, or ``"cuda"`` (CUDA tensors only). The
-    collision, ground-geom, loop, weld, tendon and joint-friction rows,
-    impulse-mode limits, implicit differentiation, ``relax`` ≠ 1 and
+    velocity; ``ground_geoms`` (a :class:`.collision.Geoms` on links −1 —
+    the base — to n−1) adds a contact for each endpoint sphere (one a
+    sphere, two a capsule) after the k feet, with friction ``mu_ground``
+    (None: ``mu``); ``f_base`` (B,6) an external base wrench; ``softness``
+    (scalar or (k_t,), see :func:`soft_contact_params`) a compliance on
+    each contact's rows; ``effort`` (n,) clamps τ first; ``limits`` = (lo,
+    hi) (n,) projects q⁺ and q̇⁺ onto the joint ranges
+    (``limit_mode="project"``). ``impl``: ``"auto"``, or ``"cuda"`` (CUDA
+    tensors only). The collision, loop, weld, tendon and joint-friction
+    rows, impulse-mode limits, implicit differentiation, ``relax`` ≠ 1 and
     ``impl="vmap"`` raise ``NotImplementedError``."""
     _check_contacts(ffm.n, links, offsets)
     _check_step_options(
-        dict(collision=collision, mu_collision=mu_collision,
-             ground_geoms=ground_geoms, mu_ground=mu_ground, loops=loops,
+        dict(collision=collision, mu_collision=mu_collision, loops=loops,
              welds=welds, tendons=tendons, frictionloss=frictionloss),
         limits, limit_mode, diff_mode, relax)
+    if ground_geoms is not None:
+        _geom_links_ok(ground_geoms, -1, ffm.n, "ground-geom")
     _check_batch(ffm, state, tau)
     q = state[2]
     _check_impl(impl, q)
@@ -271,16 +305,20 @@ def fb_step_ground_batched(ffm: FreeFlyerModel, state, tau, dt, links,
         tau = clamp_effort(tau, effort)
     links = tuple(int(l) for l in links)
     B, k = q.shape[0], len(links)
+    static = _cf.ground_geoms_static(ground_geoms)
+    kt = k + len(static)
     if f_base is not None and tuple(f_base.shape) != (B, 6):
         raise ValueError(f"f_base must be ({B}, 6), got "
                          f"{tuple(f_base.shape)}")
     out = _step_bl(ffm, [_cols(x) for x in state], _cols(tau),
-                   _mu_to_bl(mu, k, B, q.dtype, q.device), _cols(f_base), dt,
+                   _contact_mu(mu, mu_ground, k, static, B, q.dtype,
+                               q.device), _cols(f_base), dt,
                    links, offsets, ground_z, terrain, limits,
                    dict(gravity=gravity, iters=iters, erp=erp, margin=margin,
-                        restitution=restitution, softness=softness))
+                        restitution=restitution, softness=softness,
+                        ground_geoms=ground_geoms))
     nxt = tuple(_unflat(x, (B,)) for x in out[:5])
-    return nxt, _unflat(out[5], (B,)).reshape(B, k, 3)
+    return nxt, _unflat(out[5], (B,)).reshape(B, kt, 3)
 
 
 def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
@@ -293,15 +331,17 @@ def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
                                mu_ground=None, loops=None, f_bases=None):
     """T steps of :func:`fb_step_ground_batched`: ``state0`` as its state,
     ``taus`` (T, B, n), ``f_bases`` optional (T, B, 6) per-step base
-    wrenches (push schedules) → (final state, impulses (T, B, k, 3)). The
-    states stay batch last between the steps (one layout change at each
-    end), so the result equals T single steps. ``collision``,
-    ``ground_geoms`` and ``loops`` raise ``NotImplementedError``."""
+    wrenches (push schedules), ``ground_geoms`` and ``mu_ground`` as there
+    → (final state, impulses (T, B, k_t, 3)). The states stay batch last
+    between the steps (one layout change at each end), so the result
+    equals T single steps. ``collision`` and ``loops`` raise
+    ``NotImplementedError``."""
     _check_contacts(ffm.n, links, offsets)
     _check_step_options(
-        dict(collision=collision, mu_collision=mu_collision,
-             ground_geoms=ground_geoms, mu_ground=mu_ground, loops=loops),
+        dict(collision=collision, mu_collision=mu_collision, loops=loops),
         None, "project", "unroll", 1.0)
+    if ground_geoms is not None:
+        _geom_links_ok(ground_geoms, -1, ffm.n, "ground-geom")
     _check_batch(ffm, state0)
     q = state0[2]
     if taus.dim() != 3 or tuple(taus.shape[1:]) != tuple(q.shape):
@@ -310,6 +350,8 @@ def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
     _check_impl(impl, q)
     links = tuple(int(l) for l in links)
     T, B, k = taus.shape[0], q.shape[0], len(links)
+    static = _cf.ground_geoms_static(ground_geoms)
+    kt = k + len(static)
     if f_bases is not None and tuple(f_bases.shape) != (T, B, 6):
         raise ValueError(f"f_bases must be ({T}, {B}, 6), got "
                          f"{tuple(f_bases.shape)}")
@@ -317,13 +359,13 @@ def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
     taus_bl = taus.permute(0, 2, 1).contiguous()              # (T, n, B)
     pushes = (None if f_bases is None
               else f_bases.permute(0, 2, 1).contiguous())    # (T, 6, B)
-    mu_bl = _mu_to_bl(mu, k, B, q.dtype, q.device)
+    mu_bl = _contact_mu(mu, mu_ground, k, static, B, q.dtype, q.device)
     kw = dict(gravity=gravity, iters=iters, erp=erp, margin=margin,
-              restitution=restitution)
-    imps = torch.empty((T, 3 * k, B), dtype=q.dtype, device=q.device)
+              restitution=restitution, ground_geoms=ground_geoms)
+    imps = torch.empty((T, 3 * kt, B), dtype=q.dtype, device=q.device)
     for t in range(T):
         *s, imps[t] = _step_bl(ffm, s, taus_bl[t], mu_bl,
                                None if pushes is None else pushes[t], dt,
                                links, offsets, ground_z, terrain, None, kw)
     final = tuple(_unflat(x, (B,)) for x in s)
-    return final, imps.permute(0, 2, 1).reshape(T, B, k, 3)
+    return final, imps.permute(0, 2, 1).reshape(T, B, kt, 3)

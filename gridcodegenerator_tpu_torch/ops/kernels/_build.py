@@ -6,7 +6,8 @@ families), ``csrc/staged.cu`` (the staged large-robot pipeline) and
 ``csrc/so.cu`` (the second-order kernels); for a multi-dof robot
 (``MultiDofModel``) ``csrc/md.cu`` (the ball- and free-joint families) and,
 past ``MAX_MD_GRAD_NV`` velocity coordinates, ``csrc/md_staged.cu`` (the
-staged multi-dof pipeline); for a free flyer (``FreeFlyerModel``)
+staged multi-dof pipeline), and for each set of contact links
+``csrc/md_step.cu`` (its ground step); for a free flyer (``FreeFlyerModel``)
 ``csrc/ff.cu`` — its ABA and mass-matrix FD, or, in a library of its own
 for each set of contact links, its stance FD and its ground steps. All are built for ``sm_90a``
 at once, with the joint count, parent indices, joint types and contact
@@ -35,7 +36,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "dual.cuh",
-            "so.cuh", "md.cuh", "md_staged.cuh", "ff.cuh")
+            "so.cuh", "md.cuh", "md_staged.cuh", "contact.cuh", "ff.cuh",
+            "md_step.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -159,20 +161,28 @@ _UNITS = {
         "grid_stance_fd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _LL, _D, _D, _D, _D, _P),
         # consts, quat, pos, q, vb, qd, tau, mu, push (or NULL), offsets,
-        # ridge, quat2, pos2, q2, vb2, qd2, imp, B, dt, ground_z, gravity,
-        # iters, erp, margin, restitution, stream
-        "grid_step_ground": (*(_P,) * 17, _LL, _D, _D, _D, _I, _D, _D, _D,
-                             _P),
-        # ..., imp, heights, B, dt, gravity, iters, erp, margin,
+        # geoms (or NULL), ridge, quat2, pos2, q2, vb2, qd2, imp, B, feet,
+        # dt, ground_z, gravity, iters, erp, margin, restitution, stream
+        "grid_step_ground": (*(_P,) * 18, _LL, _I, _D, _D, _D, _I, _D, _D,
+                             _D, _P),
+        # ..., imp, heights, B, feet, dt, gravity, iters, erp, margin,
         # restitution, H, W, cell, x0, y0, stream
-        "grid_step_ground_terrain": (*(_P,) * 18, _LL, _D, _D, _I, _D, _D,
-                                     _D, _I, _I, _D, _D, _D, _P),
+        "grid_step_ground_terrain": (*(_P,) * 19, _LL, _I, _D, _D, _I, _D,
+                                     _D, _D, _I, _I, _D, _D, _D, _P),
+    },
+    "md_step.cu": {
+        # consts, q, qd, tau, mu, offsets, geoms (or NULL), ridge, q2, v2,
+        # imp, B, feet, dt, ground_z, gravity, iters, erp, margin,
+        # restitution, stream
+        "grid_md_step_ground": (*(_P,) * 11, _LL, _I, _D, _D, _D, _I, _D,
+                                _D, _D, _P),
     },
 }
 # the units a library holds by default: single-dof robots, multi-dof robots
 _SINGLE_DOF_UNITS = ("fused.cu", "staged.cu", "so.cu")
 _MD_UNITS = ("md.cu",)
 MD_STAGED_UNIT = "md_staged.cu"
+MD_STEP_UNIT = "md_step.cu"
 _FF_UNITS = ("ff.cu",)
 # joint type → its code in the md unit's GRID_JTYPES macro
 _JOINT_CODES = {"revolute": 0, "continuous": 0, "prismatic": 1,
@@ -273,14 +283,18 @@ def topology_key(model, links=None) -> tuple:
     which joints are prismatic; for a multi-dof model (one with
     ``v_slices``) the tag ``"md"`` and every joint's type, which fix its
     coordinate slices (a ball root and a free root under the same parents
-    build different libraries); for a free flyer (one with ``I_base``) the
-    tag ``"ff"``, its arm's key and the contact ``links`` (empty: the ABA
-    and mass-matrix kernels; else the stance and ground-step kernels of
-    those links, whose rows are zero outside each link's ancestors)."""
+    build different libraries), and with contact ``links`` those too (the
+    ground step's library: feet, then each ground-geom contact's link); for
+    a free flyer (one with ``I_base``) the tag ``"ff"``, its arm's key and
+    the contact ``links`` (empty: the ABA and mass-matrix kernels; else the
+    stance and ground-step kernels of those links — feet, then each geom
+    contact's link, −1 for the base —, whose rows are zero outside each
+    link's ancestors)."""
     parents = tuple(model.topology.parents)
     if hasattr(model, "v_slices"):
-        return ("md", model.n, parents,
-                tuple(_JOINT_CODES[t] for t in model.joint_types))
+        key = ("md", model.n, parents,
+               tuple(_JOINT_CODES[t] for t in model.joint_types))
+        return key + (tuple(int(l) for l in links),) if links else key
     prism = tuple(int(t == "prismatic") for t in model.joint_types)
     if hasattr(model, "I_base"):
         return ("ff", model.n, parents, prism,
@@ -298,6 +312,8 @@ def _units(key: tuple) -> tuple:
         return _FF_UNITS
     if key[0] != "md":
         return _SINGLE_DOF_UNITS
+    if len(key) == 5:
+        return (MD_STEP_UNIT,)
     staged = () if md_dense_grads(_md_nv(key[3])) else (MD_STAGED_UNIT,)
     return _MD_UNITS + staged
 
@@ -326,8 +342,9 @@ def _macros(key: tuple) -> list[str]:
         ] + (["-DGRID_FF_LINKS=" + "".join(f"G({l})" for l in links)]
              if links else [])
     if key[0] == "md":
-        _, n, parents, codes = key
+        _, n, parents, codes = key[:4]
         nv = _md_nv(codes)
+        links = key[4] if len(key) == 5 else ()
         return [
             f"-DGRID_N={n}",
             "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
@@ -335,7 +352,9 @@ def _macros(key: tuple) -> list[str]:
             "-DGRID_JTYPES=" + "".join(f"G({c})" for c in codes),
             f"-DGRID_MD_GRADS={int(md_dense_grads(nv))}",
             f"-DGRID_MD_CB={md_col_block(n, nv)}",
-        ]
+        ] + ([f"-DGRID_MD_K={len(links)}",
+              "-DGRID_MD_LINKS=" + "".join(f"G({l})" for l in links)]
+             if links else [])
     n, parents, prism = key
     return [
         f"-DGRID_N={n}",

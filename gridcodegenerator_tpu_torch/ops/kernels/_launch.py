@@ -28,6 +28,8 @@ LAUNCHES = {
     # csrc/ff.cu: the floating-base families and the ground steps
     "fb_aba": 0, "fb_fd": 0, "stance_fd": 0, "step_ground": 0,
     "step_ground_terrain": 0,
+    # csrc/md_step.cu: the multi-dof ground step
+    "md_step_ground": 0,
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
@@ -80,6 +82,14 @@ def check_md(model, q, others) -> int:
     for s in others:
         _check_state(s, q, model.nv, "nv")
     return q.shape[-1]
+
+
+def check_md_step(model, q, qd, tau, mu, k: int) -> int:
+    """Validate a multi-dof ground step's inputs: q (nq, B), q̇ and τ (nv,
+    B), μ (k, B) for its k contacts; returns B."""
+    B = check_md(model, q, (qd, tau))
+    _check_state(mu, q, k, "k")
+    return B
 
 
 def check_ff(model, states) -> int:

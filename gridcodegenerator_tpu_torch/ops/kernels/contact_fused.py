@@ -198,6 +198,15 @@ def _mv3s(A, x, tA=False):
     return sum(col(k) * x[k:k + 1] for k in range(3))
 
 
+def _mv3s_c(A, c):
+    """(3,3,B) @ a constant 3-vector (Python floats) → (3,B), the zero
+    components skipped (JAX ``_mv3s_c``, :475)."""
+    return torch.cat([
+        sum(A[i, j:j + 1] * c[j] for j in range(3) if c[j] != 0.0)
+        if any(c[j] != 0.0 for j in range(3)) else A[i, 0:1] * 0.0
+        for i in range(3)])
+
+
 def _mm33s(A, B, tA=False, tB=False):
     """(3,3,B) @ (3,3,B) → (3,3,B): out[:, j] = Σ_k A[:, k]·B[k, j], with
     either operand transposed."""
@@ -370,46 +379,53 @@ def _jt_stacks(J, m, like):
     return JT
 
 
-def _ff_contact_rows_s(ffm, X, R, links, offsets):
+def _point_rows(ffm, R, Rs, ps, l, x_b):
+    """The three world-frame linear rows of a point x_b (3,B) in base
+    coordinates, rigidly attached to link ``l`` (−1: the base), over the
+    6+n columns [ω_b; v_b; q̇]: (1,B) entries, None outside ancestors(l) ∪
+    {l}. The ω_b columns are R·(e_j × x_b), the v_b columns R[:, j], a
+    joint's column R·(a_ang × (x_b − p_j) + a_lin)."""
+    topo = ffm.arm.topology
+    S = ffm.arm.S[..., None]
+    zero1 = x_b[0:1] * 0.0
+    # e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0, −x0), e_2 × x = (−x1, x0, 0)
+    ex = [torch.cat([zero1, -x_b[2:3], x_b[1:2]]),
+          torch.cat([x_b[2:3], zero1, -x_b[0:1]]),
+          torch.cat([-x_b[1:2], x_b[0:1], zero1])]
+    wcols = [_mv3s(R, e) for e in ex]
+    acols = {}
+    if l >= 0:
+        for j in sorted(set(topo.ancestors[l]) | {l}):
+            a_ang = _mv3s(Rs[j], S[j][:3])
+            a_lin = _mv3s(Rs[j], S[j][3:])
+            acols[j] = _mv3s(R, _cross3s(a_ang, x_b - ps[j]) + a_lin)
+    rows = []
+    for r in range(3):
+        row = [None] * (6 + ffm.n)
+        for j in range(3):
+            row[j] = wcols[j][r:r + 1]
+        for j in range(3):
+            row[3 + j] = R[r, j:j + 1]
+        for j, col in acols.items():
+            row[6 + j] = col[r:r + 1]
+        rows.append(row)
+    return rows
+
+
+def _ff_contact_rows_s(ffm, X, R, links, offsets, fk=None):
     """World-frame linear rows of the k contact points (JAX
     ``_ff_contact_rows_s``, :426): 3k lists over the 6+n columns [ω_b; v_b;
-    q̇] of (1,B)/None entries, and the points in base coordinates x_b (k
-    (3,B)). X is read on the links' support only. The ω_b columns are
-    R·(e_j × x_b), the v_b columns R[:, j], a joint's column R·(a_ang ×
-    (x_b − p_j) + a_lin); columns outside ancestors(link) ∪ {link} are
-    None."""
-    topo = ffm.arm.topology
-    n = ffm.n
-    S = ffm.arm.S[..., None]
-    Rs, ps = _fk_s(ffm.arm, X, _support(topo, links))
+    q̇] of (1,B)/None entries (:func:`_point_rows`), and the points in base
+    coordinates x_b (k (3,B)). X is read on the links' support only; ``fk``
+    = (Rs, ps) of :func:`_fk_s` where the caller has them."""
+    Rs, ps = fk or _fk_s(ffm.arm, X, _support(ffm.arm.topology, links))
     rows, xs = [], []
     for ci, l in enumerate(links):
         off = [float(offsets[ci][d]) for d in range(3)]
         x_b = ps[l] + torch.cat([sum(Rs[l][i, j:j + 1] * off[j]
                                      for j in range(3)) for i in range(3)])
         xs.append(x_b)
-        support = set(topo.ancestors[l]) | {l}
-        zero1 = x_b[0:1] * 0.0
-        # e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0, −x0), e_2 × x = (−x1,
-        # x0, 0)
-        ex = [torch.cat([zero1, -x_b[2:3], x_b[1:2]]),
-              torch.cat([x_b[2:3], zero1, -x_b[0:1]]),
-              torch.cat([-x_b[1:2], x_b[0:1], zero1])]
-        wcols = [_mv3s(R, e) for e in ex]
-        acols = {}
-        for j in sorted(support):
-            a_ang = _mv3s(Rs[j], S[j][:3])
-            a_lin = _mv3s(Rs[j], S[j][3:])
-            acols[j] = _mv3s(R, _cross3s(a_ang, x_b - ps[j]) + a_lin)
-        for r in range(3):
-            row = [None] * (6 + n)
-            for j in range(3):
-                row[j] = wcols[j][r:r + 1]
-            for j in range(3):
-                row[3 + j] = R[r, j:j + 1]
-            for j, col in acols.items():
-                row[6 + j] = col[r:r + 1]
-            rows.append(row)
+        rows.extend(_point_rows(ffm, R, Rs, ps, l, x_b))
     return rows, xs
 
 
@@ -635,6 +651,14 @@ def _pgs_rows(G, b, mu, active, k, iters, regs):
     return torch.cat(p)
 
 
+def _rotate_rows(C, rows):
+    """A contact's three world rows rotated into its frame C = [t1; t2;
+    n]: row r is Σ_w C[r][w]·rows[w]."""
+    return [[_sum_terms([C[r][w] * rows[w][c] for w in range(3)
+                         if rows[w][c] is not None])
+             for c in range(len(rows[0]))] for r in range(3)]
+
+
 def _ground_rows(R, pos, J, xs, ground_z, margin, terrain):
     """Each foot's gap and active mask (k (1,B) each). On the flat ground
     the gap is the world height above ``ground_z``; on a heightfield it is
@@ -648,16 +672,64 @@ def _ground_rows(R, pos, J, xs, ground_z, margin, terrain):
             gap = p_w[2:3] - ground_z
         else:
             h, nrm = _terrain.terrain_surface(terrain, p_w[0:1], p_w[1:2])
-            C = _terrain.contact_frame(nrm)
-            old = J[3 * ci:3 * ci + 3]
-            J[3 * ci:3 * ci + 3] = [
-                [_sum_terms([C[r][w] * old[w][c] for w in range(3)
-                             if old[w][c] is not None])
-                 for c in range(len(old[0]))] for r in range(3)]
+            J[3 * ci:3 * ci + 3] = _rotate_rows(_terrain.contact_frame(nrm),
+                                                J[3 * ci:3 * ci + 3])
             gap = (p_w[2:3] - h) * nrm[2]
         gaps.append(gap)
         active.append((gap < margin).to(pos.dtype))
     return gaps, active
+
+
+def ground_geoms_static(geoms):
+    """The static ground-contact list of a :class:`..collision.Geoms` set
+    (JAX ``ground_geoms_static``, :783; ``()`` for None): the one
+    :func:`..collision.make_geoms` keeps on the set, or for a set built
+    otherwise :func:`..collision.ground_contacts` of its tensors."""
+    if geoms is None:
+        return ()
+    if geoms.ground is not None:
+        return geoms.ground
+    from ..collision import ground_contacts
+
+    return ground_contacts(geoms)
+
+
+def geom_links(static):
+    """The links of a static ground-contact list, one a contact."""
+    return tuple(l for l, _, _ in static)
+
+
+def _ground_geom_rows(ffm, R, pos, Rs, ps, contacts, ground_z, margin,
+                      terrain):
+    """The ground-geom contacts' rows, gaps and active masks (JAX
+    ``_ground_geom_rows_s``, :800): for each endpoint sphere (link l, centre
+    e, radius r) of ``contacts`` (:func:`ground_geoms_static`), the centre
+    in base coordinates e_b (e itself on the base, l = −1), its world
+    height and the gap along the surface normal less r, and the rows of
+    the material point e_b − r·Rᵀn (on the plane Rᵀe_z is R's third row);
+    on a heightfield the rows rotate into the contact frame as the feet's.
+    → (3c row lists, c gaps, c masks)."""
+    rows, gaps, active = [], [], []
+    one = pos[0:1] * 0.0 + 1.0
+    for l, e0, r in contacts:
+        x_b = (torch.cat([one * c for c in e0]) if l < 0
+               else ps[l] + _mv3s_c(Rs[l], e0))
+        p_w = pos + _mv3s(R, x_b)
+        if terrain is None:
+            gap = p_w[2:3] - r - ground_z
+            n_b = torch.cat([R[2, j:j + 1] for j in range(3)])
+        else:
+            h, nrm = _terrain.terrain_surface(terrain, p_w[0:1], p_w[1:2])
+            gap = (p_w[2:3] - h) * nrm[2] - r
+            n_b = torch.cat([sum(R[d, j:j + 1] * nrm[d] for d in range(3))
+                             for j in range(3)])
+        g_rows = _point_rows(ffm, R, Rs, ps, l, x_b - r * n_b)
+        if terrain is not None:
+            g_rows = _rotate_rows(_terrain.contact_frame(nrm), g_rows)
+        rows.extend(g_rows)
+        gaps.append(gap)
+        active.append((gap < margin).to(pos.dtype))
+    return rows, gaps, active
 
 
 def _softness_rows(softness, k, dtype=torch.float64):
@@ -680,31 +752,44 @@ def _ridge(softness, k):
 def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
                       ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
                       margin=1e-3, restitution=0.0, push=None, softness=None,
-                      terrain=None):
+                      terrain=None, ground_static=()):
     """One frictional ground step (JAX ``_step_ground_body``, :977; its
-    feet rows, ``push``, ``softness`` and the heightfield): the free
-    velocity v_free = v + dt·M⁻¹[push − f_b; τ − c_j], the feet's rows J
-    (rotated into each foot's contact frame on a ``terrain``) and gaps, the
+    feet and ground-geom rows, ``push``, ``softness`` and the heightfield):
+    the free velocity v_free = v + dt·M⁻¹[push − f_b; τ − c_j], the rows J
+    of the k feet and then of the geoms' endpoint spheres
+    ``ground_static`` (:func:`ground_geoms_static`; JAX :1049-1062, where
+    the collision block, not ported yet, sits between the two) — rotated
+    into each contact's frame on a ``terrain`` — and their gaps, the
     Delassus G = J·M⁻¹Jᵀ (its lower triangle, read both ways) and b =
     J·v_free less v* = −erp·min(gap, 0)/dt − restitution·min(vn, 0) on the
-    normal rows, ``iters`` PGS sweeps for the impulses p (3k,B), v⁺ =
+    normal rows, ``iters`` PGS sweeps for the impulses p (3k_t,B), v⁺ =
     v_free + M⁻¹Jᵀ·p, the attitude quat ⊗ exp(½·ω⁺·dt) renormalised, pos
     by the new rotation and q by q̇⁺. → (quat⁺ (4,B), pos⁺ (3,B), q⁺ (n,B),
-    vb⁺ (6,B), q̇⁺ (n,B), p (3k,B)). ``mu`` (k,B); ``push`` (6,B) or
+    vb⁺ (6,B), q̇⁺ (n,B), p (3k_t,B)). ``mu`` (k_t,B), the feet's rows
+    then the geoms'; ``softness`` a scalar or (k_t,); ``push`` (6,B) or
     None."""
     links = tuple(int(l) for l in links)
+    ground_static = tuple(ground_static)
     m = 6 + ffm.n
-    k3 = 3 * len(links)
+    kt = len(links) + len(ground_static)
+    k3 = 3 * kt
     X = blops.joint_transforms_bl(ffm.arm, q)
     R = _quat_rot_s(quat)
     f_b, c_j = _fb_bias_s(ffm, X, R, vb, qd, gravity)
     Lm = _chol_factor_ev(_fb_mass_s(ffm, X), m)
     rhs_free = _rhs_free(f_b, c_j, tau, push)
     v = _vfull_list(ffm, vb, qd)
-    J, xs = _ff_contact_rows_s(ffm, X, R, links, offsets)
+    fk = _fk_s(ffm.arm, X, _support(
+        ffm.arm.topology, links + tuple(g[0] for g in ground_static
+                                        if g[0] >= 0)))
+    J, xs = _ff_contact_rows_s(ffm, X, R, links, offsets, fk)
     if terrain is not None:
         terrain = _terrain.placed(terrain, q.device, q.dtype)[0]
     gaps, active = _ground_rows(R, pos, J, xs, ground_z, margin, terrain)
+    if ground_static:
+        g_rows, g_gaps, g_active = _ground_geom_rows(
+            ffm, R, pos, *fk, ground_static, ground_z, margin, terrain)
+        J, gaps, active = J + g_rows, gaps + g_gaps, active + g_active
     JT = _jt_stacks(J, m, q[0:1])
 
     # one merged solve: rows 0..3k−1 M⁻¹Jᵀ, row 3k the free acceleration
@@ -728,8 +813,7 @@ def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
             vn_now = row_dot(3 * ci + 2, v)
             v_star = v_star - restitution * torch.clamp(vn_now, max=0.0)
         b[3 * ci + 2] = b[3 * ci + 2] - v_star
-    p = _pgs_rows(G, b, mu, active, len(links), int(iters),
-                  _ridge(softness, len(links)))
+    p = _pgs_rows(G, b, mu, active, kt, int(iters), _ridge(softness, kt))
 
     v_new = torch.cat([v_free[c] + _sum_terms([MiJt[c][s:s + 1] * p[s:s + 1]
                                                for s in range(k3)])
@@ -748,8 +832,18 @@ def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
 # wrappers
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=64)
-def _geom_copy(values, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device).reshape(-1, 3)
+def _geom_copy(values, dtype, device, width=3):
+    return torch.tensor(values, dtype=dtype, device=device).reshape(-1, width)
+
+
+def device_geoms(static, dtype, device):
+    """A static ground-contact list's spheres as one device array (c, 4) —
+    each centre, then its radius — in ``dtype`` on ``device``, copied once
+    a set of values and kept; None for no geoms."""
+    if not static:
+        return None
+    return _geom_copy(tuple(v for _, e, r in static for v in (*e, r)),
+                      dtype, torch.device(device), 4)
 
 
 def _device_geom(ffm, x, k):
@@ -828,44 +922,54 @@ def stance_fd_fused(ffm, quat, pos, q, vb, qd, tau, links, offsets,
 
 
 def _step_launch(ffm, name, entry, quat, pos, q, vb, qd, tau, mu, push,
-                 links, offsets, softness, extra_ptrs, scalars):
+                 links, offsets, static, softness, extra_ptrs, scalars):
     """Check a ground step's inputs, allocate its outputs (quat⁺ (4,B),
-    pos⁺ (3,B), q⁺ (n,B), vb⁺ (6,B), q̇⁺ (n,B), p (3k,B)) and launch
-    ``entry`` of the feet's library. The offsets and the per-row ridge are
-    device copies kept a set of values (:func:`_device_geom`)."""
+    pos⁺ (3,B), q⁺ (n,B), vb⁺ (6,B), q̇⁺ (n,B), p (3k_t,B)) and launch
+    ``entry`` of the library of the k feet and the ground-geom contacts
+    ``static`` (their links after the feet's). The offsets, the geom
+    spheres and the per-row ridge are device copies kept a set of values
+    (:func:`_device_geom`, :func:`device_geoms`)."""
     n, k = ffm.n, len(links)
+    kt = k + len(static)
     B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau, pos)
-                 + [(mu, k, "k")] + ([] if push is None
-                                     else [(push, 6, "push")]))
-    outs = tuple(empty(ffm, d, B) for d in (4, 3, n, 6, n, 3 * k))
+                 + [(mu, kt, "k_t")] + ([] if push is None
+                                        else [(push, 6, "push")]))
+    outs = tuple(empty(ffm, d, B) for d in (4, 3, n, 6, n, 3 * kt))
     if B:
-        ridge = _geom_copy(_ridge(softness, k), ffm.dtype,
+        ridge = _geom_copy(_ridge(softness, kt), ffm.dtype,
                            torch.device(ffm.device))
         launch(name, entry, ffm,
                (quat.data_ptr(), pos.data_ptr(), q.data_ptr(), vb.data_ptr(),
                 qd.data_ptr(), tau.data_ptr(), mu.data_ptr(), ptr(push),
-                _device_geom(ffm, offsets, k).data_ptr(), ridge.data_ptr(),
-                *(o.data_ptr() for o in outs), *extra_ptrs), B, *scalars,
-               links=links)
+                _device_geom(ffm, offsets, k).data_ptr(),
+                ptr(device_geoms(static, ffm.dtype, ffm.device)),
+                ridge.data_ptr(), *(o.data_ptr() for o in outs),
+                *extra_ptrs), B, k, *scalars,
+               links=links + geom_links(static))
     return outs
 
 
 def step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
                       ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
-                      margin=1e-3, restitution=0.0, push=None, softness=None):
+                      margin=1e-3, restitution=0.0, push=None, softness=None,
+                      ground_geoms=None):
     """One frictional step on the flat ground ``z = ground_z`` for the feet
-    ``links`` (body-frame ``offsets`` (k, 3)): batch-last states, ``mu``
-    (k,B), optional ``push`` (6,B) and ``softness`` (scalar or (k,)) →
-    (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k,B)). The kernel is built per
-    set of feet; everything else is a run-time argument."""
+    ``links`` (body-frame ``offsets`` (k, 3)) and the endpoint spheres of
+    ``ground_geoms`` (a :class:`..collision.Geoms`, links −1 … n−1):
+    batch-last states, ``mu`` (k_t,B) — the feet's rows, then the geoms' —,
+    optional ``push`` (6,B) and ``softness`` (scalar or (k_t,)) → (quat⁺,
+    pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k_t,B)). The kernel is built per set of
+    feet and geom links; everything else is a run-time argument."""
     links = tuple(int(l) for l in links)
+    static = ground_geoms_static(ground_geoms)
     if on_cpu(q):
         return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
                                  links, offsets, ground_z, gravity, iters,
-                                 erp, margin, restitution, push, softness)
+                                 erp, margin, restitution, push, softness,
+                                 ground_static=static)
     return _step_launch(
         ffm, "step_ground", "grid_step_ground", quat, pos, q, vb, qd, tau, mu,
-        push, links, offsets, softness, (),
+        push, links, offsets, static, softness, (),
         (float(dt), float(ground_z), float(gravity), int(iters), float(erp),
          float(margin), float(restitution)))
 
@@ -873,22 +977,24 @@ def step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
 def step_ground_terrain_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links,
                               offsets, terrain, gravity=-9.81, iters=30,
                               erp=0.2, margin=1e-3, restitution=0.0,
-                              push=None, softness=None):
+                              push=None, softness=None, ground_geoms=None):
     """:func:`step_ground_fused` on a bilinear heightfield ``terrain``
-    (:class:`..terrain.Terrain`): each foot's gap along the surface normal
-    and its rows in its contact frame. The grid is read from device memory
-    (kept on the model's device, in its dtype, once a terrain), so every
-    grid size runs the kernel."""
+    (:class:`..terrain.Terrain`): each contact's gap along the surface
+    normal and its rows in its contact frame. The grid is read from device
+    memory (kept on the model's device, in its dtype, once a terrain), so
+    every grid size runs the kernel."""
     links = tuple(int(l) for l in links)
+    static = ground_geoms_static(ground_geoms)
     if on_cpu(q):
         return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
                                  links, offsets, 0.0, gravity, iters, erp,
-                                 margin, restitution, push, softness, terrain)
+                                 margin, restitution, push, softness, terrain,
+                                 ground_static=static)
     terr, x0, y0 = _terrain.placed(terrain, ffm.device, ffm.dtype)
     H, W = terr.heights.shape
     return _step_launch(
         ffm, "step_ground_terrain", "grid_step_ground_terrain", quat, pos, q,
-        vb, qd, tau, mu, push, links, offsets, softness,
+        vb, qd, tau, mu, push, links, offsets, static, softness,
         (terr.heights.data_ptr(),),
         (float(dt), float(gravity), int(iters), float(erp), float(margin),
          float(restitution), int(H), int(W), float(terr.cell), x0, y0))

@@ -25,15 +25,19 @@
 // constants (152n + 36 values) are staged in shared memory once per block.
 //
 // The ground step (step_ground_kernel<T, kTerrain>, flat or on a
-// heightfield) reuses the stance's front half and rows, and adds the full
-// Delassus rows, b, the PGS sweeps and the integration: its per-state
-// arrays are X, the packed M and its factor, the feet's rows, the merged
-// solve's (6+n) × (3k+1) right-hand sides and G's triangle. The sweeps are a
-// run-time loop (iters) whose rows and columns unroll, so G, the impulses,
-// b and the diagonal live in registers at HyQ's 3k = 12 in f32. The height
-// grid is read from device memory (four read-only loads a foot), which
-// lifts the TPU kernel's VMEM gate (terrain_fused_ok): every grid size runs
-// the kernel.
+// heightfield) reuses the stance's front half and rows, and adds the
+// ground geoms' endpoint spheres after the feet (their links in the build's
+// contact list, −1 for the base; the feet count kf and the spheres are
+// run-time arguments), the full Delassus rows, b, the PGS sweeps and the
+// integration: its per-state arrays are X, the packed M and its factor, the
+// contacts' rows, the merged solve's (6+n) × (3k+1) right-hand sides and
+// G's triangle. The sweeps are a run-time loop (iters) whose rows unroll;
+// up to 24 rows the columns unroll too, so G, the impulses, b and the
+// diagonal live in registers at HyQ's 3k = 12 in f32; past it (HyQ with its
+// geoms: 42 rows, G's triangle 903 values) the column loop rolls and G
+// stays in local memory. The height grid is read from device memory (four
+// read-only loads a contact), which lifts the TPU kernel's VMEM gate
+// (terrain_fused_ok): every grid size runs the kernel.
 //
 // A library is built per topology: with -DGRID_FF_K=0 it holds the ABA and
 // mass-matrix kernels, with the contact links (-DGRID_FF_K=k
@@ -151,6 +155,7 @@ step_ground_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
                    const T* __restrict__ vb, const T* __restrict__ qd,
                    const T* __restrict__ tau, const T* __restrict__ mu,
                    const T* __restrict__ push, const T* __restrict__ off,
+                   const T* __restrict__ geo, int kf,
                    const T* __restrict__ ridge, T* __restrict__ quat2,
                    T* __restrict__ pos2, T* __restrict__ q2,
                    T* __restrict__ vb2, T* __restrict__ qd2,
@@ -161,18 +166,20 @@ step_ground_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
   const long long b = state_index();
   if (b >= B) return;
   grid::step_state<T, kTerrain>(R, sm + 152 * grid::N, quat, pos, q, vb, qd,
-                                tau, mu, push, off, ridge, sp, hf, quat2,
-                                pos2, q2, vb2, qd2, imp, B, b);
+                                tau, mu, push, off, geo, kf, ridge, sp, hf,
+                                quat2, pos2, q2, vb2, qd2, imp, B, b);
 }
 
 // push == nullptr: no external base wrench; heights == nullptr: the plane
-// z = ground_z, else the H × W heightfield (ground_z unused)
+// z = ground_z, else the H × W heightfield (ground_z unused); the first kf
+// contacts are feet, the rest ground-geom spheres (geo, null without any)
 template <typename T>
 int step(const void* consts, const void* quat, const void* pos,
          const void* q, const void* vb, const void* qd, const void* tau,
-         const void* mu, const void* push, const void* off,
+         const void* mu, const void* push, const void* off, const void* geo,
          const void* ridge, void* quat2, void* pos2, void* q2, void* vb2,
-         void* qd2, void* imp, const void* heights, long long B, double dt,
+         void* qd2, void* imp, const void* heights, long long B, int kf,
+         double dt,
          double ground_z, double gravity, int iters, double erp,
          double margin, double restitution, int H, int W, double cell,
          double x0, double y0, void* stream) {
@@ -188,7 +195,8 @@ int step(const void* consts, const void* quat, const void* pos,
                                    s>>>(
         in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
         in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
-        in<T>(ridge), static_cast<T*>(quat2), static_cast<T*>(pos2),
+        in<T>(geo), kf, in<T>(ridge), static_cast<T*>(quat2),
+        static_cast<T*>(pos2),
         static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
         static_cast<T*>(imp), B, sp, hf);
   } else {
@@ -196,7 +204,8 @@ int step(const void* consts, const void* quat, const void* pos,
                                   s>>>(
         in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
         in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
-        in<T>(ridge), static_cast<T*>(quat2), static_cast<T*>(pos2),
+        in<T>(geo), kf, in<T>(ridge), static_cast<T*>(quat2),
+        static_cast<T*>(pos2),
         static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
         static_cast<T*>(imp), B, sp, hf);
   }
@@ -283,63 +292,70 @@ int grid_stance_fd_f64(const void* consts, const void* quat, const void* pos,
                         qdd, lam, B, gravity, alpha, beta, reg, stream);
 }
 
-// the flat ground: ..., imp, B, dt, ground_z, gravity, iters, erp, margin,
-// restitution, stream
+// the flat ground: consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
+// ridge, quat2, pos2, q2, vb2, qd2, imp, B, kf, dt, ground_z, gravity, iters,
+// erp, margin, restitution, stream
 int grid_step_ground_f32(const void* consts, const void* quat,
                          const void* pos, const void* q, const void* vb,
                          const void* qd, const void* tau, const void* mu,
-                         const void* push, const void* off, const void* ridge,
-                         void* quat2, void* pos2, void* q2, void* vb2,
-                         void* qd2, void* imp, long long B, double dt,
+                         const void* push, const void* off, const void* geo,
+                         const void* ridge, void* quat2, void* pos2, void* q2,
+                         void* vb2, void* qd2, void* imp, long long B, int kf,
+                         double dt,
                          double ground_z, double gravity, int iters,
                          double erp, double margin, double restitution,
                          void* stream) {
-  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, ridge,
-                     quat2, pos2, q2, vb2, qd2, imp, nullptr, B, dt, ground_z,
+  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
+                     ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf, dt,
+                     ground_z,
                      gravity, iters, erp, margin, restitution, 0, 0, 0.0, 0.0,
                      0.0, stream);
 }
 int grid_step_ground_f64(const void* consts, const void* quat,
                          const void* pos, const void* q, const void* vb,
                          const void* qd, const void* tau, const void* mu,
-                         const void* push, const void* off, const void* ridge,
-                         void* quat2, void* pos2, void* q2, void* vb2,
-                         void* qd2, void* imp, long long B, double dt,
+                         const void* push, const void* off, const void* geo,
+                         const void* ridge, void* quat2, void* pos2, void* q2,
+                         void* vb2, void* qd2, void* imp, long long B, int kf,
+                         double dt,
                          double ground_z, double gravity, int iters,
                          double erp, double margin, double restitution,
                          void* stream) {
-  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off,
-                      ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, dt,
-                      ground_z, gravity, iters, erp, margin, restitution, 0,
+  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
+                      ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf,
+                      dt, ground_z, gravity, iters, erp, margin, restitution, 0,
                       0, 0.0, 0.0, 0.0, stream);
 }
 
-// the heightfield: ..., imp, heights, B, dt, gravity, iters, erp, margin,
-// restitution, H, W, cell, x0, y0, stream
+// the heightfield: ..., imp, heights, B, kf, dt, gravity, iters, erp,
+// margin, restitution, H, W, cell, x0, y0, stream
 int grid_step_ground_terrain_f32(
     const void* consts, const void* quat, const void* pos, const void* q,
     const void* vb, const void* qd, const void* tau, const void* mu,
-    const void* push, const void* off, const void* ridge, void* quat2,
-    void* pos2, void* q2, void* vb2, void* qd2, void* imp,
-    const void* heights, long long B, double dt, double gravity, int iters,
+    const void* push, const void* off, const void* geo, const void* ridge,
+    void* quat2, void* pos2, void* q2, void* vb2, void* qd2, void* imp,
+    const void* heights, long long B, int kf, double dt, double gravity,
+    int iters,
     double erp, double margin, double restitution, int H, int W, double cell,
     double x0, double y0, void* stream) {
-  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, ridge,
-                     quat2, pos2, q2, vb2, qd2, imp, heights, B, dt, 0.0,
+  return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
+                     ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf, dt,
+                     0.0,
                      gravity, iters, erp, margin, restitution, H, W, cell, x0,
                      y0, stream);
 }
 int grid_step_ground_terrain_f64(
     const void* consts, const void* quat, const void* pos, const void* q,
     const void* vb, const void* qd, const void* tau, const void* mu,
-    const void* push, const void* off, const void* ridge, void* quat2,
-    void* pos2, void* q2, void* vb2, void* qd2, void* imp,
-    const void* heights, long long B, double dt, double gravity, int iters,
+    const void* push, const void* off, const void* geo, const void* ridge,
+    void* quat2, void* pos2, void* q2, void* vb2, void* qd2, void* imp,
+    const void* heights, long long B, int kf, double dt, double gravity,
+    int iters,
     double erp, double margin, double restitution, int H, int W, double cell,
     double x0, double y0, void* stream) {
-  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off,
-                      ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, dt,
-                      0.0, gravity, iters, erp, margin, restitution, H, W,
+  return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
+                      ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf,
+                      dt, 0.0, gravity, iters, erp, margin, restitution, H, W,
                       cell, x0, y0, stream);
 }
 #endif  // GRID_FF_K

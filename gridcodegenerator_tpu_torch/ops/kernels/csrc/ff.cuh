@@ -20,12 +20,16 @@
 //                   J̇·[vb; q̇] is contact_rows instantiated on Dual<T>,
 //                   seeded with (quat, ½ quat ⊗ [0, ω_b]) and (q, q̇), its
 //                   tangent rows contracted with [vb; q̇]
-//   step_state      _step_ground_body (:977) with its feet rows, push and
-//                   softness: the free velocity, the feet's gaps (on a
-//                   heightfield along the normal, the rows in the contact
-//                   frame: terrain_frame, _terrain_surface_s :735), G and b,
-//                   PGS on the friction cones (_pgs_rows :1128) and the
-//                   manifold integration (_quat_exp_s :104)
+//   step_state      _step_ground_body (:977) with its feet and ground-geom
+//                   rows (_ground_geom_rows_s :800), push and softness: the
+//                   free velocity, the contacts' gaps (on a heightfield
+//                   along the normal, the rows in the contact frame:
+//                   terrain_frame, _terrain_surface_s :735), G and b, PGS
+//                   on the friction cones (pgs, _pgs_rows :1128) and the
+//                   manifold integration (quat_step, _quat_exp_s :104)
+// The robot-independent pieces (the packed triangle and its factor and
+// solves, the quaternion helpers, the heightfield, the PGS sweeps) live in
+// contact.cuh, which the multi-dof step (md_step.cuh) shares.
 //
 // The arm is a compile-time constant as in rbd.cuh (-DGRID_N, -DGRID_PARENTS,
 // -DGRID_PRISMATIC), and the stance and step kernels' contact links too
@@ -50,6 +54,7 @@
 #pragma once
 
 #include "chol.cuh"
+#include "contact.cuh"
 #include "dual.cuh"
 
 #ifndef GRID_FF_K
@@ -68,82 +73,6 @@ __constant__ int c_ff_prism[N] = {GRID_PRISMATIC};
 #undef G
 
 __device__ __forceinline__ int ff_parent(int i) { return c_ff_parent[i]; }
-
-// packed lower triangle, row i ≥ column j
-__host__ __device__ constexpr int tri(int i, int j) {
-  return i * (i + 1) / 2 + j;
-}
-
-// ------------------------------------------------------ packed Cholesky
-// The left-looking column factor of chol.cuh (_chol_factor_act) on a packed
-// lower triangle, in place; reg is added to each diagonal entry before its
-// column update.
-template <typename T, int M>
-__device__ __forceinline__ void ptri_factor(T* A, T reg) {
-GRID_ROLLED
-  for (int j = 0; j < M; ++j) {
-GRID_ROLLED
-    for (int i = j; i < M; ++i) {
-      T c = A[tri(i, j)];
-      if (i == j && reg != T(0)) c = c + reg;
-GRID_ROLLED
-      for (int p = 0; p < j; ++p) c = c - A[tri(i, p)] * A[tri(j, p)];
-      A[tri(i, j)] = c;
-    }
-    const T s = sqrt(A[tri(j, j)]);
-GRID_ROLLED
-    for (int i = j; i < M; ++i) A[tri(i, j)] = A[tri(i, j)] / s;
-  }
-}
-
-// (L·Lᵀ)·x = r in place for K right-hand sides, entry by entry with each
-// row's terms in ascending order (_chol_apply_e); x(i, k) is a reference to
-// right-hand side k's row i (each caller indexes its own array, so no
-// pointer walks past the row it was taken from).
-template <typename T, int M, int K, typename Rhs>
-__device__ __forceinline__ void ptri_apply(const T* L, Rhs x) {
-GRID_ROLLED
-  for (int i = 0; i < M; ++i)
-GRID_ROLLED
-    for (int k = 0; k < K; ++k) {
-      T s = x(i, k);
-GRID_ROLLED
-      for (int p = 0; p < i; ++p) s = s + (-L[tri(i, p)]) * x(p, k);
-      x(i, k) = s / L[tri(i, i)];
-    }
-GRID_ROLLED
-  for (int i = M - 1; i >= 0; --i)
-GRID_ROLLED
-    for (int k = 0; k < K; ++k) {
-      T s = x(i, k);
-GRID_ROLLED
-      for (int p = i + 1; p < M; ++p) s = s + (-L[tri(p, i)]) * x(p, k);
-      x(i, k) = s / L[tri(i, i)];
-    }
-}
-
-// (L·Lᵀ)·x = r in place, one right-hand side, column-oriented: the back
-// substitution subtracts Σ_{r>j} L[r][j]·x[r] at once (_chol_solve_act).
-template <typename T, int M>
-__device__ __forceinline__ void ptri_solve(const T* L, T* x) {
-GRID_ROLLED
-  for (int j = 0; j < M; ++j) {
-    x[j] = x[j] / L[tri(j, j)];
-GRID_ROLLED
-    for (int r = j + 1; r < M; ++r) x[r] = x[r] - L[tri(r, j)] * x[j];
-  }
-GRID_ROLLED
-  for (int j = M - 1; j >= 0; --j) {
-    if (j + 1 < M) {
-      T corr = L[tri(j + 1, j)] * x[j + 1];
-GRID_ROLLED
-      for (int r = j + 2; r < M; ++r) corr += L[tri(r, j)] * x[r];
-      x[j] = (x[j] - corr) / L[tri(j, j)];
-    } else {
-      x[j] = x[j] / L[tri(j, j)];
-    }
-  }
-}
 
 // ----------------------------------------------------------- kinematics
 // joint i's transform entry e from (sin, cos) or q, as joint_transforms_bl
@@ -177,31 +106,6 @@ GRID_ROLLED
 #pragma unroll
     for (int e = 0; e < 36; ++e) X[i][e] = xform_entry(R, i, e, prism, f1, f2);
   }
-}
-
-// R(quat), world ← base, row-major (_quat_rot_s)
-template <typename TT>
-__device__ __forceinline__ void quat_rot(const TT* qt, TT* Rm) {
-  using B = base_t<TT>;
-  const B one(1), two(2);
-  const TT w = qt[0], x = qt[1], y = qt[2], z = qt[3];
-  Rm[0] = one - two * (y * y + z * z);
-  Rm[1] = two * (x * y - w * z);
-  Rm[2] = two * (x * z + w * y);
-  Rm[3] = two * (x * y + w * z);
-  Rm[4] = one - two * (x * x + z * z);
-  Rm[5] = two * (y * z - w * x);
-  Rm[6] = two * (x * z - w * y);
-  Rm[7] = two * (y * z + w * x);
-  Rm[8] = one - two * (x * x + y * y);
-}
-
-// out[r] = Σ_k A[r][k]·x[k], 3×3 row-major (_mv3s)
-template <typename A, typename V, typename TT>
-__device__ __forceinline__ void mv3(const A* M, const V* x, TT* out) {
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-    out[r] = M[r * 3] * x[0] + M[r * 3 + 1] * x[1] + M[r * 3 + 2] * x[2];
 }
 
 // ---------------------------------------------------------- the contacts
@@ -239,22 +143,24 @@ __host__ __device__ constexpr int max_chain() {
     d = make_chains().len[ci] > d ? make_chains().len[ci] : d;
   return d;
 }
-constexpr int FF_D = max_chain();   // the longest chain
+// the longest chain (a base geom's, link −1, is empty)
+constexpr int FF_D = max_chain() > 0 ? max_chain() : 1;
 constexpr int FF_C = 6 + FF_D;      // stored columns of a contact's rows
 
 __constant__ Chains c_chains = make_chains();
 
 // The three world-frame rows of contact ci: columns [ω_b (3); v_b (3); the
-// chain's joints, ascending], and the point in base coordinates x_b. The
-// chain's poses come from the joint transforms on the way down (_fk_s:
-// Rs world ← link, ps), so the same code runs on T (the rows) and on Dual<T>
-// (their time derivative).
-template <typename TT>
-__device__ __forceinline__ void contact_rows(const Robot<base_t<TT>>& R,
-                                             int ci, const TT* q,
-                                             const TT* Rw,
-                                             const base_t<TT>* off,
-                                             TT rows[3][FF_C], TT* x_b) {
+// chain's joints, ascending]. x_b ← the point off of the contact's link in
+// base coordinates (off itself on the base, an empty chain); point(x_b, x)
+// gives the point x whose rows are formed (x_b itself for a foot, the
+// material point of a geom's endpoint sphere: _point_rows). The chain's
+// poses come from the joint transforms on the way down (_fk_s: Rs world ←
+// link, ps), so the same code runs on T (the rows) and on Dual<T> (their
+// time derivative).
+template <typename TT, typename Point>
+__device__ __forceinline__ void contact_point_rows(
+    const Robot<base_t<TT>>& R, int ci, const TT* q, const TT* Rw,
+    const base_t<TT>* off, TT rows[3][FF_C], TT* x_b, Point point) {
   TT Rs[FF_D][9], ps[FF_D][3];
   const int len = c_chains.len[ci];
 GRID_ROLLED
@@ -301,16 +207,23 @@ GRID_ROLLED
     }
   }
   const int l = len - 1;
+  if (len == 0) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
-    x_b[r] = ps[l][r] + (Rs[l][r * 3] * off[0] + Rs[l][r * 3 + 1] * off[1] +
-                         Rs[l][r * 3 + 2] * off[2]);
-  // ω_b columns R·(e_j × x_b): e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0,
+    for (int r = 0; r < 3; ++r) x_b[r] = TT(off[r]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      x_b[r] = ps[l][r] + (Rs[l][r * 3] * off[0] + Rs[l][r * 3 + 1] * off[1] +
+                           Rs[l][r * 3 + 2] * off[2]);
+  }
+  TT x[3];
+  point(x_b, x);
+  // ω_b columns R·(e_j × x): e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0,
   // −x0), e_2 × x = (−x1, x0, 0)
-  const TT z = x_b[0] * base_t<TT>(0);
-  const TT ex[3][3] = {{z, -x_b[2], x_b[1]},
-                       {x_b[2], z, -x_b[0]},
-                       {-x_b[1], x_b[0], z}};
+  const TT z = x[0] * base_t<TT>(0);
+  const TT ex[3][3] = {{z, -x[2], x[1]},
+                       {x[2], z, -x[0]},
+                       {-x[1], x[0], z}};
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     TT col[3];
@@ -321,7 +234,7 @@ GRID_ROLLED
       rows[r][3 + j] = Rw[r * 3 + j];
     }
   }
-  // joint columns R·(a_ang × (x_b − p_j) + a_lin)
+  // joint columns R·(a_ang × (x − p_j) + a_lin)
 GRID_ROLLED
   for (int t = 0; t < len; ++t) {
     const int i = c_chains.joint[ci][t];
@@ -330,7 +243,7 @@ GRID_ROLLED
     mv3(Rs[t], S, a_ang);
     mv3(Rs[t], S + 3, a_lin);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) d[r] = x_b[r] - ps[t][r];
+    for (int r = 0; r < 3; ++r) d[r] = x[r] - ps[t][r];
     cross3(a_ang, d, cr);
 #pragma unroll
     for (int r = 0; r < 3; ++r) w[r] = cr[r] + a_lin[r];
@@ -338,6 +251,20 @@ GRID_ROLLED
 #pragma unroll
     for (int r = 0; r < 3; ++r) rows[r][6 + t] = col[r];
   }
+}
+
+// The rows at the contact's own point x_b (a foot; the stance's points)
+template <typename TT>
+__device__ __forceinline__ void contact_rows(const Robot<base_t<TT>>& R,
+                                             int ci, const TT* q,
+                                             const TT* Rw,
+                                             const base_t<TT>* off,
+                                             TT rows[3][FF_C], TT* x_b) {
+  contact_point_rows(R, ci, q, Rw, off, rows, x_b,
+                     [](const TT* xb, TT* x) {
+#pragma unroll
+                       for (int r = 0; r < 3; ++r) x[r] = xb[r];
+                     });
 }
 #endif  // GRID_FF_K > 0
 
@@ -847,98 +774,23 @@ GRID_ROLLED
   store_rows<T, FF_K3>(rhs, B, b, lam_out);
 }
 
-// ------------------------------------------------------- the ground step
-// read-only loads of the height grid (a plain load where this compiles as
-// host C++)
-#ifdef __CUDA_ARCH__
-#define GRID_LDG(p) __ldg(p)
-#else
-#define GRID_LDG(p) (*(p))
-#endif
-
-// The run-time scalars of the frictional ground step, in T (the plain
-// version's Python floats meet its tensors in their dtype).
-template <typename T>
-struct StepParams {
-  T dt, ground_z, minus_g, neg_erp, margin, restitution;
-  int iters;
-};
-
-// A bilinear heightfield: node (i, j) at (x0 + i·cell, y0 + j·cell) is
-// h[i·W + j], read from device memory (no grid size is too large).
-template <typename T>
-struct Heightfield {
-  const T* __restrict__ h;
-  int H, W;
-  T cell, x0, y0;
-};
-
-// Height and contact frame rows C = [t1; t2; n] at world (px, py)
-// (terrain_height_grad, terrain_surface and contact_frame of
-// ops/terrain.py): the cell index clipped to the grid, so outside it the
-// edge cell's surface continues. t1 = (n_z, 0, −n_x)/‖·‖ has a structural
-// zero, whose products the rows skip (x + 0·y = x).
-template <typename T>
-__device__ __forceinline__ void terrain_frame(const Heightfield<T>& hf, T px,
-                                              T py, T* h, T C[3][3]) {
-  const T one(1);
-  const T u = (px - hf.x0) / hf.cell;
-  const T v = (py - hf.y0) / hf.cell;
-  T iu = floor(u), iv = floor(v);
-  iu = iu < T(0) ? T(0) : (iu > T(hf.H - 2) ? T(hf.H - 2) : iu);
-  iv = iv < T(0) ? T(0) : (iv > T(hf.W - 2) ? T(hf.W - 2) : iv);
-  const T fu = u - iu, fv = v - iv;
-  const int idx = static_cast<int>(iu) * hf.W + static_cast<int>(iv);
-  const T h00 = GRID_LDG(hf.h + idx), h10 = GRID_LDG(hf.h + idx + hf.W);
-  const T h01 = GRID_LDG(hf.h + idx + 1);
-  const T h11 = GRID_LDG(hf.h + idx + hf.W + 1);
-  *h = (one - fu) * (one - fv) * h00 + fu * (one - fv) * h10 +
-       (one - fu) * fv * h01 + fu * fv * h11;
-  const T hx = ((one - fv) * (h10 - h00) + fv * (h11 - h01)) / hf.cell;
-  const T hy = ((one - fu) * (h01 - h00) + fu * (h11 - h10)) / hf.cell;
-  const T inv = one / sqrt(hx * hx + hy * hy + one);
-  const T nx = -hx * inv, ny = -hy * inv, nz = inv;
-  const T it = one / sqrt(nz * nz + nx * nx);
-  C[0][0] = nz * it;
-  C[0][1] = T(0);
-  C[0][2] = -nx * it;
-  C[1][0] = ny * C[0][2];                   // − n_z·0
-  C[1][1] = nz * C[0][0] - nx * C[0][2];
-  C[1][2] = -(ny * C[0][0]);                // n_x·0 − n_y·t1_x
-  C[2][0] = nx;
-  C[2][1] = ny;
-  C[2][2] = nz;
-}
-
-// a ⊗ b, (w, x, y, z) (_quat_mul_s)
-template <typename T>
-__device__ __forceinline__ void quat_mul4(const T* a, const T* b, T* out) {
-  out[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  out[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  out[2] = a[0] * b[2] + a[2] * b[0] + a[3] * b[1] - a[1] * b[3];
-  out[3] = a[0] * b[3] + a[3] * b[0] + a[1] * b[2] - a[2] * b[1];
-}
-
-// Entry (r, j) of the symmetric Delassus G from its packed lower triangle;
-// r and j are compile-time constants in the unrolled sweep.
-template <typename T>
-__device__ __forceinline__ T g_at(const T* Gm, int r, int j) {
-  return r >= j ? Gm[tri(r, j)] : Gm[tri(j, r)];
-}
-
-// One frictional ground step of FF_K feet — step_ground_fused (kTerrain
+// One frictional ground step of FF_K contacts — step_ground_fused (kTerrain
 // false: the plane z = ground_z) and step_ground_terrain_fused (true: the
-// heightfield hf). mu (FF_K, B); push (6, B) or null; off (FF_K, 3); ridge
-// (3·FF_K) the Delassus ridge of each cone row. Outputs quat⁺, pos⁺, q⁺,
-// vb⁺, q̇⁺ and the impulses (3·FF_K, B).
+// heightfield hf): the first kf contacts are feet (the points off (kf, 3)),
+// the others the endpoint spheres of ground geoms (geo (FF_K − kf, 4): the
+// centre in its link's frame, then the radius; _ground_geom_rows_s), their
+// links in GRID_FF_LINKS after the feet's (−1: the base). mu (FF_K, B), the
+// feet's then the geoms'; push (6, B) or null; ridge (3·FF_K) the Delassus
+// ridge of each cone row. Outputs quat⁺, pos⁺, q⁺, vb⁺, q̇⁺ and the
+// impulses (3·FF_K, B).
 template <typename T, bool kTerrain>
 __device__ __forceinline__ void step_state(
     const Robot<T>& R, const T* Ib, const T* quat, const T* pos, const T* q,
     const T* vb, const T* qd, const T* tau, const T* mu, const T* push,
-    const T* __restrict__ off, const T* __restrict__ ridge,
-    const StepParams<T>& sp, const Heightfield<T>& hf, T* quat_out,
-    T* pos_out, T* q_out, T* vb_out, T* qd_out, T* imp_out, long long B,
-    long long b) {
+    const T* __restrict__ off, const T* __restrict__ geo, int kf,
+    const T* __restrict__ ridge, const StepParams<T>& sp,
+    const Heightfield<T>& hf, T* quat_out, T* pos_out, T* q_out, T* vb_out,
+    T* qd_out, T* imp_out, long long B, long long b) {
   T qt[4], ps[3], qs[N], vbs[6], qds[N], taus[N];
   load_rows<T, 4>(quat, B, b, qt);
   load_rows<T, 3>(pos, B, b, ps);
@@ -954,21 +806,47 @@ __device__ __forceinline__ void step_state(
     for (int c = 0; c < 6; ++c) rhs_free[c] = push[c * B + b] + rhs_free[c];
   }
 
-  // the feet's rows (rotated into each contact frame on a heightfield),
+  // the contacts' rows (rotated into each contact frame on a heightfield),
   // gaps and active masks
   T J[FF_K][3][FF_C], gap[FF_K];
   bool active[FF_K];
 GRID_ROLLED
   for (int ci = 0; ci < FF_K; ++ci) {
-    T xb[3], t3[3];
-    contact_rows<T>(R, ci, qs, Rw, off + 3 * ci, J[ci], xb);
-    mv3(Rw, xb, t3);
-    T pw[3];
+    // a foot's point, or a geom sphere's centre and radius, through one
+    // call of contact_point_rows: with a separate inlined call for each
+    // kind, the 3-link chain's step came out wrong in every state under
+    // nvcc 12.9, also with -Xptxas -O0 (right with -G, at HyQ and Atlas,
+    // and on the host, where ASan and UBSan find nothing)
+    const bool geom = ci >= kf;
+    const T* e = geom ? geo + 4 * (ci - kf) : off + 3 * ci;
+    const T r = geom ? e[3] : T(0);
+    T xb[3], pw[3], h = T(0), C[3][3];
+    contact_point_rows<T>(
+        R, ci, qs, Rw, e, J[ci], xb, [&](const T* x_b, T* x) {
+          T t3[3];
+          mv3(Rw, x_b, t3);
 #pragma unroll
-    for (int d = 0; d < 3; ++d) pw[d] = ps[d] + t3[d];
+          for (int d = 0; d < 3; ++d) pw[d] = ps[d] + t3[d];
+          if constexpr (kTerrain) terrain_frame(hf, pw[0], pw[1], &h, C);
+          // the material point x_b − r·Rᵀn of a geom: on the plane Rᵀe_z
+          // is R's third row
+          T nb[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            if constexpr (kTerrain) {
+              nb[j] = Rw[j] * C[2][0] + Rw[3 + j] * C[2][1] +
+                      Rw[6 + j] * C[2][2];
+            } else {
+              nb[j] = Rw[6 + j];
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            x[d] = geom ? x_b[d] - r * nb[d] : x_b[d];
+        });
     if constexpr (kTerrain) {
-      T h, C[3][3];
-      terrain_frame(hf, pw[0], pw[1], &h, C);
+      gap[ci] = (pw[2] - h) * C[2][2];
+      if (geom) gap[ci] = gap[ci] - r;
       const int cols = 6 + c_chains.len[ci];
 GRID_ROLLED
       for (int c = 0; c < cols; ++c) {
@@ -977,9 +855,8 @@ GRID_ROLLED
         J[ci][1][c] = C[1][0] * o0 + C[1][1] * o1 + C[1][2] * o2;
         J[ci][2][c] = C[2][0] * o0 + C[2][1] * o1 + C[2][2] * o2;
       }
-      gap[ci] = (pw[2] - h) * C[2][2];
     } else {
-      gap[ci] = pw[2] - sp.ground_z;
+      gap[ci] = geom ? (pw[2] - r) - sp.ground_z : pw[2] - sp.ground_z;
     }
     active[ci] = gap[ci] < sp.margin;
   }
@@ -1055,41 +932,13 @@ GRID_ROLLED
     bb[3 * ci + 2] = bb[3 * ci + 2] - v_star;
   }
 
-  // projected Gauss–Seidel (_pgs_rows): the sweeps are a run-time loop,
-  // the rows and columns inside one unroll (G, p, b in registers)
-  T reg[FF_K3], diag[FF_K3], p[FF_K3], muv[FF_K];
+  // projected Gauss–Seidel (pgs, contact.cuh)
+  T reg[FF_K3], p[FF_K3], muv[FF_K];
 #pragma unroll
-  for (int r = 0; r < FF_K3; ++r) {
-    reg[r] = ridge[r];
-    const T d = Gm[tri(r, r)] + reg[r];
-    diag[r] = d > T(1e-9) ? d : T(1e-9);
-    p[r] = T(0);
-  }
+  for (int r = 0; r < FF_K3; ++r) reg[r] = ridge[r];
 #pragma unroll
   for (int ci = 0; ci < FF_K; ++ci) muv[ci] = mu[ci * B + b];
-GRID_ROLLED
-  for (int it = 0; it < sp.iters; ++it) {
-#pragma unroll
-    for (int ci = 0; ci < FF_K; ++ci) {
-      T cand[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const int r = 3 * ci + d;
-        T acc = g_at(Gm, r, 0) * p[0];
-#pragma unroll
-        for (int j = 1; j < FF_K3; ++j) acc += g_at(Gm, r, j) * p[j];
-        const T res = (acc + reg[r] * p[r]) + bb[r];
-        cand[d] = p[r] - res / diag[r];
-      }
-      const T pn = active[ci] ? (cand[2] > T(0) ? cand[2] : T(0)) : T(0);
-      const T norm_t = sqrt(cand[0] * cand[0] + cand[1] * cand[1] + T(1e-30));
-      const T ratio = muv[ci] * pn / norm_t;
-      const T scale = ratio < T(1) ? ratio : T(1);
-      p[3 * ci] = cand[0] * scale;
-      p[3 * ci + 1] = cand[1] * scale;
-      p[3 * ci + 2] = pn;
-    }
-  }
+  pgs<T, FF_K, 0>(Gm, bb, muv, active, reg, sp.iters, p);
 
   // v⁺ = v_free + M⁻¹Jᵀ·p; the attitude by quat ⊗ exp(½·ω⁺·dt),
   // renormalised; pos by the new rotation; q by q̇⁺
@@ -1101,23 +950,10 @@ GRID_ROLLED
     for (int s = 1; s < FF_K3; ++s) acc += sol[c][s] * p[s];
     vn[c] = vfree[c] + acc;
   }
-  T half[3], e[4], q2[4], R2[9], t3[3];
+  T w_dt[3], q2[4], R2[9], t3[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) half[c] = T(0.5) * (vn[c] * sp.dt);
-  const T ang =
-      sqrt(half[0] * half[0] + half[1] * half[1] + half[2] * half[2] +
-           T(1e-30));
-  T sa, ca;
-  sincos_t(ang, &sa, &ca);
-  const T sr = sa / ang;
-  e[0] = ca;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) e[1 + c] = sr * half[c];
-  quat_mul4(qt, e, q2);
-  const T qn =
-      sqrt(q2[0] * q2[0] + q2[1] * q2[1] + q2[2] * q2[2] + q2[3] * q2[3]);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) q2[c] = q2[c] / qn;
+  for (int c = 0; c < 3; ++c) w_dt[c] = vn[c] * sp.dt;
+  quat_step(qt, w_dt, q2);
   quat_rot(q2, R2);
   mv3(R2, vn + 3, t3);
 #pragma unroll

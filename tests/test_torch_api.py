@@ -187,6 +187,8 @@ PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
                 "ops.freeflyer", "ops.contact", "ops.terrain",
                 "ops.kernels.multidof_fused", "ops.kernels.multidof_staged",
+                "ops.collision", "ops.md_contact",
+                "ops.kernels.md_contact_fused", "models.mjcf",
                 "models.robot", "utils.golden")
 
 
@@ -196,8 +198,10 @@ def test_port_imports_no_jax():
     three second-order entries (on the double pendulum, to stay quick), the
     four multi-dof entries (on the ball arm), the two multi-dof
     gradients of free Atlas (the staged multi-dof pipeline), the
-    free-flyer FD and stance FD, and the ground step (flat and on a
-    heightfield) and its rollout (on the 3-link chain)."""
+    free-flyer FD and stance FD, the ground step (flat and on a
+    heightfield, and with ground geoms) and its rollout (on the 3-link
+    chain), and the multi-dof ground step on the ball ant parsed from its
+    MJCF document, with its torso sphere."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -270,6 +274,26 @@ def test_port_imports_no_jax():
         "final, imps = gt.fb_simulate_ground_batched(m, state, q.expand(3, -1,"
         " -1), 1e-3, (2,), [[0.1, 0.0, 0.0]])\n"
         "assert tuple(imps.shape) == (3, 2, 1, 3)\n"
+        "gg = gt.make_geoms((-1, 1), [[0.0, 0.0, 0.0]] * 2, [[0.0, 0.0, 0.0], "
+        "[0.3, 0.0, 0.0]], [0.15, 0.05], dtype=torch.float64, device='cpu')\n"
+        "nxt, imp = gt.fb_step_ground_batched(m, state, q, 1e-3, (2,), "
+        "[[0.1, 0.0, 0.0]], ground_geoms=gg, mu_ground=0.6)\n"
+        "assert tuple(imp.shape) == (2, 4, 3)\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in (*nxt, imp))\n"
+        "src = zoo.ball_ant_mjcf()\n"
+        "m = gt.multidof_model_from_description(gt.parse_mjcf(src), "
+        "device='cpu')\n"
+        "sites = gt.mjcf_sites(src)\n"
+        "feet = tuple(sites[f'foot{k}'].link for k in range(4))\n"
+        "offs = [list(sites[f'foot{k}'].pos) for k in range(4)]\n"
+        "q = gt.neutral_q(m).expand(2, -1).clone()\n"
+        "v = torch.zeros((2, m.nv), dtype=torch.float64)\n"
+        "(q2, v2), imp = gt.md_step_ground_batched(m, q, v, v, 2e-3, feet, "
+        "offs, mu=0.7, ground_geoms=gt.make_geoms([0], [[0.0, 0.0, 0.0]], "
+        "r=0.18, dtype=torch.float64, device='cpu'), mu_ground=0.6)\n"
+        "assert [tuple(o.shape) for o in (q2, v2, imp)] == [(2, 27), (2, 22), "
+        "(2, 5, 3)]\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in (q2, v2, imp))\n"
         "assert not any(k == 'gridcodegenerator_tpu' or k.startswith("
         "'gridcodegenerator_tpu.') for k in sys.modules)\n"
         "print('ok')\n")

@@ -396,12 +396,9 @@ def test_step_helpers_match_jax():
 
 # ------------------------------------------------------------- errors
 UNPORTED = {
-    "collision": (dict(collision=object()), "Ground stepping, part two"),
-    "mu_collision": (dict(mu_collision=0.5), "Ground stepping, part two"),
-    "ground_geoms": (dict(ground_geoms=object()),
-                     "Ground stepping, part two"),
-    "mu_ground": (dict(mu_ground=0.5), "Ground stepping, part two"),
-    "loops": (dict(loops=((), (), ())), "Ground stepping, part two"),
+    "collision": (dict(collision=object()), "Ground stepping, part three"),
+    "mu_collision": (dict(mu_collision=0.5), "Ground stepping, part three"),
+    "loops": (dict(loops=((), (), ())), "Ground stepping, part three"),
     "welds": (dict(welds=((), ())), "The rest of kinematics and contact"),
     "tendons": (dict(tendons=object()), "The rest of kinematics and contact"),
     "frictionloss": (dict(frictionloss=np.ones(3)),
@@ -429,8 +426,7 @@ def test_unported_options_raise(option):
                                    offsets, **kw)
     assert f"ROADMAP Queue 1, '{title}'" in str(e.value)
     rollout_kw = {k: v for k, v in kw.items()
-                  if k in ("collision", "mu_collision", "ground_geoms",
-                           "mu_ground", "loops", "impl")}
+                  if k in ("collision", "mu_collision", "loops", "impl")}
     if rollout_kw:
         with pytest.raises(NotImplementedError, match=title):
             tct.fb_simulate_ground_batched(tm, tuple(s[:5]), s[5][None], DT,
