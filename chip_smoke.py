@@ -44,8 +44,16 @@ kernels/csrc`` and runs, on ``cuda:0``:
    with a contact within 1e-5 of a switch, and the float64 checks with
    ground geoms the states whose plain version moves by more than 1e-13
    under ± 2e-16 input changes (near-duplicate contacts make the Delassus
-   matrix rank-deficient there); then free HyQ's md step against its
-   free-flyer step on 4096 float64 states (v⁺ and impulses, 1e-10);
+   matrix rank-deficient there: such states are held one by one); then
+   free HyQ's md step against its free-flyer step on 4096 float64 states
+   (v⁺ and impulses, 1e-10); and the step with collision contacts and
+   loop closures (ROWS_PHASE1, from a generator of their own): HyQ with
+   the fat leg capsules and a sphere obstacle, with them and its ground
+   geoms (24 contacts, 72 rows), with a push, a soft contact and
+   restitution; the 3-link chain's base capsule in a self pair; the
+   four-bar's closure and a world pin, flat and on the 121² grid — every
+   case float64 and float32 with its round-off-sensitive states held one
+   by one;
 2. path iiwa-14: ``forward_dynamics_gradient`` and the three prefix
    families, float32, B = 2¹⁸ through the public API, its 256-state parity
    head against the float64 golden model (bench.py's protocol), each output
@@ -110,7 +118,17 @@ S. the frictional ground step at B = 2¹⁸, float32, through
    with each contact's μ, the knees inside their projected limits), and
    both kernels' times, bounds, API times and frames; their profiles come
    from phase 3 ground step's child process (alone:
-   ``chip_smoke.py --step-profile``).
+   ``chip_smoke.py --step-profile``); then the collision and loop cells
+   through ``fb_step_ground_batched`` at 2¹⁸ float32 —
+   collision_step_hyq (bench_contact.py:190-220: HyQ's feet, leg capsules
+   and a sphere obstacle, 4 + 10 contacts, μ 0.8 / 0.5) and
+   loop_ground_step_four_bar (bench_loops.py:84-115: the four-bar's feet
+   and closure) — one launch a call, heads against the plain version, the
+   active shares, float64 invariants on 4096 states (unit quaternions,
+   pn ≥ 0 and 0 off contact, the cones with each contact's μ), the
+   four-bar's 64-step rollout keeping its closure gap within twice the
+   plain version's; and both cells' kernel, plain, bound, API times and
+   env-steps/s (their profiles in the same child).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -154,6 +172,7 @@ from gridcodegenerator_tpu_torch.ops import md_blops as tmdb
 from gridcodegenerator_tpu_torch.ops import md_contact as tmc
 
 SEED = 0
+ROWS_SEED = 1            # phase 1's collision and loop cases (phase1_rows)
 MAIN_B = 1 << 18
 PARITY_STATES = 256      # bench.py's parity head
 COMPARE_STATES = 4096    # main-path kernel-vs-plain comparison
@@ -262,7 +281,14 @@ FF_ROBOTS = {
               (0.0,), 0.5),
     "chain3": (zoo.serial_chain(3, damping=0.1), (2,), (0.1, 0.0, 0.0),
                (0.0,), 0.3),
+    # the four-bar as a free flyer (bench_loops.py:84-115): feet on the
+    # rocker (link 2) and the crank (link 0), 0.25 m down each
+    "four_bar": (zoo.four_bar(damping=0.05), (2, 0), (0.0, 0.0, -0.25),
+                 (0.0,), 0.2),
 }
+# the free flyers every ff.cu kernel is checked on (the four-bar only in
+# the collision and loop cases)
+FF_CHECK = ("hyq", "atlas", "chain3")
 FF_PATHS = ("hyq", "atlas")   # phase F, float32 at MAIN_B
 FF_ARMATURE = 0.05
 # the stance's second case (the JAX package's interpret-mode test): explicit
@@ -344,6 +370,54 @@ MD_STEP_CASES = {"md_step_ground": ("ball_ant", True, False),
                  "md_step_ground_feet": ("ball_ant", False, False),
                  "md_step_ground_free_hyq": ("free_hyq", False, False)}
 MD_KNEE_LIMITS = (0.2, 1.2)   # each knee's range in the limits case
+# collision sets: name → (geoms (links, a, b, r), obstacles (a, r) or None,
+# self pairs or None for auto_pairs at min_separation 2). "bench" is
+# collision_step_hyq's (bench_contact.py:190-220: HyQ's leg capsules r
+# 0.12 and a sphere obstacle r 0.3, 4 + 10 contacts), "fat" the JAX
+# package's test set (tests/test_contact_fused.py:327-337: r 0.24 and
+# 0.35, self and obstacle pairs both active), "base_pair" the 3-link
+# chain's base capsule against a sphere on its last link
+COLL_SETS = {
+    "bench": (((2, 5, 8, 11), [[0.0, 0.0, 0.0]] * 4, [[0.3, 0.0, 0.0]] * 4,
+               0.12), ([[0.25, 0.05, 0.1]], 0.3), None),
+    "fat": (((2, 5, 8, 11), [[0.0, 0.0, 0.0]] * 4, [[0.3, 0.0, 0.0]] * 4,
+             0.24), ([[0.25, 0.05, 0.1]], 0.35), None),
+    "base_pair": (((-1, 2), [[-0.1, 0.0, -0.05], [0.1, 0.0, 0.0]],
+                   [[0.2, 0.0, -0.05], [0.1, 0.0, 0.0]], [0.15, 0.12]),
+                  None, ((0, 1),)),
+}
+COLL_MU = 0.5            # μ_collision (bench_contact.py:207)
+# loop closures: name → (pairs, offsets_a, offsets_b) on the four-bar
+# (crank 0, coupler 1, rocker 2). "bench" the closure coupler ↔ rocker
+# (bench_loops.py); "pin" adds a world pin of the crank's tip
+# (tests/test_contact_fused.py:370-378)
+LOOP_SETS = {
+    "bench": (((1, 2),), [[0.8, 0.0, 0.0]], [[0.0, 0.0, -0.5]]),
+    "pin": (((1, 2), (0, -1)), [[0.8, 0.0, 0.0], [0.0, 0.0, -0.25]],
+            [[0.0, 0.0, -0.5], [0.1, 0.0, 0.15]]),
+}
+# the collision and loop cases: name → (robot, collision set, with HyQ's
+# ground geoms, loop set, grid, with a push, a soft contact and
+# restitution). Phase 1 holds each to its plain version (float64 and
+# float32, round-off-sensitive states one by one); phase S times the two
+# cells ROWS_PATHS on the entry point
+ROWS_CASES = {
+    "hyq_collision": ("hyq", "fat", False, None, None, False),
+    "hyq_collision_geoms": ("hyq", "fat", True, None, None, False),
+    "hyq_collision_options": ("hyq", "fat", False, None, None, True),
+    "chain3_base_pair": ("chain3", "base_pair", False, None, None, False),
+    "four_bar_loops": ("four_bar", None, False, "pin", None, False),
+    "four_bar_loops_terrain": ("four_bar", None, False, "pin", "121", False),
+    "collision_step_hyq": ("hyq", "bench", False, None, None, False),
+    "loop_ground_step_four_bar": ("four_bar", None, False, "bench", None,
+                                  False),
+}
+ROWS_PHASE1 = ("hyq_collision", "hyq_collision_geoms",
+               "hyq_collision_options", "chain3_base_pair", "four_bar_loops",
+               "four_bar_loops_terrain")
+ROWS_PATHS = ("collision_step_hyq", "loop_ground_step_four_bar")
+LOOP_ROLLOUT_T = 64      # the four-bar's closure check
+LOOP_GAP_FACTOR = 2.0    # the kernel's closure gap ≤ this × the plain's
 MD_CROSS_STATES = 4096   # md step vs the free-flyer step, float64
 MD_CROSS_TOL = 1e-10
 
@@ -743,15 +817,21 @@ def step_contacts(label, geoms):
                if geoms else 0))
 
 
-def step_fns(label, grid, opts, dtype, device="cuda", geoms=False):
+def step_fns(label, grid, opts, dtype, device="cuda", geoms=False,
+             cset=None, lset=None):
     """A ground step's kernel and its plain version, each f(m, quat, pos,
     q, vb, qd, tau, mu[, push]) → (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, p (3k_t, B)),
-    batch last: the robot's feet (and with ``geoms`` HyQ's ground geoms) on
-    the flat ground or the grid ``grid``, and with ``opts`` a soft contact
-    (STEP_SOFT) and restitution."""
+    batch last: the robot's feet (and with ``geoms`` HyQ's ground geoms,
+    with ``cset`` a COLL_SETS collision set, with ``lset`` a LOOP_SETS
+    closure set) on the flat ground or the grid ``grid``, and with
+    ``opts`` a soft contact (STEP_SOFT) and restitution."""
     links, off, _ = ff_geometry(label)
     gg = step_geoms(dtype, device) if geoms else None
+    cm = coll_model(cset, label, dtype, device)
+    loops = None if lset is None else LOOP_SETS[lset]
     static = cff.ground_geoms_static(gg)
+    cs = cff.collision_static(cm)
+    ls = cff.loops_static(gt.parse_urdf(FF_ROBOTS[label][0]).n, loops)
     kw = dict(iters=STEP_ITERS, margin=STEP_MARGIN)
     if opts:
         erp, soft = tct.soft_contact_params(*STEP_SOFT, STEP_DT)
@@ -760,18 +840,19 @@ def step_fns(label, grid, opts, dtype, device="cuda", geoms=False):
     terr = step_terrain(grid, dtype, device)
 
     def kern(m, *s):
-        push = s[7] if len(s) > 7 else None
+        both = dict(push=s[7] if len(s) > 7 else None, ground_geoms=gg,
+                    collision=cm, loops=loops, **kw)
         if terr is None:
             return cff.step_ground_fused(m, *s[:7], STEP_DT, links, off,
-                                         push=push, ground_geoms=gg, **kw)
+                                         **both)
         return cff.step_ground_terrain_fused(m, *s[:7], STEP_DT, links, off,
-                                             terr, push=push,
-                                             ground_geoms=gg, **kw)
+                                             terr, **both)
 
     def plain(m, *s):
-        return cff.step_ground_plain(m, *s[:7], STEP_DT, links, off,
-                                     push=s[7] if len(s) > 7 else None,
-                                     terrain=terr, ground_static=static, **kw)
+        return cff.step_ground_plain(
+            m, *s[:7], STEP_DT, links, off, push=s[7] if len(s) > 7 else None,
+            terrain=terr, ground_static=static, collision_static=cs,
+            loop_static=ls, **kw)
     return kern, plain
 
 
@@ -787,28 +868,30 @@ def step_inputs(m, B, gen, label, opts, geoms=False):
     return out
 
 
-def step_feet(m, quat, pos, q, label, grid, geoms=False):
-    """The contacts of batch-last states in float64 — the feet, and with
-    ``geoms`` HyQ's geom spheres: their gaps (k_t, B), along the surface
-    normal on the grid ``grid``, and their world points (k_t (3, B); a
-    sphere's centre)."""
+def step_feet(m, quat, pos, q, label, grid, geoms=False, cset=None):
+    """The contacts of batch-last states in float64 — the feet, with
+    ``cset`` a COLL_SETS collision set's contacts, and with ``geoms`` HyQ's
+    geom spheres: their gaps (k_t, B), along the surface normal on the grid
+    ``grid``, and the ground contacts' world points (the feet's and the
+    geom spheres' (3, B); a sphere's centre)."""
     m64 = m.to(dtype=torch.float64)
     quat, pos, q = (x.double() for x in (quat, pos, q))
     links, off, _ = ff_geometry(label)
     static = cff.ground_geoms_static(step_geoms(torch.float64, "cpu")
                               if geoms else None)
-    glinks = tuple(l for l in cff.geom_links(static) if l >= 0)
-    X = blops.joint_transforms_bl(
-        m64.arm, q, joints=cff._support(m64.arm.topology, links + glinks))
+    cs = cff.collision_static(coll_model(cset, label))
+    support = cff._rows_support(m64, links, static, cs, None)
+    X = blops.joint_transforms_bl(m64.arm, q, joints=support)
     R = cff._quat_rot_s(quat)
-    fk = cff._fk_s(m64.arm, X, cff._support(m64.arm.topology,
-                                            links + glinks))
+    fk = cff._fk_s(m64.arm, X, support)
     J, xs = cff._ff_contact_rows_s(m64, X, R, links, off, fk)
     terr = step_terrain(grid, m.dtype, q.device.type)
     if terr is not None:
         terr = ttr.placed(terr, q.device, torch.float64)[0]
     gaps, _ = cff._ground_rows(R, pos, J, xs, 0.0, STEP_MARGIN, terr)
     points = [pos + cff._mv3s(R, x) for x in xs]
+    if cs is not None:
+        gaps = gaps + cff._collision_rows_s(m64, X, R, pos, cs, fk)[1]
     if static:
         _, g_gaps, _ = cff._ground_geom_rows(m64, R, pos, *fk, static, 0.0,
                                              STEP_MARGIN, terr)
@@ -821,11 +904,12 @@ def step_feet(m, quat, pos, q, label, grid, geoms=False):
     return torch.cat(gaps), points
 
 
-def step_switches(m, s, label, grid, geoms=False):
+def step_switches(m, s, label, grid, geoms=False, cset=None):
     """(keep (B,), gaps (k_t, B)): ``keep`` marks the states none of whose
     contacts lies within STEP_SWITCH of a switch — its float64 gap of the
-    margin, or (on a grid) its position of a cell edge, in cells."""
-    gaps, feet = step_feet(m, *s[:3], label, grid, geoms)
+    margin, or (a ground contact on a grid) its position of a cell edge,
+    in cells."""
+    gaps, feet = step_feet(m, *s[:3], label, grid, geoms, cset)
     near = (gaps - STEP_MARGIN).abs().lt(STEP_SWITCH).any(0)
     terr = step_terrain(grid, m.dtype, s[0].device.type)
     if terr is not None:
@@ -834,6 +918,87 @@ def step_switches(m, s, label, grid, geoms=False):
             near |= torch.minimum((u - u.round()).abs(),
                                   (v - v.round()).abs()) < STEP_SWITCH
     return ~near, gaps
+
+
+@functools.lru_cache(maxsize=None)
+def _coll_model(name, label, dtype, device):
+    (links, a, b, r), obs, pairs = COLL_SETS[name]
+    geoms = gt.make_geoms(links, a, b, r, dtype=dtype, device=device)
+    return gt.make_collision_model(
+        geoms, topology=gt.parse_urdf(FF_ROBOTS[label][0]).topology,
+        pairs=pairs,
+        obstacles=(None if obs is None else
+                   gt.make_obstacles(obs[0], r=obs[1], dtype=dtype,
+                                     device=device)))
+
+
+def coll_model(name, label, dtype=torch.float64, device="cpu"):
+    """The CollisionModel of a COLL_SETS set on ``label``'s tree (None for
+    None), made once."""
+    return None if name is None else _coll_model(name, label, dtype, device)
+
+
+def rows_fns(case, dtype, device="cuda"):
+    """A ROWS_CASES case's step kernel and plain version (step_fns) and
+    the LAUNCHES key."""
+    label, cset, geoms, lset, grid, opts = ROWS_CASES[case]
+    return (*step_fns(label, grid, opts, dtype, device, geoms, cset, lset),
+            "step_ground" if grid is None else "step_ground_terrain")
+
+
+def rows_counts(case):
+    """(feet, collision contacts, ground-geom contacts) of a case."""
+    label, cset, geoms, _, _, _ = ROWS_CASES[case]
+    cm = coll_model(cset, label)
+    return (len(FF_ROBOTS[label][1]), 0 if cm is None else cm.n_contacts,
+            step_contacts("hyq", True) - 4 if geoms else 0)
+
+
+def rows_inputs(m, B, gen, case):
+    """A case's μ (k_t, B), per environment and contact in [0.3, 1.0], and
+    with its options a base push (6, B) of ± STEP_PUSH."""
+    mu = torch.rand((sum(rows_counts(case)), B), generator=gen,
+                    device="cuda", dtype=m.dtype)
+    out = [mu * 0.7 + 0.3]
+    if ROWS_CASES[case][5]:
+        out.append(torch.rand((6, B), generator=gen, device="cuda",
+                              dtype=m.dtype) * (2 * STEP_PUSH) - STEP_PUSH)
+    return out
+
+
+def rows_switches(m, s, case):
+    """step_switches of a case's contacts."""
+    label, cset, geoms, _, grid, _ = ROWS_CASES[case]
+    return step_switches(m, s, label, grid, geoms, cset)
+
+
+def loop_states(m, B, gen, device="cuda", layout="dB", closed=False):
+    """bench_loops.py's four-bar states (:97-105): a random unit
+    quaternion, pos ± 0.1 about z = 0.25, q ± 0.2, vb and q̇ ± 1, τ ± 1; with
+    ``closed`` the joints on the parallelogram (θ, −θ, θ), whose closure
+    holds exactly. → (quat, pos, q, vb, qd, tau), each (d, B), or batch
+    first."""
+    def uni(d, r):
+        return (torch.rand((B, d), generator=gen, device=device,
+                           dtype=m.dtype) * (2 * r) - r)
+    quat = torch.randn((B, 4), generator=gen, device=device, dtype=m.dtype)
+    quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+    pos = uni(3, 0.1) + torch.tensor([0.0, 0.0, 0.25], dtype=m.dtype,
+                                     device=device)
+    q = uni(m.n, 0.2)
+    if closed:
+        q = q[:, :1] * torch.tensor([1.0, -1.0, 1.0], dtype=m.dtype,
+                                    device=device)
+    out = [quat, pos, q, uni(6, 1.0), uni(m.n, 1.0), uni(m.n, 1.0)]
+    return out if layout == "Bd" else [x.T.contiguous() for x in out]
+
+
+def rows_states(m, B, gen, label, layout="dB"):
+    """Phase 1's random states of a case's robot (the four-bar's near the
+    ground, the others as ff_states)."""
+    if label == "four_bar":
+        return loop_states(m, B, gen, layout=layout)
+    return ff_states(m, B, gen, label, layout)
 
 
 def _as_tuple(x):
@@ -899,7 +1064,8 @@ _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
 
 
 def ptxas_report(log_text):
-    """One line per kernel: registers, stack frame and spills."""
+    """One line per kernel: registers, stack frame and spills (a step
+    kernel's cumulative stack includes its row builder's, slot_rows)."""
     lines, name, frame = [], None, ""
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
@@ -927,31 +1093,53 @@ def _with_staged(m):
 
 
 def step_builds():
-    """The ground steps' libraries this slice adds, label → (model, contact
-    links): the md step of the ball ant with and without its torso sphere
-    and of free HyQ, and HyQ's free-flyer step with its ground geoms."""
+    """The ground steps' libraries past the stance's, label → (model, contact
+    links, collision and loop pairs): the md step of the ball ant with and
+    without its torso sphere and of free HyQ, HyQ's free-flyer step with its
+    ground geoms, and the step of each ROWS_CASES case (cases on the same
+    links and pairs share a library)."""
     feet, _, _ = md_step_contacts("ball_ant", True)
-    gl = cff.geom_links(cff.ground_geoms_static(step_geoms(torch.float64, "cpu")))
-    return {
-        "ball_ant (md step, torso)": (md_step_model("ball_ant"), feet + (0,)),
-        "ball_ant (md step, feet)": (md_step_model("ball_ant"), feet),
+    gl = cff.geom_links(cff.ground_geoms_static(step_geoms(torch.float64,
+                                                           "cpu")))
+    out = {
+        "ball_ant (md step, torso)": (md_step_model("ball_ant"), feet + (0,),
+                                      None),
+        "ball_ant (md step, feet)": (md_step_model("ball_ant"), feet, None),
         "free_hyq (md step)": (md_step_model("free_hyq"),
-                               md_step_contacts("free_hyq", False)[0]),
+                               md_step_contacts("free_hyq", False)[0], None),
         "hyq (free flyer, ground geoms)": (ff_model("hyq"),
-                                           FF_ROBOTS["hyq"][1] + gl),
+                                           FF_ROBOTS["hyq"][1] + gl, None),
     }
+    for case, (label, *_) in ROWS_CASES.items():
+        out[f"{label} ({case})"] = (ff_model(label), *rows_key(case))
+    return out
 
 
-def build_all(models, staged=(), links=None):
+def rows_key(case):
+    """A ROWS_CASES case's library: (contact links — the feet, then HyQ's
+    geom spheres' —, (collision links, loop pairs))."""
+    label, cset, geoms, lset, _, _ = ROWS_CASES[case]
+    gl = cff.geom_links(cff.ground_geoms_static(step_geoms(torch.float64,
+                                                           "cpu")))
+    cs = cff.collision_static(coll_model(cset, label))
+    ls = cff.loops_static(gt.parse_urdf(FF_ROBOTS[label][0]).n,
+                          None if lset is None else LOOP_SETS[lset])
+    return (FF_ROBOTS[label][1] + (gl if geoms else ()),
+            (cff.collision_links(cs), () if ls is None else ls.pairs))
+
+
+def build_all(models, staged=(), links=None, pairs=None):
     """Build every topology at once (one nvcc per source and topology), the
     staged multi-dof unit too for the labels in ``staged``, a free flyer's
-    stance library for the contact links ``links[label]``."""
+    stance and step library for the contact links ``links[label]`` and the
+    collision and loop ``pairs[label]``."""
     t0 = time.perf_counter()
-    links = links or {}
+    links, pairs = links or {}, pairs or {}
     units = {label: _with_staged(m) if label in staged else None
              for label, m in models.items()}
     threads = [threading.Thread(target=_build.library,
-                                args=(m, units[label], links.get(label)))
+                                args=(m, units[label], links.get(label),
+                                      pairs.get(label)))
                for label, m in models.items()]
     for t in threads:
         t.start()
@@ -961,10 +1149,14 @@ def build_all(models, staged=(), links=None):
         f"{time.perf_counter() - t0:.1f} s wall")
     for label, m in models.items():
         # raises if a build failed
-        lib = _build.library(m, units[label], links.get(label))
+        lib = _build.library(m, units[label], links.get(label),
+                             pairs.get(label))
         if hasattr(m, "I_base"):
             what = (f"free flyer, contact links {links[label]}"
                     if links.get(label) else "free flyer")
+            if pairs.get(label) and any(pairs[label]):
+                what += (f", collision links {pairs[label][0]}, loops "
+                         f"{pairs[label][1]}")
         elif hasattr(m, "nv") and links.get(label):
             what = (f"nq={m.nq}, nv={m.nv}, the ground step of contact "
                     f"links {links[label]}")
@@ -1221,7 +1413,7 @@ def phase1_free_flyer(gen):
     versions at B = 1000 on free-flyer HyQ, Atlas and the 3-link chain:
     float64 and float32 (the step's float32 away from a switch), and
     float64 with armature."""
-    for label in FF_ROBOTS:
+    for label in FF_CHECK:
         for dtype, arm in ((torch.float64, None), (torch.float32, None),
                            (torch.float64, FF_ARMATURE)):
             m = ff_model(label, dtype, arm)
@@ -1938,23 +2130,33 @@ class OpCount(TorchDispatchMode):
         self.ops = 0
 
     @staticmethod
-    def _live(x, unit):
-        """Where ``x`` is a real term: nonzero, and not ±1 if ``unit``."""
+    def _mask(x, unit):
+        """Where the tensor ``x`` is a real term: nonzero, and not ±1 if
+        ``unit``."""
         live = x != 0
-        if unit:
-            live = live & (x != 1) & (x != -1)
-        return live if isinstance(live, torch.Tensor) else torch.tensor(live)
+        return live & (x != 1) & (x != -1) if unit else live
+
+    @staticmethod
+    def _live_number(x, unit):
+        return x != 0 and not (unit and x in (1, -1))
 
     def _needed(self, name, args):
         a, b = args[0], args[1]
-        if name == "div":          # a / b: free where a = 0 or b = ±1
-            terms = [self._live(a, False), self._live(b, True)]
-        elif name == "mul":        # free where a factor is 0 or ±1
-            terms = [self._live(a, True), self._live(b, True)]
-        else:                      # a ± b: free where either is 0
-            terms = [self._live(a, False), self._live(b, False)]
-        shape = torch.broadcast_shapes(*(t.shape for t in terms))
-        return int((terms[0] & terms[1]).expand(shape).sum())
+        # mul: free where a factor is 0 or ±1; div (a / b): where a = 0 or
+        # b = ±1; a ± b: where either is 0
+        unit_a, unit_b = name == "mul", name in ("mul", "div")
+        ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+        if not (ta and tb):
+            # a number operand: live or not, everywhere
+            (x, ux), (n, un) = (((a, unit_a), (b, unit_b)) if ta
+                                else ((b, unit_b), (a, unit_a)))
+            if not self._live_number(n, un):
+                return 0
+            if not isinstance(x, torch.Tensor):
+                return int(self._live_number(x, ux))
+            return int(self._mask(x, ux).sum()) if ux else int(
+                torch.count_nonzero(x))
+        return int((self._mask(a, unit_a) & self._mask(b, unit_b)).sum())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__.rstrip("_")
@@ -2161,7 +2363,7 @@ def _so_cpu_args(name, cache):
 
 
 def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
-    """Time a second-order kernel (twice) and its plain version (once, on
+    """Time a second-order kernel and its plain version (once, on
     the first B / PLAIN_SO_DIV states, scaled to B), and its bound: the
     plain version's operations less the primal's repeats (both versions
     recompute the primal for every direction; the least work does it once
@@ -2169,18 +2371,21 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
     B = args[0].shape[-1]
     Bp = B // PLAIN_SO_DIV
     pargs = tuple(a[..., :Bp].contiguous() for a in args)
+    w0 = time.perf_counter()
     p = time_plain_ms(plain, (m, *pargs)) * PLAIN_SO_DIV
-    k1 = time_ms(kern, (m, *args))
-    k2 = time_ms(kern, (m, *args))
+    w1 = time.perf_counter()
+    k = time_ms(kern, (m, *args))
     outs = _as_tuple(kern(m, *args))
+    w2 = time.perf_counter()
     make = _so_cpu_args(name, cache)
     primal, dirs = SO_PRIMALS[name]
     total = ops_per_state(plain, m, make)
     once = ops_per_state(primal, m, make)
+    log(f"phase3 {name} {label}: wall {w1 - w0:.1f} s plain, {w2 - w1:.1f} "
+        f"s kernel, {time.perf_counter() - w2:.1f} s operation count")
     ops = (total - (dirs * m.n - 1) * once) * B
     b_ms, b_by = bound(ops, nbytes(*args, *outs))
-    k = min(k1, k2)
-    log(f"phase3 {name} {label} f32 B={B}: kernel {k1:.3f}/{k2:.3f} ms "
+    log(f"phase3 {name} {label} f32 B={B}: kernel {k:.3f} ms "
         f"(median of {TIMED_CALLS}), plain {p:.3f} ms (scaled ×"
         f"{PLAIN_SO_DIV} from B={Bp}, one call); bound {b_ms:.3f} ms"
         f" by {b_by} ({ops:.3e} ops = ({total:g} − ({dirs * m.n} − 1)·"
@@ -2192,14 +2397,15 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
 
 def api_ms(fn, args, label, name_limit):
     """An API call's median time: 10 calls, or 3 where one takes over 1 s."""
-    t0 = time.perf_counter()
+    w0 = t0 = time.perf_counter()
     fn(*args)
     torch.cuda.synchronize()
     calls = TIMED_CALLS if time.perf_counter() - t0 < 1.0 else 3
     ms = time_ms(fn, args, calls=calls, warmup=1)
     B = args[1].shape[0]
     log(f"phase3 {fn.__name__} API {label} B={B}: {ms:.3f} ms (median of "
-        f"{calls}; {B / ms * 1e3:.3e} evals/s); card {name_limit}")
+        f"{calls}; {B / ms * 1e3:.3e} evals/s; wall "
+        f"{time.perf_counter() - w0:.1f} s); card {name_limit}")
     return ms
 
 
@@ -2796,7 +3002,7 @@ def step_invariants(gen):
     quaternion, pn ≥ 0 and 0 where a foot is inactive, ‖pt‖ ≤ μ·pn, and a
     rollout of STEP_INV_T steps equal to as many single steps, bit for
     bit."""
-    for label in FF_ROBOTS:
+    for label in FF_CHECK:
         m = ff_model(label, torch.float64)
         s = ff_states(m, STEP_INV_STATES, gen, label)
         mu = step_inputs(m, STEP_INV_STATES, gen, label, False)[0]
@@ -3007,7 +3213,8 @@ def step_profile():
 def step_profile_child():
     """step_profile's child (``--step-profile``): profiler breakdowns of
     HyQ's stance FD and Atlas's ABA, HyQ's flat and heightfield steps, the
-    ball ant's md step and HyQ's step with ground geoms, all at MAIN_B."""
+    ball ant's md step, HyQ's step with ground geoms and the two cells of
+    ROWS_PATHS (collision, loops), all at MAIN_B."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     name_limit = card()
@@ -3032,6 +3239,12 @@ def step_profile_child():
     profile_breakdown(fn, (m, *md_step_states(m, MAIN_B, gen)),
                       f"{fn.__name__} ball_ant (a fresh process)",
                       name_limit)
+    for case in ROWS_PATHS:
+        m = ff_model(ROWS_CASES[case][0])
+        fn = rows_api(case)
+        profile_breakdown(fn, (m, *rows_path_states(m, MAIN_B, gen, case)),
+                          f"{fn.__name__} {case} (a fresh process)",
+                          name_limit)
 
 
 # ------------------------------------------ phase S: md step, ground geoms
@@ -3219,9 +3432,9 @@ def _geoms_cpu_states(mc, B):
     return geoms_cols(mc, state, tau)
 
 
-def lib_frame(m, links, unit, name):
+def lib_frame(m, links, unit, name, pairs=None):
     """ptxas's lines for the float32 kernel ``name`` of a library."""
-    lib = _build.library(m, None, links)
+    lib = _build.library(m, None, links, pairs)
     return [ln.strip() for ln in ptxas_report(lib.logs[unit])
             if f"{name}<float" in ln]
 
@@ -3279,6 +3492,237 @@ def phase3_md_and_geoms(models, states):
         f"{times['step_ground[hyq_geoms]']['ms']:.3f} ms, 1 launch a call); "
         f"frame {lib_frame(m, links, 'ff.cu', 'step_ground')}; card "
         f"{name_limit}")
+    return times
+
+
+# ------------------------------------------ collision and loop-closure rows
+def phase1_rows(gen):
+    """The step kernels with collision contacts and loop closures against
+    their plain versions at B = 1000, float64 and float32, in each case of
+    ROWS_PHASE1: HyQ with the fat collision set (self and obstacle pairs),
+    with HyQ's ground geoms too (24 contacts, 72 rows), with a push, a soft
+    contact and restitution; the 3-link chain's base capsule in a self
+    pair; the four-bar's closure and a world pin, flat and on the 121²
+    grid. Every case holds its round-off-sensitive states (the segments'
+    kinks, the frame's flip at n_z = 0, near-duplicate contacts) one by
+    one (check_against_plain's ``sensitive``); float32 leaves out the
+    states within STEP_SWITCH of a switch."""
+    for case in ROWS_PHASE1:
+        label = ROWS_CASES[case][0]
+        for dtype in (torch.float64, torch.float32):
+            m = ff_model(label, dtype)
+            s = rows_states(m, PHASE1_B, gen, label)
+            kern, plain, key = rows_fns(case, dtype)
+            kf, kc, kg = rows_counts(case)
+            keep = (None if dtype == torch.float64
+                    else rows_switches(m, s, case)[0])
+            run_pair(f"phase1 rows {case} {str(dtype)[6:]} B={PHASE1_B} "
+                     f"({kf} feet, {kc} collision, {kg} geom contacts, "
+                     f"{ROWS_CASES[case][3] or 'no'} loops)", key, kern,
+                     plain, m, (*s, *rows_inputs(m, PHASE1_B, gen, case)),
+                     keep, sensitive=True)
+
+
+def rows_api(case):
+    """Phase S's call of a ROWS_PATHS cell: the public entry on batch-first
+    states, μ STEP_MU (the collision contacts' COLL_MU), STEP_ITERS
+    sweeps."""
+    label, cset, _, lset, _, _ = ROWS_CASES[case]
+    links, off, _ = ff_geometry(label)
+
+    def fb_step_ground_batched(m, state, tau):
+        return tct.fb_step_ground_batched(
+            m, state, tau, STEP_DT, links, off, mu=STEP_MU, iters=STEP_ITERS,
+            collision=coll_model(cset, label, m.dtype, m.device.type),
+            mu_collision=COLL_MU,
+            loops=None if lset is None else LOOP_SETS[lset])
+    return fb_step_ground_batched
+
+
+def rows_cols(m, state, tau, case, k=None):
+    """The first ``k`` batch-first states of a cell as the step kernel's
+    batch-last arguments, μ as rows_api's."""
+    cols = [x[:k].T.contiguous() for x in (*state, tau)]
+    kf, kc, kg = rows_counts(case)
+    B = cols[0].shape[-1]
+    mu = torch.cat([torch.full((kf, B), STEP_MU, dtype=m.dtype,
+                               device=cols[0].device),
+                    torch.full((kc, B), COLL_MU, dtype=m.dtype,
+                               device=cols[0].device)])
+    return cols + [mu]
+
+
+def rows_path_states(m, B, gen, case, device="cuda"):
+    """A cell's bench states, batch first: HyQ's bench_contact.py states,
+    the four-bar's bench_loops.py states → ((quat, pos, q, vb, qd), tau)."""
+    label = ROWS_CASES[case][0]
+    if label == "four_bar":
+        s = loop_states(m, B, gen, device, layout="Bd")
+        return tuple(s[:5]), s[5]
+    return step_states(m, B, gen, label, device)
+
+
+def rows_invariants(gen):
+    """Float64 checks of both cells on STEP_INV_STATES random states
+    (rows_states), through the entry: unit quaternions, pn ≥ 0 and 0 where
+    a contact is inactive, ‖pt‖ ≤ μ·pn + CONE_TOL with each contact's μ;
+    then the four-bar's rollout of LOOP_ROLLOUT_T steps from closed
+    configurations keeps its closure gap (fb_loop_gap) within
+    LOOP_GAP_FACTOR × the plain version's on the same states."""
+    for case in ROWS_PATHS:
+        label, cset, _, lset, _, _ = ROWS_CASES[case]
+        m = ff_model(label, torch.float64)
+        s = rows_states(m, STEP_INV_STATES, gen, label, layout="Bd")
+        nxt, imp = rows_api(case)(m, tuple(s[:5]), s[5])
+        _, gaps = step_switches(m, [x.T for x in s], label, None,
+                                cset=cset)
+        active = (gaps < STEP_MARGIN).T                       # (B, k_t)
+        kf, kc, _ = rows_counts(case)
+        mu = torch.tensor([STEP_MU] * kf + [COLL_MU] * kc,
+                          dtype=torch.float64, device="cuda")
+        pn = imp[..., 2]
+        cone = float((torch.sqrt(imp[..., 0] ** 2 + imp[..., 1] ** 2)
+                      - mu * pn).max())
+        quat_err = float((torch.linalg.vector_norm(nxt[0], dim=1)
+                          - 1).abs().max())
+        ok = (quat_err <= QUAT_TOL and float(pn.min()) >= 0.0
+              and not bool(pn[~active].any()) and cone <= CONE_TOL)
+        tag = (f"phaseS invariants {case} (f64, {STEP_INV_STATES} states, "
+               f"{float(active.double().mean()):.1%} of contacts active"
+               + (f", collision {float(active[:, kf:].double().mean()):.1%}"
+                  if kc else "") + ")")
+        log(f"{tag}: |‖quat⁺‖ − 1| {quat_err:.2e} (bound {QUAT_TOL:.0e}), "
+            f"min pn {float(pn.min()):.3e}, pn where inactive "
+            f"{float(pn[~active].abs().max()) if (~active).any() else 0.0:.1e}"
+            f", max ‖pt‖ − μ·pn {cone:.3e} (bound {CONE_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{tag}: an invariant fails")
+    # the closure over a rollout, kernel against plain
+    case = "loop_ground_step_four_bar"
+    label, _, _, lset, _, _ = ROWS_CASES[case]
+    loops = LOOP_SETS[lset]
+    m = ff_model(label, torch.float64)
+    s = loop_states(m, STEP_INV_STATES, gen, layout="Bd", closed=True)
+    links, off, _ = ff_geometry(label)
+    taus = s[5][None].expand(LOOP_ROLLOUT_T, -1, -1)
+    gap0 = float(gt.fb_loop_gap(m, s[0].T, s[1].T, s[2].T, *loops).abs()
+                 .max())
+    final, _ = tct.fb_simulate_ground_batched(
+        m, tuple(s[:5]), taus, STEP_DT, links, off, mu=STEP_MU,
+        iters=STEP_ITERS, loops=loops)
+    _, plain, _ = rows_fns(case, torch.float64)
+    p = [x.T.contiguous() for x in s[:5]]
+    mu = torch.full((len(links), STEP_INV_STATES), STEP_MU,
+                    dtype=torch.float64, device="cuda")
+    for _ in range(LOOP_ROLLOUT_T):
+        p = list(plain(m, *p, s[5].T.contiguous(), mu)[:5])
+    gk = gt.fb_loop_gap(m, *(x.T for x in final[:3]), *loops).abs()
+    gp = gt.fb_loop_gap(m, *p[:3], *loops).abs()
+    g_k, g_p = float(gk.max()), float(gp.max())
+    ok = g_k <= LOOP_GAP_FACTOR * g_p
+    tag = (f"phaseS closure {case} (f64, {STEP_INV_STATES} closed states, "
+           f"T={LOOP_ROLLOUT_T})")
+    log(f"{tag}: max closure gap {g_k:.3e} m (plain {g_p:.3e}, bound "
+        f"{LOOP_GAP_FACTOR:g}x it; median {float(gk.amax(0).median()):.1e}"
+        f", plain {float(gp.amax(0).median()):.1e}; at t=0 {gap0:.1e}; the "
+        f"bench's states put feet up to 0.5 m into the ground, and erp "
+        f"lifts them at up to 100 m/s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{tag}: the kernel's closure drifts")
+
+
+def phaseS_rows(gen):
+    """The collision and loop cells through ``fb_step_ground_batched`` at
+    B = 2¹⁸, float32: collision_step_hyq (bench_contact.py:190-220) and
+    loop_ground_step_four_bar (bench_loops.py:84-115) — one launch a call,
+    shapes, a 256-state head against the plain version (the float32 rule,
+    away from a switch, sensitive states one by one), the share of active
+    (collision) contacts; then the float64 invariants (rows_invariants)."""
+    launches, max_abs, models, states = {}, {}, {}, {}
+    for case in ROWS_PATHS:
+        label, cset = ROWS_CASES[case][:2]
+        m = ff_model(label)
+        state, tau = rows_path_states(m, MAIN_B, gen, case)
+        models[case], states[case] = m, (state, tau)
+        kf, kc, _ = rows_counts(case)
+        k = kf + kc
+        tag = f"phaseS {case} (n={m.n}, {kf} feet + {kc} collision contacts)"
+        (nxt, imp), launches[case] = _first_call(
+            tag, rows_api(case), (m, state, tau), {"step_ground": 1})
+        for o, shape in zip((*nxt, imp), [(MAIN_B, d) for d in
+                                          (4, 3, m.n, 6, m.n)]
+                            + [(MAIN_B, k, 3)]):
+            if o.device.type != "cuda" or tuple(o.shape) != shape:
+                raise RuntimeError(f"{tag}: {o.device} {tuple(o.shape)}")
+        check_finite(tag, (*nxt, imp))
+        cols = rows_cols(m, state, tau, case, PARITY_STATES)
+        head = (*(o[:PARITY_STATES].T for o in nxt),
+                imp[:PARITY_STATES].reshape(PARITY_STATES, 3 * k).T)
+        keep, _ = step_switches(m, cols, label, None, cset=cset)
+        _, plain, _ = rows_fns(case, m.dtype)
+        max_abs[case], _ = check_against_plain(
+            f"{tag} API vs plain ({PARITY_STATES} states)", head, plain, m,
+            cols, keep, sensitive=True)
+        _, gaps = step_switches(m, rows_cols(m, state, tau, case,
+                                             STEP_INV_STATES), label, None,
+                                cset=cset)
+        act = gaps < STEP_MARGIN
+        log(f"{tag}: {float(act.double().mean()):.1%} of the contacts "
+            f"active ({STEP_INV_STATES} states; feet "
+            f"{float(act[:kf].double().mean()):.1%}"
+            + (f", collision {float(act[kf:].double().mean()):.1%}"
+               if kc else "") + "), "
+            f"{float((imp[..., 2] > 0).double().mean()):.1%} carrying a "
+            f"normal impulse (all states)")
+        del nxt, imp
+    rows_invariants(gen)
+    return launches, max_abs, models, states
+
+
+def _rows_cpu_states(case):
+    """make_args for ops_per_state of a cell: CPU states drawn as phase
+    S's, from SEED."""
+    def make(mc, B):
+        gen = torch.Generator().manual_seed(SEED)
+        state, tau = rows_path_states(mc, B, gen, case, device="cpu")
+        return rows_cols(mc, state, tau, case)
+    return make
+
+
+def phase3_rows(models, states):
+    """Times of the step kernel and its plain version in both collision and
+    loop cells,
+    their bounds (operations averaged over STEP_OPS_STATES CPU states drawn
+    like the timed ones, beside the share of active contacts there), the
+    API times and env-steps/s, the ptxas frames; the profiles come from
+    the step profile's child (step_profile). No PyTorch call computes a
+    PGS step: no library time."""
+    name_limit = card()
+    times = {}
+    for case in ROWS_PATHS:
+        label, cset = ROWS_CASES[case][:2]
+        m, (state, tau) = models[case], states[case]
+        kern, plain, _ = rows_fns(case, m.dtype)
+        make = _rows_cpu_states(case)
+        mc = m.to(device="cpu", dtype=torch.float64)
+        _, gaps = step_switches(mc, make(mc, STEP_OPS_STATES), label, None,
+                                cset=cset)
+        log(f"phase3 step_ground[{case}]: the bound's {STEP_OPS_STATES} CPU "
+            f"states have {float((gaps < STEP_MARGIN).double().mean()):.1%} "
+            f"of their contacts active; {STEP_ITERS} sweeps")
+        name = f"step_ground[{case}]"
+        times[name] = time_entry(case, name, kern, plain, m,
+                                 rows_cols(m, state, tau, case), make,
+                                 name_limit, states=STEP_OPS_STATES)
+        api = time_ms(rows_api(case), (m, state, tau))
+        links, pairs = rows_key(case)
+        log(f"phase3 fb_step_ground_batched API {case} B={MAIN_B}: "
+            f"{api:.3f} ms (median of {TIMED_CALLS}; "
+            f"{MAIN_B / api * 1e3:.3e} env-steps/s; kernel "
+            f"{times[name]['ms']:.3f} ms, 1 launch a call); frame "
+            f"{lib_frame(m, links, 'ff.cu', 'step_ground', pairs)}; card "
+            f"{name_limit}")
     return times
 
 
@@ -3349,6 +3793,10 @@ RECORD = [
      TPU + "contact_fused.py:1458"),
     ("md_step_ground", "md_step_ground", "step_md_ball_ant", MD_STEP_SRC,
      TPU + "md_contact_fused.py:185"),
+    ("step_ground[collision_step_hyq]", "step_ground",
+     "step_collision_step_hyq", FF_SRC, TPU + "contact_fused.py:1458"),
+    ("step_ground[loop_ground_step_four_bar]", "step_ground",
+     "step_loop_ground_step_four_bar", FF_SRC, TPU + "contact_fused.py:1458"),
 ]
 
 
@@ -3374,15 +3822,17 @@ def main():
                       for label in MD_ROBOTS},
                    **{f"{label} (free flyer{', stance' if k else ''})":
                       ff_model(label)
-                      for label in FF_ROBOTS for k in (False, True)},
-                   **{label: model for label, (model, _) in
+                      for label in FF_CHECK for k in (False, True)},
+                   **{label: model for label, (model, _, _) in
                       step_builds().items()}},
                   staged={f"{label} (multi-dof)" for label in
                           (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
                   links={**{f"{label} (free flyer, stance)":
-                            FF_ROBOTS[label][1] for label in FF_ROBOTS},
-                         **{label: links for label, (_, links) in
-                            step_builds().items()}})
+                            FF_ROBOTS[label][1] for label in FF_CHECK},
+                         **{label: links for label, (_, links, _) in
+                            step_builds().items()}},
+                  pairs={label: pairs for label, (_, _, pairs) in
+                         step_builds().items() if pairs})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
@@ -3390,6 +3840,12 @@ def main():
     phase1_multidof(gen)
     md_stage_abs = phase1_md_staged(gen)
     phase1_free_flyer(gen)
+    # the collision and loop cases draw from a generator of their own, so
+    # the later phases' states are the ones they drew before those cases
+    # were added
+    rows_gen = torch.Generator(device="cuda")
+    rows_gen.manual_seed(ROWS_SEED)
+    phase1_rows(rows_gen)
     phase1_md_step(gen)
     md_cross_check(gen)
     done("phase 1")
@@ -3437,6 +3893,12 @@ def main():
     times.update(phase3_md_and_geoms(md_models2, md_st2))
     del md_models2, md_st2
     done("phase 3 md step and ground geoms")
+    rows_launches, rows_max_abs, rows_models, rows_st = phaseS_rows(gen)
+    st_launches.update(rows_launches)
+    done("phase S collision and loops")
+    times.update(phase3_rows(rows_models, rows_st))
+    del rows_models, rows_st
+    done("phase 3 collision and loops")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
     max_abs.update(md_stage_abs)
@@ -3446,6 +3908,8 @@ def main():
                     for name, cell in STEP_TIMED.items()})
     max_abs["md_step_ground"] = md_max_abs2["md_ball_ant"]
     max_abs["step_ground[hyq_geoms]"] = md_max_abs2["hyq_geoms"]
+    max_abs.update({f"step_ground[{case}]": rows_max_abs[case]
+                    for case in ROWS_PATHS})
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
                      **md_launches,
                      **{f"ff_{k}": v for k, v in ff_launches.items()},

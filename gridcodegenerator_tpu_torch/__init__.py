@@ -48,10 +48,13 @@ robots on frictional ground, feet and ground-geom spheres →
 :func:`md_step_ground_batched`.
 
 Capsule and sphere geoms (``ops/collision``), the steppers'
-``ground_geoms=``: :class:`Geoms`, :class:`Obstacles`,
-:class:`CollisionModel`, :func:`make_geoms`, :func:`make_obstacles`,
-:func:`auto_pairs`, :func:`make_collision_model`,
-:func:`n_ground_contacts`.
+``ground_geoms=`` and ``collision=`` (self and obstacle pairs):
+:class:`Geoms`, :class:`Obstacles`, :class:`CollisionModel`,
+:func:`make_geoms`, :func:`make_obstacles`, :func:`auto_pairs`,
+:func:`make_collision_model`, :func:`n_ground_contacts`, and the pairs'
+gaps, batch last, :func:`fb_collision_distances`. Loop closures
+(``ops/loops``), the steppers' ``loops=``: their gaps, batch last,
+:func:`fb_loop_gap`.
 
 The MJCF front end (``models/mjcf``): :func:`parse_mjcf`,
 :func:`mjcf_sites`, :func:`mjcf_actuators`, :func:`mjcf_loops`,
@@ -98,11 +101,13 @@ from .ops.collision import (
     Geoms,
     Obstacles,
     auto_pairs,
+    fb_collision_distances,
     make_collision_model,
     make_geoms,
     make_obstacles,
     n_ground_contacts,
 )
+from .ops.loops import fb_loop_gap
 from .ops.md_contact import md_step_ground_batched
 from .ops.contact import (
     clamp_effort,
@@ -150,4 +155,5 @@ __all__ = [
     "bumpy_terrain", "terrain_height_grad", "terrain_surface",
     "Geoms", "Obstacles", "CollisionModel", "make_geoms", "make_obstacles",
     "auto_pairs", "make_collision_model", "n_ground_contacts",
+    "fb_collision_distances", "fb_loop_gap",
 ]

@@ -6,7 +6,8 @@ they are: the single-dof robots, and the multi-dof ones — the ball-joint arm
 (:func:`with_free_joint`) and the revolute rewrite of ball joints
 (:func:`expand_spherical`); and the Euler-chain floating base
 (:func:`with_floating_base`), the emulation the free-flyer slice is checked
-against; and the MJCF fixtures, the hinge-legged ant (:func:`ant_mjcf`)
+against; the planar four-bar linkage (:func:`four_bar`), whose loop the
+stepper's ``loops=`` closes; and the MJCF fixtures, the hinge-legged ant (:func:`ant_mjcf`)
 and the ball-hip ant with a free joint (:func:`ball_ant_mjcf`), read by
 :mod:`.mjcf`.
 
@@ -336,6 +337,38 @@ def double_pendulum(l1: float = 1.0, l2: float = 1.0,
     b.link("rod2", mass=m2, com=(0, 0, -l2))
     b.joint("hinge1", "base", "rod1", axis=(0, 1, 0), limit=10)
     b.joint("hinge2", "rod1", "rod2", xyz=(0, 0, -l1), axis=(0, 1, 0), limit=10)
+    return b.build()
+
+
+def four_bar(damping: float = 0.0, ground: float = 0.8,
+             crank: float = 0.5, coupler: float = 0.8) -> str:
+    """Planar parallelogram four-bar linkage (rotation about y, motion in
+    the xz-plane) — the closed-kinematic-chain fixture for the loop-closure
+    layer (``ops/loops.py``). URDF can only express the spanning TREE
+    (base→crank→coupler plus base→rocker); the loop is restored by the
+    connect constraint
+
+        coupler point (coupler, 0, 0)  ==  rocker point (0, 0, −crank),
+
+    which is exactly satisfied in the assembled configuration q = 0
+    (crank tip at (0,0,−crank), coupler extends +x by ``coupler = ground``;
+    rocker hangs from (ground,0,0) to (ground,0,−crank)). One mechanism
+    DOF. Link indices by name via ``Topology.link_names``:
+    crank, coupler, rocker."""
+    b = UrdfWriter("four_bar")
+    b.link("base", mass=2.0, ixx=0.02, iyy=0.02, izz=0.02)
+    b.link("crank", mass=1.0, com=(0, 0, -crank / 2),
+           ixx=0.02, iyy=0.02, izz=0.004)
+    b.link("coupler", mass=0.8, com=(coupler / 2, 0, 0),
+           ixx=0.003, iyy=0.018, izz=0.018)
+    b.link("rocker", mass=1.0, com=(0, 0, -crank / 2),
+           ixx=0.02, iyy=0.02, izz=0.004)
+    b.joint("j_crank", "base", "crank", axis=(0, 1, 0), damping=damping,
+            limit=10)
+    b.joint("j_coupler", "crank", "coupler", xyz=(0, 0, -crank),
+            axis=(0, 1, 0), damping=damping, limit=10)
+    b.joint("j_rocker", "base", "rocker", xyz=(ground, 0, 0),
+            axis=(0, 1, 0), damping=damping, limit=10)
     return b.build()
 
 

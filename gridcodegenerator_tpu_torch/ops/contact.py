@@ -18,14 +18,17 @@ port to it directly.
 The ground step (:func:`fb_step_ground_batched`, and T of them in
 :func:`fb_simulate_ground_batched`) advances B frictional environments —
 the parallel-RL shape — by one velocity step: the unilateral contacts of
-the feet and of ground geoms' endpoint spheres (:mod:`.collision`) with the
-flat ground or a heightfield (:mod:`.terrain`), a
-projected Gauss–Seidel solve of the friction cones on the Delassus
-operator, and semi-implicit integration on the quaternion manifold. It runs
-the step kernels of :mod:`.kernels.contact_fused` on CUDA tensors and their
-plain version on CPU tensors; the options whose rows are not ported yet
-raise ``NotImplementedError`` naming their ROADMAP items. The fixed-base
-pins and the single-state functions wait for their ROADMAP items too.
+the feet, of self-collision and obstacle pairs and of ground geoms'
+endpoint spheres (:mod:`.collision`) with the flat ground or a heightfield
+(:mod:`.terrain`) and with each other, the bilateral rows of loop closures
+(:mod:`.loops`), a projected Gauss–Seidel solve of the friction cones and
+the closures on the Delassus operator, and semi-implicit integration on the
+quaternion manifold. It runs the step kernels of
+:mod:`.kernels.contact_fused` on CUDA tensors and their plain version on
+CPU tensors. The weld, tendon and joint-friction rows, impulse-mode limits,
+implicit differentiation and ``relax`` ≠ 1 raise ``NotImplementedError``
+naming their ROADMAP item; so do the fixed-base pins and the single-state
+functions.
 """
 
 from __future__ import annotations
@@ -34,11 +37,12 @@ import numpy as np
 import torch
 
 from ..api import _check_impl, _cols, _unflat
+from .collision import _check_geoms
 from .freeflyer import FreeFlyerModel, _check_ff_states
 from .kernels import contact_fused as _cf
+from .loops import _check_fb_pairs
 
 # ROADMAP items are named by title, which a renumbering leaves as it is
-_GROUND_THREE = "ROADMAP Queue 1, 'Ground stepping, part three'"
 _KIN_CONTACT = "ROADMAP Queue 1, 'The rest of kinematics and contact'"
 
 
@@ -182,9 +186,8 @@ def _check_step_options(options, limits, limit_mode, diff_mode, relax):
                          f"got {diff_mode!r}")
     for name, value in options.items():
         if value is not None:
-            item = (_GROUND_THREE if name in ("collision", "mu_collision",
-                                              "loops") else _KIN_CONTACT)
-            raise NotImplementedError(f"{name}= is not ported yet: {item}")
+            raise NotImplementedError(
+                f"{name}= is not ported yet: {_KIN_CONTACT}")
     if limits is not None and limit_mode == "impulse":
         raise NotImplementedError(
             f"limit_mode='impulse' is not ported yet: {_KIN_CONTACT}")
@@ -208,22 +211,47 @@ def _geom_links_ok(geoms, lo, n, what):
                             "link"))
 
 
-def _contact_mu(mu, mu_ground, k, static, B, dtype, device):
+def _contact_mu(mu, mu_ground, k, static, B, dtype, device, kc=0,
+                mu_collision=None):
     """The friction coefficients of every cone row as one batch-last (k_t,
-    B) tensor: the k feet's from ``mu`` (:func:`_mu_to_bl`), then the
-    ground-geom contacts' from ``mu_ground`` — or, where it is None, from
-    ``mu`` itself, per environment where ``mu`` is (the JAX XLA body's
-    rule, contact.py:1779)."""
-    mu_bl = _mu_to_bl(mu, k, B, dtype, device)
-    if not static:
-        return mu_bl
-    kg = len(static)
-    mu_g = _mu_to_bl(mu if mu_ground is None else mu_ground, kg, B, dtype,
-                     device)
-    if tuple(mu_g.shape) != (kg, B):
-        raise ValueError(f"the ground geoms' mu must broadcast to ({kg}, "
-                         f"{B}), got {tuple(mu_g.shape)}: pass mu_ground")
-    return torch.cat([mu_bl, mu_g])
+    B) tensor: the k feet's from ``mu`` (:func:`_mu_to_bl`), then the kc
+    collision contacts' from ``mu_collision`` and the ground-geom contacts'
+    (``static``) from ``mu_ground`` — each, where it is None, from ``mu``
+    itself, per environment where ``mu`` is (the JAX XLA body's rule,
+    contact.py:1775-1783)."""
+    parts = [_mu_to_bl(mu, k, B, dtype, device)]
+    for mu_x, kx, what, kw in ((mu_collision, kc, "collision contacts'",
+                                "mu_collision"),
+                               (mu_ground, len(static), "ground geoms'",
+                                "mu_ground")):
+        if not kx:
+            continue
+        part = _mu_to_bl(mu if mu_x is None else mu_x, kx, B, dtype, device)
+        if tuple(part.shape) != (kx, B):
+            raise ValueError(f"the {what} mu must broadcast to ({kx}, {B}), "
+                             f"got {tuple(part.shape)}: pass {kw}")
+        parts.append(part)
+    return torch.cat(parts)
+
+
+def _step_setup(ffm, links, offsets, collision, loops, ground_geoms, mu,
+                mu_collision, mu_ground, B, q):
+    """Check a step's contact sets (the JAX package's errors) and gather
+    what every step of them reads: the feet's links, the k_t cone contacts'
+    μ (k_t, B) and the count k_t."""
+    _check_contacts(ffm.n, links, offsets)
+    if collision is not None:
+        _check_geoms(ffm.n, collision)
+    if loops is not None:
+        _check_fb_pairs(ffm.n, *loops)
+    if ground_geoms is not None:
+        _geom_links_ok(ground_geoms, -1, ffm.n, "ground-geom")
+    links = tuple(int(l) for l in links)
+    kc = 0 if collision is None else collision.n_contacts
+    static = _cf.ground_geoms_static(ground_geoms)
+    mu_bl = _contact_mu(mu, mu_ground, len(links), static, B, q.dtype,
+                        q.device, kc, mu_collision)
+    return links, mu_bl, len(links) + kc + len(static)
 
 
 def _step_bl(ffm, s, tau, mu, push, dt, links, offsets, ground_z, terrain,
@@ -278,45 +306,47 @@ def fb_step_ground_batched(ffm: FreeFlyerModel, state, tau, dt, links,
     ``links`` and ``offsets`` (k, 3) place the feet; ``mu`` is a scalar,
     (k,) per foot, or (B,) or (B, k) per environment; ``terrain`` a
     :class:`.terrain.Terrain` in place of the plane ``z = ground_z``;
-    ``erp`` the share of a penetration recovered a step, ``margin`` the gap
-    under which a foot is active, ``restitution`` the bounce of the normal
-    velocity; ``ground_geoms`` (a :class:`.collision.Geoms` on links −1 —
-    the base — to n−1) adds a contact for each endpoint sphere (one a
-    sphere, two a capsule) after the k feet, with friction ``mu_ground``
-    (None: ``mu``); ``f_base`` (B,6) an external base wrench; ``softness``
-    (scalar or (k_t,), see :func:`soft_contact_params`) a compliance on
-    each contact's rows; ``effort`` (n,) clamps τ first; ``limits`` = (lo,
-    hi) (n,) projects q⁺ and q̇⁺ onto the joint ranges
-    (``limit_mode="project"``). ``impl``: ``"auto"``, or ``"cuda"`` (CUDA
-    tensors only). The collision, loop, weld, tendon and joint-friction
-    rows, impulse-mode limits, implicit differentiation, ``relax`` ≠ 1 and
+    ``erp`` the share of a penetration (and of a loop's gap) recovered a
+    step, ``margin`` the gap under which a contact is active,
+    ``restitution`` the bounce of the normal velocity. ``collision`` (a
+    :class:`.collision.CollisionModel`) adds a cone contact for each self
+    pair and each obstacle pair after the feet, with friction
+    ``mu_collision`` (None: ``mu``); ``ground_geoms`` (a
+    :class:`.collision.Geoms` on links −1 — the base — to n−1) one for each
+    endpoint sphere (one a sphere, two a capsule) after those, with
+    friction ``mu_ground`` (None: ``mu``); ``loops`` = (pairs, offsets_a,
+    offsets_b) closes each (a, b) link pair — b = −1 pins a's point to the
+    world anchor offsets_b — by three bilateral rows solved after the cones
+    (no impulses returned for them). ``f_base`` (B,6) is an external base
+    wrench; ``softness`` (scalar or (k_t,), see :func:`soft_contact_params`)
+    a compliance on each cone contact's rows; ``effort`` (n,) clamps τ
+    first; ``limits`` = (lo, hi) (n,) projects q⁺ and q̇⁺ onto the joint
+    ranges (``limit_mode="project"``). ``impl``: ``"auto"``, or ``"cuda"``
+    (CUDA tensors only). The weld, tendon and joint-friction rows,
+    impulse-mode limits, implicit differentiation, ``relax`` ≠ 1 and
     ``impl="vmap"`` raise ``NotImplementedError``."""
-    _check_contacts(ffm.n, links, offsets)
     _check_step_options(
-        dict(collision=collision, mu_collision=mu_collision, loops=loops,
-             welds=welds, tendons=tendons, frictionloss=frictionloss),
+        dict(welds=welds, tendons=tendons, frictionloss=frictionloss),
         limits, limit_mode, diff_mode, relax)
-    if ground_geoms is not None:
-        _geom_links_ok(ground_geoms, -1, ffm.n, "ground-geom")
     _check_batch(ffm, state, tau)
     q = state[2]
+    B = q.shape[0]
+    links, mu_bl, kt = _step_setup(ffm, links, offsets, collision, loops,
+                                   ground_geoms, mu, mu_collision, mu_ground,
+                                   B, q)
     _check_impl(impl, q)
     if effort is not None:
         tau = clamp_effort(tau, effort)
-    links = tuple(int(l) for l in links)
-    B, k = q.shape[0], len(links)
-    static = _cf.ground_geoms_static(ground_geoms)
-    kt = k + len(static)
     if f_base is not None and tuple(f_base.shape) != (B, 6):
         raise ValueError(f"f_base must be ({B}, 6), got "
                          f"{tuple(f_base.shape)}")
-    out = _step_bl(ffm, [_cols(x) for x in state], _cols(tau),
-                   _contact_mu(mu, mu_ground, k, static, B, q.dtype,
-                               q.device), _cols(f_base), dt,
-                   links, offsets, ground_z, terrain, limits,
+    out = _step_bl(ffm, [_cols(x) for x in state], _cols(tau), mu_bl,
+                   _cols(f_base), dt, links, offsets, ground_z, terrain,
+                   limits,
                    dict(gravity=gravity, iters=iters, erp=erp, margin=margin,
                         restitution=restitution, softness=softness,
-                        ground_geoms=ground_geoms))
+                        ground_geoms=ground_geoms, collision=collision,
+                        loops=loops))
     nxt = tuple(_unflat(x, (B,)) for x in out[:5])
     return nxt, _unflat(out[5], (B,)).reshape(B, kt, 3)
 
@@ -331,27 +361,21 @@ def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
                                mu_ground=None, loops=None, f_bases=None):
     """T steps of :func:`fb_step_ground_batched`: ``state0`` as its state,
     ``taus`` (T, B, n), ``f_bases`` optional (T, B, 6) per-step base
-    wrenches (push schedules), ``ground_geoms`` and ``mu_ground`` as there
-    → (final state, impulses (T, B, k_t, 3)). The states stay batch last
-    between the steps (one layout change at each end), so the result
-    equals T single steps. ``collision`` and ``loops`` raise
-    ``NotImplementedError``."""
-    _check_contacts(ffm.n, links, offsets)
-    _check_step_options(
-        dict(collision=collision, mu_collision=mu_collision, loops=loops),
-        None, "project", "unroll", 1.0)
-    if ground_geoms is not None:
-        _geom_links_ok(ground_geoms, -1, ffm.n, "ground-geom")
+    wrenches (push schedules), ``collision``, ``mu_collision``,
+    ``ground_geoms``, ``mu_ground`` and ``loops`` as there → (final state,
+    impulses (T, B, k_t, 3)). The states stay batch last between the steps
+    (one layout change at each end), so the result equals T single
+    steps."""
     _check_batch(ffm, state0)
     q = state0[2]
     if taus.dim() != 3 or tuple(taus.shape[1:]) != tuple(q.shape):
         raise ValueError(f"taus must be (T, {q.shape[0]}, {ffm.n}), got "
                          f"{tuple(taus.shape)}")
+    T, B = taus.shape[0], q.shape[0]
+    links, mu_bl, kt = _step_setup(ffm, links, offsets, collision, loops,
+                                   ground_geoms, mu, mu_collision, mu_ground,
+                                   B, q)
     _check_impl(impl, q)
-    links = tuple(int(l) for l in links)
-    T, B, k = taus.shape[0], q.shape[0], len(links)
-    static = _cf.ground_geoms_static(ground_geoms)
-    kt = k + len(static)
     if f_bases is not None and tuple(f_bases.shape) != (T, B, 6):
         raise ValueError(f"f_bases must be ({T}, {B}, 6), got "
                          f"{tuple(f_bases.shape)}")
@@ -359,9 +383,9 @@ def fb_simulate_ground_batched(ffm: FreeFlyerModel, state0, taus, dt, links,
     taus_bl = taus.permute(0, 2, 1).contiguous()              # (T, n, B)
     pushes = (None if f_bases is None
               else f_bases.permute(0, 2, 1).contiguous())    # (T, 6, B)
-    mu_bl = _contact_mu(mu, mu_ground, k, static, B, q.dtype, q.device)
     kw = dict(gravity=gravity, iters=iters, erp=erp, margin=margin,
-              restitution=restitution, ground_geoms=ground_geoms)
+              restitution=restitution, ground_geoms=ground_geoms,
+              collision=collision, loops=loops)
     imps = torch.empty((T, 3 * kt, B), dtype=q.dtype, device=q.device)
     for t in range(T):
         *s, imps[t] = _step_bl(ffm, s, taus_bl[t], mu_bl,

@@ -9,7 +9,8 @@ past ``MAX_MD_GRAD_NV`` velocity coordinates, ``csrc/md_staged.cu`` (the
 staged multi-dof pipeline), and for each set of contact links
 ``csrc/md_step.cu`` (its ground step); for a free flyer (``FreeFlyerModel``)
 ``csrc/ff.cu`` — its ABA and mass-matrix FD, or, in a library of its own
-for each set of contact links, its stance FD and its ground steps. All are built for ``sm_90a``
+for each set of contact links (and of a ground step's collision and loop
+links), its stance FD and its ground steps. All are built for ``sm_90a``
 at once, with the joint count, parent indices, joint types and contact
 links passed as ``-D`` macros (``csrc/rbd.cuh``, ``csrc/md.cuh``,
 ``csrc/ff.cuh``). A unit a robot does not build by
@@ -161,13 +162,14 @@ _UNITS = {
         "grid_stance_fd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _LL, _D, _D, _D, _D, _P),
         # consts, quat, pos, q, vb, qd, tau, mu, push (or NULL), offsets,
-        # geoms (or NULL), ridge, quat2, pos2, q2, vb2, qd2, imp, B, feet,
-        # dt, ground_z, gravity, iters, erp, margin, restitution, stream
-        "grid_step_ground": (*(_P,) * 18, _LL, _I, _D, _D, _D, _I, _D, _D,
+        # geoms (or NULL), collision (or NULL), loops (or NULL), ridge,
+        # quat2, pos2, q2, vb2, qd2, imp, B, feet, dt, ground_z, gravity,
+        # iters, erp, margin, restitution, stream
+        "grid_step_ground": (*(_P,) * 20, _LL, _I, _D, _D, _D, _I, _D, _D,
                              _D, _P),
         # ..., imp, heights, B, feet, dt, gravity, iters, erp, margin,
         # restitution, H, W, cell, x0, y0, stream
-        "grid_step_ground_terrain": (*(_P,) * 19, _LL, _I, _D, _D, _I, _D,
+        "grid_step_ground_terrain": (*(_P,) * 21, _LL, _I, _D, _D, _I, _D,
                                      _D, _D, _I, _I, _D, _D, _D, _P),
     },
     "md_step.cu": {
@@ -278,7 +280,7 @@ _KEY_LOCKS: dict[tuple, threading.Lock] = {}
 _LOADED: dict[tuple, KernelLibrary] = {}
 
 
-def topology_key(model, links=None) -> tuple:
+def topology_key(model, links=None, pairs=None) -> tuple:
     """What a kernel library is specialised on: joint count, parents and
     which joints are prismatic; for a multi-dof model (one with
     ``v_slices``) the tag ``"md"`` and every joint's type, which fix its
@@ -289,7 +291,10 @@ def topology_key(model, links=None) -> tuple:
     the contact ``links`` (empty: the ABA and mass-matrix kernels; else the
     stance and ground-step kernels of those links — feet, then each geom
     contact's link, −1 for the base —, whose rows are zero outside each
-    link's ancestors)."""
+    link's ancestors), and for a ground step with collision contacts or
+    loop closures ``pairs`` = (each collision contact's two links — −2 for
+    an obstacle —, each closure's (a, b) — b = −1 for a world pin): these
+    fix the rows' columns; the geometry is a run-time argument."""
     parents = tuple(model.topology.parents)
     if hasattr(model, "v_slices"):
         key = ("md", model.n, parents,
@@ -297,8 +302,12 @@ def topology_key(model, links=None) -> tuple:
         return key + (tuple(int(l) for l in links),) if links else key
     prism = tuple(int(t == "prismatic") for t in model.joint_types)
     if hasattr(model, "I_base"):
-        return ("ff", model.n, parents, prism,
-                tuple(int(l) for l in (links or ())))
+        key = ("ff", model.n, parents, prism,
+               tuple(int(l) for l in (links or ())))
+        if pairs and any(pairs):
+            key += tuple(tuple((int(a), int(b)) for a, b in p)
+                         for p in pairs)
+        return key
     return (model.n, parents, prism)
 
 
@@ -333,14 +342,22 @@ def _nvcc() -> str:
 
 def _macros(key: tuple) -> list[str]:
     if key[0] == "ff":
-        _, n, parents, prism, links = key
-        return [
+        _, n, parents, prism, links = key[:5]
+        coll, loops = key[5:] if len(key) == 7 else ((), ())
+        gs = lambda xs: "".join(f"G({x})" for x in xs)
+        out = [
             f"-DGRID_N={n}",
-            "-DGRID_PARENTS=" + "".join(f"G({p})" for p in parents),
-            "-DGRID_PRISMATIC=" + "".join(f"G({p})" for p in prism),
+            "-DGRID_PARENTS=" + gs(parents),
+            "-DGRID_PRISMATIC=" + gs(prism),
             f"-DGRID_FF_K={len(links)}",
-        ] + (["-DGRID_FF_LINKS=" + "".join(f"G({l})" for l in links)]
-             if links else [])
+        ] + (["-DGRID_FF_LINKS=" + gs(links)] if links else [])
+        for tag, rows in (("C", coll), ("L", loops)):
+            if rows:
+                out += [f"-DGRID_FF_K{tag}={len(rows)}" if tag == "C"
+                        else f"-DGRID_FF_L={len(rows)}",
+                        f"-DGRID_FF_{tag}A=" + gs(a for a, _ in rows),
+                        f"-DGRID_FF_{tag}B=" + gs(b for _, b in rows)]
+        return out
     if key[0] == "md":
         _, n, parents, codes = key[:4]
         nv = _md_nv(codes)
@@ -427,13 +444,14 @@ def _load(unit: str, so: Path, n: int) -> ctypes.CDLL:
     return lib
 
 
-def library(model, units=None, links=None) -> KernelLibrary:
+def library(model, units=None, links=None, pairs=None) -> KernelLibrary:
     """The kernel libraries for ``model``'s topology (a ``RobotModel``'s,
     a ``MultiDofModel``'s or a ``FreeFlyerModel``'s, with its contact
-    ``links`` for the stance kernel): the units it builds by default, or
-    those named, each built (all at once) if it is not yet. Different
-    topologies build concurrently."""
-    key = topology_key(model, links)
+    ``links`` for the stance kernel, and a ground step's collision and loop
+    ``pairs``): the units it builds by default, or those named, each built
+    (all at once) if it is not yet. Different topologies build
+    concurrently."""
+    key = topology_key(model, links, pairs)
     want = _units(key) if units is None else tuple(units)
     with _LOCK:
         lib = _LOADED.setdefault(key, KernelLibrary({}, {}, {}, {}))

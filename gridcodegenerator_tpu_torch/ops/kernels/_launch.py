@@ -119,11 +119,13 @@ def ptr(x):
 
 
 def launch(name: str, entry: str, model: RobotModel, ptrs, B: int,
-           *scalars, links=None) -> None:
+           *scalars, links=None, pairs=None) -> None:
     """Call ``entry`` of the model's kernel library (its unit built if it
-    is not yet; for the stance and step kernels, the library of ``links``)
-    on the current stream and count the launch under ``name``."""
-    lib = _build.library(model, (_build.unit_of(entry),), links=links)
+    is not yet; for the stance and step kernels, the library of ``links``
+    and a step's collision and loop ``pairs``) on the current stream and
+    count the launch under ``name``."""
+    lib = _build.library(model, (_build.unit_of(entry),), links=links,
+                         pairs=pairs)
     device = model.device
     fn = lib.entry(entry, _DTYPE_TAGS[model.dtype])
     with torch.cuda.device(device):

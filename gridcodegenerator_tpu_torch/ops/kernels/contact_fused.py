@@ -23,16 +23,25 @@ contact_fused.py``. It holds
   matrix), and ``step_ground_fused`` (:1458) and
   ``step_ground_terrain_fused`` (:1531), one frictional ground step on the
   plane or a heightfield (the plain version :func:`step_ground_plain`, the
-  JAX ``_step_ground_body`` (:977) with its feet, push and softness: PGS on
-  the friction cones, :func:`_pgs_rows`; the heightfield's frames,
-  :func:`_ground_rows`; the attitude update, :func:`_quat_exp_s`).
+  JAX ``_step_ground_body`` (:977) whole: the feet, push and softness; PGS
+  on the friction cones and the closures' bilateral rows,
+  :func:`_pgs_rows`; the heightfield's frames, :func:`_ground_rows`; the
+  ground geoms' rows, :func:`_ground_geom_rows`; the self-collision and
+  obstacle rows, :func:`collision_static` and :func:`_collision_rows_s`,
+  whose geometry helpers — the JAX ``_seg_seg_closest_s``,
+  ``_pair_geometry_s``, ``_frame_rows_s`` and ``_point_cols_s`` — are
+  :mod:`..collision`'s batch-last ones, one copy; the loop closures'
+  rows, :func:`loops_static` and :func:`_loop_rows_s`; the attitude
+  update, :func:`_quat_exp_s`).
 
 Entries are (1, B) tensors, ``None`` where structurally zero; every sum
 runs left to right, the order the CUDA kernels (``csrc/chol.cuh``,
 ``staged.cuh``, ``md.cuh``, ``ff.cuh``) keep. Each wrapper runs its plain
 version on CPU tensors and its kernel (``csrc/ff.cu``, built for the arm's
 topology, and for the stance kernel the contact links, at first use) on
-CUDA tensors, with no fallback from one to the other. The JAX package's
+CUDA tensors, with no fallback from one to the other. The step kernel
+is built per set of feet, ground-geom, collision and loop links; all
+geometry is a run-time argument. The JAX package's
 lane-budget gates (``ff_workset_ok``, ``fb_aba_fused``'s test,
 ``terrain_fused_ok``) and its XLA fallback fit a TPU tile; here one thread
 holds one state at every size, and the height grid stays in device
@@ -43,10 +52,13 @@ gather of a foot's four grid nodes is an index gather here.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import blops
+from .. import collision as _col
 from .. import terrain as _terrain
 from ..so import jvp
 from ._launch import check_ff, empty, launch, on_cpu, ptr
@@ -204,6 +216,15 @@ def _mv3s_c(A, c):
     return torch.cat([
         sum(A[i, j:j + 1] * c[j] for j in range(3) if c[j] != 0.0)
         if any(c[j] != 0.0 for j in range(3)) else A[i, 0:1] * 0.0
+        for i in range(3)])
+
+
+def _mtv3s_c(A, c):
+    """Aᵀ (3,3,B) @ a constant 3-vector (Python floats) → (3,B), the zero
+    components skipped (JAX ``_mtv3s_c``, :485)."""
+    return torch.cat([
+        sum(A[j, i:i + 1] * c[j] for j in range(3) if c[j] != 0.0)
+        if any(c[j] != 0.0 for j in range(3)) else A[0, i:i + 1] * 0.0
         for i in range(3)])
 
 
@@ -367,6 +388,15 @@ def _stack_rows(entries, like):
     return torch.cat([e if e is not None else zero for e in entries])
 
 
+def _dense_rows(J, m, like):
+    """Rows (R lists of m (1,B)/None entries) → one (R, m, B) tensor, None
+    as zero."""
+    zero = torch.zeros((len(J), like.shape[-1]), dtype=like.dtype,
+                       device=like.device)
+    return torch.stack([zero if c is None else c
+                        for c in _jt_stacks(J, m, like)], dim=1)
+
+
 def _jt_stacks(J, m, like):
     """Contact rows (3k lists of m (1,B)/None entries) → per column, the
     (3k,B) stack of J[r][c] over the rows, or None for a column outside
@@ -379,26 +409,26 @@ def _jt_stacks(J, m, like):
     return JT
 
 
+def _omega_cols(R, x):
+    """The ω_b columns R·(e_j × x) of a point x (3,B) in base coordinates,
+    j = 0, 1, 2: e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0, −x0), e_2 × x =
+    (−x1, x0, 0)."""
+    zero1 = x[0:1] * 0.0
+    ex = [torch.cat([zero1, -x[2:3], x[1:2]]),
+          torch.cat([x[2:3], zero1, -x[0:1]]),
+          torch.cat([-x[1:2], x[0:1], zero1])]
+    return [_mv3s(R, e) for e in ex]
+
+
 def _point_rows(ffm, R, Rs, ps, l, x_b):
     """The three world-frame linear rows of a point x_b (3,B) in base
     coordinates, rigidly attached to link ``l`` (−1: the base), over the
     6+n columns [ω_b; v_b; q̇]: (1,B) entries, None outside ancestors(l) ∪
     {l}. The ω_b columns are R·(e_j × x_b), the v_b columns R[:, j], a
     joint's column R·(a_ang × (x_b − p_j) + a_lin)."""
-    topo = ffm.arm.topology
-    S = ffm.arm.S[..., None]
-    zero1 = x_b[0:1] * 0.0
-    # e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0, −x0), e_2 × x = (−x1, x0, 0)
-    ex = [torch.cat([zero1, -x_b[2:3], x_b[1:2]]),
-          torch.cat([x_b[2:3], zero1, -x_b[0:1]]),
-          torch.cat([-x_b[1:2], x_b[0:1], zero1])]
-    wcols = [_mv3s(R, e) for e in ex]
-    acols = {}
-    if l >= 0:
-        for j in sorted(set(topo.ancestors[l]) | {l}):
-            a_ang = _mv3s(Rs[j], S[j][:3])
-            a_lin = _mv3s(Rs[j], S[j][3:])
-            acols[j] = _mv3s(R, _cross3s(a_ang, x_b - ps[j]) + a_lin)
+    wcols = _omega_cols(R, x_b)
+    acols = {j: _mv3s(R, c)
+             for j, c in _col._arm_point_jac_bl(ffm, Rs, ps, l, x_b).items()}
     rows = []
     for r in range(3):
         row = [None] * (6 + ffm.n)
@@ -623,31 +653,36 @@ def _quat_exp_s(w_dt):
                       s * half[2:3]])
 
 
-def _pgs_rows(G, b, mu, active, k, iters, regs):
+def _pgs_rows(G, b, mu, active, k, iters, regs, eq=0):
     """Projected Gauss–Seidel on the Delassus rows (JAX ``_pgs_rows``,
-    :1128): G an entry view (``G[r][j]`` (1,B), both triangles), b 3k (1,B)
-    entries, mu (k,B), active k (1,B) 0/1 masks, ``regs`` the per-row ridge
-    (3k floats), applied algebraically — (G + reg·I)·p = G·p + reg·p — and
-    in the clipped diagonal. Each sweep visits the contacts in order; a
-    contact's three candidates use the impulses before its own update, its
-    normal one is clipped at 0 (and to 0 where inactive), its tangential
-    pair scaled into the cone ‖pt‖ ≤ μ·pn. → impulses (3k,B)."""
-    rows = 3 * k
+    :1128): G an entry view (``G[r][j]`` (1,B), both triangles), b 3k + eq
+    (1,B) entries, mu (k,B), active k (1,B) 0/1 masks, ``regs`` the per-row
+    ridge (3k + eq floats), applied algebraically — (G + reg·I)·p = G·p +
+    reg·p — and in the clipped diagonal. Each sweep visits the contacts in
+    order; a contact's three candidates use the impulses before its own
+    update, its normal one is clipped at 0 (and to 0 where inactive), its
+    tangential pair scaled into the cone ‖pt‖ ≤ μ·pn; then each of the
+    ``eq`` trailing bilateral rows (loop closures) takes its Gauss–Seidel
+    update unprojected. → impulses (3k + eq,B)."""
+    rows = 3 * k + eq
+
+    def residual(r):
+        return (_sum_terms([G[r][j] * p[j] for j in range(rows)])
+                + regs[r] * p[r]) + b[r]
+
     diag = [torch.clamp(G[d][d] + regs[d], min=1e-9) for d in range(rows)]
     p = [torch.zeros_like(b[0]) for _ in range(rows)]
     for _ in range(iters):
         for i in range(k):
             s = 3 * i
-            cand = []
-            for d in range(3):
-                r = s + d
-                res = (_sum_terms([G[r][j] * p[j] for j in range(rows)])
-                       + regs[r] * p[r]) + b[r]
-                cand.append(p[r] - res / diag[r])
+            cand = [p[s + d] - residual(s + d) / diag[s + d]
+                    for d in range(3)]
             pn = torch.clamp(cand[2], min=0.0) * active[i]
             norm_t = torch.sqrt(cand[0] * cand[0] + cand[1] * cand[1] + 1e-30)
             scale = torch.clamp(mu[i:i + 1] * pn / norm_t, max=1.0)
             p[s:s + 3] = [cand[0] * scale, cand[1] * scale, pn]
+        for r in range(3 * k, rows):
+            p[r] = p[r] - residual(r) / diag[r]
     return torch.cat(p)
 
 
@@ -749,74 +784,294 @@ def _ridge(softness, k):
     return tuple(1e-9 + s for s in _softness_rows(softness, k).tolist())
 
 
+# the build key's link of an obstacle pair's second side
+OBSTACLE = -2
+
+
+class CollisionStatic(NamedTuple):
+    """A collision set as the steppers read it (JAX ``collision_static``,
+    :555): ``geoms`` (link, a, b − a, r) a geom and ``obstacles`` (a, b −
+    a, r) an obstacle, floats (b − a in float64, as there), and the
+    candidate ``pairs`` (geom, geom) and ``obs_pairs`` (geom, obstacle)."""
+    geoms: tuple
+    obstacles: tuple
+    pairs: tuple
+    obs_pairs: tuple
+
+
+def collision_static(cm):
+    """The :class:`CollisionStatic` of a :class:`..collision.
+    CollisionModel` (the one :func:`..collision.make_collision_model` keeps
+    on the set, or made from its tensors), or None for no contacts."""
+    if cm is None or not cm.n_contacts:
+        return None
+    if cm.static is not None:
+        return cm.static
+    g = cm.geoms
+    a, b, r = (_col._numpy(x).astype(np.float64) for x in (g.a, g.b, g.r))
+    geoms = tuple((int(l), tuple(a[i].tolist()), tuple((b[i] - a[i]).tolist()),
+                   float(r[i])) for i, l in enumerate(g.links))
+    obstacles = ()
+    if cm.obstacles is not None:
+        oa, ob, orr = (_col._numpy(x).astype(np.float64)
+                       for x in (cm.obstacles.a, cm.obstacles.b,
+                                 cm.obstacles.r))
+        obstacles = tuple((tuple(oa[w].tolist()), tuple((ob[w] - oa[w])
+                                                        .tolist()),
+                           float(orr[w])) for w in range(oa.shape[0]))
+    return CollisionStatic(geoms, obstacles,
+                           tuple((int(i), int(j)) for i, j in cm.pairs),
+                           tuple((int(i), int(w)) for i, w in cm.obs_pairs))
+
+
+def collision_links(cs):
+    """What the rows' columns depend on, a contact: (link of geom A, link
+    of geom B) for a self pair, (link of the geom, :data:`OBSTACLE`) for
+    an obstacle pair (−1: the base) — the build key's part."""
+    if cs is None:
+        return ()
+    return (tuple((cs.geoms[i][0], cs.geoms[j][0]) for i, j in cs.pairs)
+            + tuple((cs.geoms[i][0], OBSTACLE) for i, _ in cs.obs_pairs))
+
+
+def collision_values(cs):
+    """The kernel's run-time geometry, 14 floats a contact: side A's start,
+    vector and radius, then side B's (the second geom in its link's frame,
+    or the obstacle in the world's)."""
+    if cs is None:
+        return ()
+    sides = ([(cs.geoms[i], cs.geoms[j]) for i, j in cs.pairs]
+             + [(cs.geoms[i], (None,) + cs.obstacles[w])
+                for i, w in cs.obs_pairs])
+    return tuple(v for A, B in sides
+                 for v in (*A[1], *A[2], A[3], *B[1], *B[2], B[3]))
+
+
+def _collision_rows_s(ffm, X, R, pos, cs, fk=None):
+    """The collision contacts' rows (JAX ``_collision_rows_s``, :577):
+    (3c row lists over the 6+n columns, c gaps (1,B)), the self pairs, then
+    the obstacle pairs. Each contact's rows are its frame (t1, t2, n) —
+    n = R·n_b from B to A — dotted with the world columns of its point: a
+    self pair only the arm columns' difference (its base columns cancel),
+    an obstacle pair — the obstacle brought into base coordinates as
+    Rᵀ(a_w − pos), Rᵀd_w — the full base block. ``fk`` = (Rs, ps) of
+    :func:`_fk_s` where the caller has them."""
+    m = 6 + ffm.n
+    Rs, ps = fk or _fk_s(ffm.arm, X, _support(
+        ffm.arm.topology, [l for l, *_ in cs.geoms if l >= 0]))
+    segs = _col._geom_segments_bl(cs, Rs, ps, pos)
+    rows, gaps = [], []
+
+    def emit(gap, nrm_b, base_cols, arm):
+        frame = _col._contact_frame_cols_bl(_mv3s(R, nrm_b))
+        wcols = {j: _mv3s(R, c) for j, c in arm.items()}
+        gaps.append(gap)
+        for r in range(3):
+            row = [None] * m
+            if base_cols is not None:
+                for j in range(3):
+                    row[j] = _col._dot(frame[r], base_cols[j])
+                for j in range(3):
+                    row[3 + j] = _col._dot(frame[r], R[:, j])
+            for j, c in wcols.items():
+                row[6 + j] = _col._dot(frame[r], c)
+            rows.append(row)
+
+    for gi, gj in cs.pairs:
+        gap, nrm_b, pt_b = _col._pair_geometry_bl(
+            *segs[gi], cs.geoms[gi][3], *segs[gj], cs.geoms[gj][3])
+        ci = _col._arm_point_jac_bl(ffm, Rs, ps, cs.geoms[gi][0], pt_b)
+        cj = _col._arm_point_jac_bl(ffm, Rs, ps, cs.geoms[gj][0], pt_b)
+        emit(gap, nrm_b, None,
+             {j: (ci[j] - cj[j] if j in cj else ci[j]) if j in ci else -cj[j]
+              for j in sorted(set(ci) | set(cj))})
+    for gi, w in cs.obs_pairs:
+        aw, dw, rw = cs.obstacles[w]
+        a_b = _mv3s(R, torch.cat([aw[d] - pos[d:d + 1] for d in range(3)]),
+                    tA=True)
+        gap, nrm_b, pt_b = _col._pair_geometry_bl(
+            *segs[gi], cs.geoms[gi][3], a_b, _mtv3s_c(R, dw), rw)
+        emit(gap, nrm_b, _omega_cols(R, pt_b),
+             _col._arm_point_jac_bl(ffm, Rs, ps, cs.geoms[gi][0], pt_b))
+    return rows, gaps
+
+
+class LoopStatic(NamedTuple):
+    """A ``loops=(pairs, offsets_a, offsets_b)`` set as the steppers read it
+    (JAX ``loops_static``, :657): the (a, b) link pairs (b = −1: a world
+    pin) and each pair's two offsets (3 floats each; b's is the world
+    anchor of a pin)."""
+    pairs: tuple
+    offsets: tuple
+
+
+def loops_static(n, loops):
+    """The :class:`LoopStatic` of a loop set, checked as the JAX package
+    checks it (:func:`..loops._check_fb_pairs`); None for None."""
+    if loops is None:
+        return None
+    from ..loops import _check_fb_pairs
+
+    lpairs, loa, lob = loops
+    lpairs = _check_fb_pairs(n, lpairs, loa, lob)
+    oa, ob = (_col._numpy(x).astype(np.float64) for x in (loa, lob))
+    return LoopStatic(tuple((int(a), int(b)) for a, b in lpairs),
+                      tuple((tuple(oa[i].tolist()), tuple(ob[i].tolist()))
+                            for i in range(len(lpairs))))
+
+
+def loop_values(ls):
+    """The kernel's run-time loop geometry, 6 floats a pair: the offset on
+    link a, then b's offset (or a pin's anchor)."""
+    return () if ls is None else tuple(v for oa, ob in ls.offsets
+                                       for v in (*oa, *ob))
+
+
+def _loop_rows_s(ffm, X, R, pos, ls, fk=None):
+    """The loop closures' bilateral rows (JAX ``_loop_rows_s``, :671):
+    (3L row lists, 3L world-frame gap components (1,B), the points x_a and
+    x_b in base coordinates, x_b None for a pin). A link↔link pair carries
+    no base linear columns (both points ride the base), its angular ones
+    R·(e_j × (x_a − x_b)) and the arm columns' difference; a world pin
+    (b = −1) measures against its anchor and carries the full base
+    block."""
+    m = 6 + ffm.n
+    Rs, ps = fk or _fk_s(ffm.arm, X, _support(
+        ffm.arm.topology, [l for pr in ls.pairs for l in pr if l >= 0]))
+
+    def side(link, off):
+        x = ps[link] + _mv3s_c(Rs[link], off)
+        return x, _col._arm_point_jac_bl(ffm, Rs, ps, link, x)
+
+    rows, gaps, xas, xbs = [], [], [], []
+    for (a, b), (oa, ob) in zip(ls.pairs, ls.offsets):
+        xa, ca = side(a, oa)
+        xb = None
+        if b >= 0:
+            xb, cb = side(b, ob)
+            rel = xa - xb
+            arm = {j: (ca[j] - cb[j] if j in cb else ca[j]) if j in ca
+                   else -cb[j] for j in sorted(set(ca) | set(cb))}
+            gap = _mv3s(R, rel)
+        else:
+            rel, arm = xa, ca
+            gw = _mv3s(R, xa)
+            gap = torch.cat([pos[d:d + 1] + gw[d:d + 1] - ob[d]
+                             for d in range(3)])
+        wcols = _omega_cols(R, rel)
+        armw = {j: _mv3s(R, c) for j, c in arm.items()}
+        for r in range(3):
+            row = [None] * m
+            for j in range(3):
+                row[j] = wcols[j][r:r + 1]
+            if b < 0:
+                for j in range(3):
+                    row[3 + j] = R[r, j:j + 1]
+            for j, c in armw.items():
+                row[6 + j] = c[r:r + 1]
+            rows.append(row)
+            gaps.append(gap[r:r + 1])
+        xas.append(xa)
+        xbs.append(xb)
+    return rows, gaps, xas, xbs
+
+
+def _rows_support(ffm, links, ground_static, cs, ls):
+    """The joints every row of a step reads (:func:`_support` of all the
+    links its contacts and closures ride)."""
+    extra = [g[0] for g in ground_static]
+    if cs is not None:
+        extra += [g[0] for g in cs.geoms]
+    if ls is not None:
+        extra += [l for pr in ls.pairs for l in pr]
+    return _support(ffm.arm.topology,
+                    tuple(links) + tuple(l for l in extra if l >= 0))
+
+
 def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
                       ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
                       margin=1e-3, restitution=0.0, push=None, softness=None,
-                      terrain=None, ground_static=()):
-    """One frictional ground step (JAX ``_step_ground_body``, :977; its
-    feet and ground-geom rows, ``push``, ``softness`` and the heightfield):
-    the free velocity v_free = v + dt·M⁻¹[push − f_b; τ − c_j], the rows J
-    of the k feet and then of the geoms' endpoint spheres
-    ``ground_static`` (:func:`ground_geoms_static`; JAX :1049-1062, where
-    the collision block, not ported yet, sits between the two) — rotated
-    into each contact's frame on a ``terrain`` — and their gaps, the
-    Delassus G = J·M⁻¹Jᵀ (its lower triangle, read both ways) and b =
-    J·v_free less v* = −erp·min(gap, 0)/dt − restitution·min(vn, 0) on the
-    normal rows, ``iters`` PGS sweeps for the impulses p (3k_t,B), v⁺ =
-    v_free + M⁻¹Jᵀ·p, the attitude quat ⊗ exp(½·ω⁺·dt) renormalised, pos
-    by the new rotation and q by q̇⁺. → (quat⁺ (4,B), pos⁺ (3,B), q⁺ (n,B),
-    vb⁺ (6,B), q̇⁺ (n,B), p (3k_t,B)). ``mu`` (k_t,B), the feet's rows
-    then the geoms'; ``softness`` a scalar or (k_t,); ``push`` (6,B) or
-    None."""
+                      terrain=None, ground_static=(), collision_static=None,
+                      loop_static=None):
+    """One frictional ground step (JAX ``_step_ground_body``, :977): the
+    free velocity v_free = v + dt·M⁻¹[push − f_b; τ − c_j]; the rows J in
+    the JAX order — the k feet (rotated into each contact's frame on a
+    ``terrain``), the collision contacts ``collision_static``
+    (:func:`collision_static`, :func:`_collision_rows_s`), the geoms'
+    endpoint spheres ``ground_static`` (:func:`ground_geoms_static`), then
+    the loop closures' bilateral rows ``loop_static`` (:func:`loops_static`,
+    :func:`_loop_rows_s`) — and the gaps; the Delassus G = J·M⁻¹Jᵀ (its
+    lower triangle, read both ways) and b = J·v_free, less v* =
+    −erp·min(gap, 0)/dt − restitution·min(vn, 0) on the cone normals and
+    plus erp·gap/dt on the loop rows; ``iters`` PGS sweeps for the impulses
+    p; v⁺ = v_free + M⁻¹Jᵀ·p, the attitude quat ⊗ exp(½·ω⁺·dt)
+    renormalised, pos by the new rotation and q by q̇⁺. → (quat⁺ (4,B),
+    pos⁺ (3,B), q⁺ (n,B), vb⁺ (6,B), q̇⁺ (n,B), the cone impulses p
+    (3k_t,B)). ``mu`` (k_t,B), the feet's rows, the collision contacts',
+    then the geoms'; ``softness`` a scalar or (k_t,) (the loop rows keep
+    the bare 1e-9 ridge); ``push`` (6,B) or None."""
     links = tuple(int(l) for l in links)
     ground_static = tuple(ground_static)
     m = 6 + ffm.n
-    kt = len(links) + len(ground_static)
-    k3 = 3 * kt
     X = blops.joint_transforms_bl(ffm.arm, q)
     R = _quat_rot_s(quat)
     f_b, c_j = _fb_bias_s(ffm, X, R, vb, qd, gravity)
     Lm = _chol_factor_ev(_fb_mass_s(ffm, X), m)
     rhs_free = _rhs_free(f_b, c_j, tau, push)
     v = _vfull_list(ffm, vb, qd)
-    fk = _fk_s(ffm.arm, X, _support(
-        ffm.arm.topology, links + tuple(g[0] for g in ground_static
-                                        if g[0] >= 0)))
+    fk = _fk_s(ffm.arm, X, _rows_support(ffm, links, ground_static,
+                                         collision_static, loop_static))
     J, xs = _ff_contact_rows_s(ffm, X, R, links, offsets, fk)
     if terrain is not None:
         terrain = _terrain.placed(terrain, q.device, q.dtype)[0]
     gaps, active = _ground_rows(R, pos, J, xs, ground_z, margin, terrain)
+    if collision_static is not None:
+        c_rows, c_gaps = _collision_rows_s(ffm, X, R, pos, collision_static,
+                                           fk)
+        J, gaps = J + c_rows, gaps + c_gaps
+        active = active + [(g < margin).to(pos.dtype) for g in c_gaps]
     if ground_static:
         g_rows, g_gaps, g_active = _ground_geom_rows(
             ffm, R, pos, *fk, ground_static, ground_z, margin, terrain)
         J, gaps, active = J + g_rows, gaps + g_gaps, active + g_active
+    kt = len(gaps)
+    l_gaps = []
+    if loop_static is not None:
+        l_rows, l_gaps, _, _ = _loop_rows_s(ffm, X, R, pos, loop_static, fk)
+        J = J + l_rows
+    k3 = 3 * kt
+    rows_t = len(J)
     JT = _jt_stacks(J, m, q[0:1])
 
-    # one merged solve: rows 0..3k−1 M⁻¹Jᵀ, row 3k the free acceleration
-    zero3k = torch.zeros((k3, q.shape[-1]), dtype=q.dtype, device=q.device)
-    sol = _chol_apply_e(Lm, [torch.cat([zero3k if JT[c] is None else JT[c],
+    # one merged solve: rows 0..R−1 M⁻¹Jᵀ, row R the free acceleration
+    zeroR = torch.zeros((rows_t, q.shape[-1]), dtype=q.dtype, device=q.device)
+    sol = _chol_apply_e(Lm, [torch.cat([zeroR if JT[c] is None else JT[c],
                                         rhs_free[c]]) for c in range(m)])
-    MiJt = [sol[c][:k3] for c in range(m)]
-    v_free = [v[c] + dt * sol[c][k3:] for c in range(m)]
+    MiJt = [sol[c][:rows_t] for c in range(m)]
+    v_free = [v[c] + dt * sol[c][rows_t:] for c in range(m)]
 
     def row_dot(r, x):
         return _sum_terms([J[r][c] * x[c] for c in range(m)
                            if J[r][c] is not None])
     G_low = [_sum_terms([J[r][c] * MiJt[c][:r + 1] for c in range(m)
-                         if J[r][c] is not None]) for r in range(k3)]
-    G = [[G_low[max(r, s)][min(r, s):min(r, s) + 1] for s in range(k3)]
-         for r in range(k3)]
-    b = [row_dot(r, v_free) for r in range(k3)]
+                         if J[r][c] is not None]) for r in range(rows_t)]
+    G = [[G_low[max(r, s)][min(r, s):min(r, s) + 1] for s in range(rows_t)]
+         for r in range(rows_t)]
+    b = [row_dot(r, v_free) for r in range(rows_t)]
     for ci, gap in enumerate(gaps):
         v_star = -erp * torch.clamp(gap, max=0.0) / dt
         if restitution:
             vn_now = row_dot(3 * ci + 2, v)
             v_star = v_star - restitution * torch.clamp(vn_now, max=0.0)
         b[3 * ci + 2] = b[3 * ci + 2] - v_star
-    p = _pgs_rows(G, b, mu, active, kt, int(iters), _ridge(softness, kt))
+    for j, gap in enumerate(l_gaps):           # the loops' gap recovery
+        b[k3 + j] = b[k3 + j] + erp * gap / dt
+    p = _pgs_rows(G, b, mu, active, kt, int(iters),
+                  _ridge(softness, kt) + (1e-9,) * (rows_t - k3),
+                  eq=rows_t - k3)
 
     v_new = torch.cat([v_free[c] + _sum_terms([MiJt[c][s:s + 1] * p[s:s + 1]
-                                               for s in range(k3)])
+                                               for s in range(rows_t)])
                        for c in range(m)])
     vb2, qd2 = v_new[:6], v_new[6:]
     quat2 = _quat_mul_s(quat, _quat_exp_s(vb2[:3] * dt))
@@ -825,7 +1080,7 @@ def step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
                                + quat2[3:4] * quat2[3:4])
     pos2 = pos + dt * _mv3s(_quat_rot_s(quat2), vb2[3:])
     q2 = q + dt * qd2
-    return quat2, pos2, q2, vb2, qd2, p
+    return quat2, pos2, q2, vb2, qd2, p[:k3]
 
 
 # --------------------------------------------------------------------------
@@ -922,54 +1177,68 @@ def stance_fd_fused(ffm, quat, pos, q, vb, qd, tau, links, offsets,
 
 
 def _step_launch(ffm, name, entry, quat, pos, q, vb, qd, tau, mu, push,
-                 links, offsets, static, softness, extra_ptrs, scalars):
+                 links, offsets, static, cs, ls, softness, extra_ptrs,
+                 scalars):
     """Check a ground step's inputs, allocate its outputs (quat⁺ (4,B),
     pos⁺ (3,B), q⁺ (n,B), vb⁺ (6,B), q̇⁺ (n,B), p (3k_t,B)) and launch
-    ``entry`` of the library of the k feet and the ground-geom contacts
-    ``static`` (their links after the feet's). The offsets, the geom
-    spheres and the per-row ridge are device copies kept a set of values
+    ``entry`` of the library of the k feet, the ground-geom contacts
+    ``static`` (their links after the feet's), the collision contacts
+    ``cs`` and the loop closures ``ls`` (their links: :func:`collision_links`
+    and the pairs). The offsets, the geom spheres, the collision and loop
+    geometry and the per-row ridge are device copies kept a set of values
     (:func:`_device_geom`, :func:`device_geoms`)."""
     n, k = ffm.n, len(links)
-    kt = k + len(static)
+    kt = k + len(static) + (0 if cs is None else len(collision_links(cs)))
+    n_eq = 0 if ls is None else 3 * len(ls.pairs)
     B = check_ff(ffm, _ff_states(ffm, quat, q, vb, qd, tau, pos)
                  + [(mu, kt, "k_t")] + ([] if push is None
                                         else [(push, 6, "push")]))
     outs = tuple(empty(ffm, d, B) for d in (4, 3, n, 6, n, 3 * kt))
     if B:
-        ridge = _geom_copy(_ridge(softness, kt), ffm.dtype,
-                           torch.device(ffm.device))
+        dev = torch.device(ffm.device)
+        ridge = _geom_copy(_ridge(softness, kt) + (1e-9,) * n_eq, ffm.dtype,
+                           dev)
+        extra = [_geom_copy(v, ffm.dtype, dev, 1) if v else None
+                 for v in (collision_values(cs), loop_values(ls))]
         launch(name, entry, ffm,
                (quat.data_ptr(), pos.data_ptr(), q.data_ptr(), vb.data_ptr(),
                 qd.data_ptr(), tau.data_ptr(), mu.data_ptr(), ptr(push),
                 _device_geom(ffm, offsets, k).data_ptr(),
                 ptr(device_geoms(static, ffm.dtype, ffm.device)),
+                *(ptr(x) for x in extra),
                 ridge.data_ptr(), *(o.data_ptr() for o in outs),
                 *extra_ptrs), B, k, *scalars,
-               links=links + geom_links(static))
+               links=links + geom_links(static),
+               pairs=(collision_links(cs), () if ls is None else ls.pairs))
     return outs
 
 
 def step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
                       ground_z=0.0, gravity=-9.81, iters=30, erp=0.2,
                       margin=1e-3, restitution=0.0, push=None, softness=None,
-                      ground_geoms=None):
+                      ground_geoms=None, collision=None, loops=None):
     """One frictional step on the flat ground ``z = ground_z`` for the feet
-    ``links`` (body-frame ``offsets`` (k, 3)) and the endpoint spheres of
-    ``ground_geoms`` (a :class:`..collision.Geoms`, links −1 … n−1):
-    batch-last states, ``mu`` (k_t,B) — the feet's rows, then the geoms' —,
-    optional ``push`` (6,B) and ``softness`` (scalar or (k_t,)) → (quat⁺,
-    pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k_t,B)). The kernel is built per set of
-    feet and geom links; everything else is a run-time argument."""
+    ``links`` (body-frame ``offsets`` (k, 3)), the self and obstacle pairs
+    of ``collision`` (a :class:`..collision.CollisionModel`), the endpoint
+    spheres of ``ground_geoms`` (a :class:`..collision.Geoms`, links −1 …
+    n−1) and the loop closures ``loops`` = (pairs, offsets_a, offsets_b):
+    batch-last states, ``mu`` (k_t,B) — the feet's rows, the collision
+    contacts', then the geoms' —, optional ``push`` (6,B) and ``softness``
+    (scalar or (k_t,)) → (quat⁺, pos⁺, q⁺, vb⁺, q̇⁺, impulses (3k_t,B)).
+    The kernel is built per set of feet, geom, collision and loop links;
+    everything else is a run-time argument."""
     links = tuple(int(l) for l in links)
     static = ground_geoms_static(ground_geoms)
+    cs, ls = collision_static(collision), loops_static(ffm.n, loops)
     if on_cpu(q):
         return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
                                  links, offsets, ground_z, gravity, iters,
                                  erp, margin, restitution, push, softness,
-                                 ground_static=static)
+                                 ground_static=static, collision_static=cs,
+                                 loop_static=ls)
     return _step_launch(
         ffm, "step_ground", "grid_step_ground", quat, pos, q, vb, qd, tau, mu,
-        push, links, offsets, static, softness, (),
+        push, links, offsets, static, cs, ls, softness, (),
         (float(dt), float(ground_z), float(gravity), int(iters), float(erp),
          float(margin), float(restitution)))
 
@@ -977,24 +1246,28 @@ def step_ground_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links, offsets,
 def step_ground_terrain_fused(ffm, quat, pos, q, vb, qd, tau, mu, dt, links,
                               offsets, terrain, gravity=-9.81, iters=30,
                               erp=0.2, margin=1e-3, restitution=0.0,
-                              push=None, softness=None, ground_geoms=None):
+                              push=None, softness=None, ground_geoms=None,
+                              collision=None, loops=None):
     """:func:`step_ground_fused` on a bilinear heightfield ``terrain``
-    (:class:`..terrain.Terrain`): each contact's gap along the surface
-    normal and its rows in its contact frame. The grid is read from device
-    memory (kept on the model's device, in its dtype, once a terrain), so
-    every grid size runs the kernel."""
+    (:class:`..terrain.Terrain`): each ground contact's gap along the
+    surface normal and its rows in its contact frame (the collision and
+    loop rows do not see the ground). The grid is read from device memory
+    (kept on the model's device, in its dtype, once a terrain), so every
+    grid size runs the kernel."""
     links = tuple(int(l) for l in links)
     static = ground_geoms_static(ground_geoms)
+    cs, ls = collision_static(collision), loops_static(ffm.n, loops)
     if on_cpu(q):
         return step_ground_plain(ffm, quat, pos, q, vb, qd, tau, mu, dt,
                                  links, offsets, 0.0, gravity, iters, erp,
                                  margin, restitution, push, softness, terrain,
-                                 ground_static=static)
+                                 ground_static=static, collision_static=cs,
+                                 loop_static=ls)
     terr, x0, y0 = _terrain.placed(terrain, ffm.device, ffm.dtype)
     H, W = terr.heights.shape
     return _step_launch(
         ffm, "step_ground_terrain", "grid_step_ground_terrain", quat, pos, q,
-        vb, qd, tau, mu, push, links, offsets, static, softness,
+        vb, qd, tau, mu, push, links, offsets, static, cs, ls, softness,
         (terr.heights.data_ptr(),),
         (float(dt), float(gravity), int(iters), float(erp), float(margin),
          float(restitution), int(H), int(W), float(terr.cell), x0, y0))

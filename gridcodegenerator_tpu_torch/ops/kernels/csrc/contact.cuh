@@ -16,6 +16,12 @@
 //                    height and contact frame
 //   pgs              _pgs_rows (:1128): projected Gauss–Seidel on the
 //                    friction cones (and EQ trailing bilateral rows)
+//   seg_seg_closest  _seg_seg_closest_s (:497): the clamped closest points
+//                    of two segments
+//   pair_geometry    _pair_geometry_s (:514): two capsules' gap, normal and
+//                    contact point
+//   contact_frame3   _frame_rows_s (:526): the branchless frame of a normal
+// (the plain versions of the last three: ops/collision.py's _bl helpers).
 // Every sum runs in the order of the plain versions.
 #pragma once
 
@@ -236,6 +242,82 @@ __device__ __forceinline__ void quat_step(const T* qt, const T* w_dt,
            out[3] * out[3]);
 #pragma unroll
   for (int c = 0; c < 4; ++c) out[c] = out[c] / qn;
+}
+
+// ------------------------------------------------------------- collision
+// x·y of two 3-vectors, left to right (collision._dot)
+template <typename T>
+__device__ __forceinline__ T dot3(const T* x, const T* y) {
+  return x[0] * y[0] + x[1] * y[1] + x[2] * y[2];
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp01(T x) {
+  x = x > T(0) ? x : T(0);
+  return x < T(1) ? x : T(1);
+}
+
+// The closest points w1, w2 of the segments p1 + s·d1 and p2 + t·d2, s, t ∈
+// [0, 1]: Ericson's clamped algebra, both denominators regularised by 1e-12
+// (a sphere is a segment of length 0)
+template <typename T>
+__device__ __forceinline__ void seg_seg_closest(const T* p1, const T* d1,
+                                                const T* p2, const T* d2,
+                                                T* w1, T* w2) {
+  const T eps(1e-12);
+  T rv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rv[c] = p1[c] - p2[c];
+  const T a = dot3(d1, d1), e = dot3(d2, d2), b = dot3(d1, d2);
+  const T c = dot3(d1, rv), f = dot3(d2, rv);
+  const T denom = a * e - b * b;
+  T s = denom > eps ? (b * f - c * e) / denom : T(0);
+  s = clamp01(s);
+  const T t = clamp01((b * s + f) / (e > eps ? e : eps));
+  s = clamp01((b * t - c) / (a > eps ? a : eps));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w1[k] = p1[k] + s * d1[k];
+    w2[k] = p2[k] + t * d2[k];
+  }
+}
+
+// Two capsules (start, vector, radius) → the gap, the unit normal from B to
+// A and the contact point, the midpoint of the two surface points
+template <typename T>
+__device__ __forceinline__ T pair_geometry(const T* cA, const T* dA, T rA,
+                                           const T* cB, const T* dB, T rB,
+                                           T* nrm, T* point) {
+  T wA[3], wB[3], diff[3];
+  seg_seg_closest(cA, dA, cB, dB, wA, wB);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) diff[k] = wA[k] - wB[k];
+  const T dist = sqrt(dot3(diff, diff) + T(1e-12));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    nrm[k] = diff[k] / dist;
+    point[k] = T(0.5) * ((wA[k] - rA * nrm[k]) + (wB[k] + rB * nrm[k]));
+  }
+  return (dist - rA) - rB;
+}
+
+// The frame rows F = [t1; t2; n] of a unit normal n, branchless: sign = ±1
+// by n_z ≥ 0, so at n_z = 0 one ulp of n_z flips the tangents (the cone is
+// isotropic: the physics does not flip)
+template <typename T>
+__device__ __forceinline__ void contact_frame3(const T* n, T F[3][3]) {
+  const bool up = n[2] >= T(0);
+  const T sign = up ? T(1) : T(-1);
+  const T aa = T(-1) / ((sign + n[2]) + (up ? T(1e-12) : T(-1e-12)));
+  const T bb = n[0] * n[1] * aa;
+  F[0][0] = T(1) + sign * n[0] * n[0] * aa;
+  F[0][1] = sign * bb;
+  F[0][2] = -sign * n[0];
+  F[1][0] = bb;
+  F[1][1] = sign + n[1] * n[1] * aa;
+  F[1][2] = -n[1];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) F[2][k] = n[k];
 }
 
 // The PGS sweeps of _pgs_rows on K cone triplets and EQ trailing bilateral

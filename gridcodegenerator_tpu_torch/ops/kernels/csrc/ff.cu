@@ -25,11 +25,13 @@
 // constants (152n + 36 values) are staged in shared memory once per block.
 //
 // The ground step (step_ground_kernel<T, kTerrain>, flat or on a
-// heightfield) reuses the stance's front half and rows, and adds the
-// ground geoms' endpoint spheres after the feet (their links in the build's
-// contact list, −1 for the base; the feet count kf and the spheres are
-// run-time arguments), the full Delassus rows, b, the PGS sweeps and the
-// integration: its per-state arrays are X, the packed M and its factor, the
+// heightfield) reuses the stance's front half, and builds every row
+// triplet — the feet, the collision contacts (self pairs, obstacle pairs),
+// the ground geoms' endpoint spheres (their links in the build's contact
+// list, −1 for the base; the feet count kf is a run-time argument) and the
+// loop closures — through one non-inlined call a triplet (slot_rows), then
+// the full Delassus rows, b, the PGS sweeps (the closures' bilateral rows
+// after the cones) and the integration: its per-state arrays are X, the packed M and its factor, the
 // contacts' rows, the merged solve's (6+n) × (3k+1) right-hand sides and
 // G's triangle. The sweeps are a run-time loop (iters) whose rows unroll;
 // up to 24 rows the columns unroll too, so G, the impulses, b and the
@@ -41,7 +43,8 @@
 //
 // A library is built per topology: with -DGRID_FF_K=0 it holds the ABA and
 // mass-matrix kernels, with the contact links (-DGRID_FF_K=k
-// -DGRID_FF_LINKS=...) the stance and ground-step kernels of those links.
+// -DGRID_FF_LINKS=..., and a step's collision and closure links) the stance
+// and ground-step kernels of those links.
 #include <cuda_runtime.h>
 
 #include "ff.cuh"
@@ -155,7 +158,8 @@ step_ground_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
                    const T* __restrict__ vb, const T* __restrict__ qd,
                    const T* __restrict__ tau, const T* __restrict__ mu,
                    const T* __restrict__ push, const T* __restrict__ off,
-                   const T* __restrict__ geo, int kf,
+                   const T* __restrict__ geo, const T* __restrict__ col,
+                   const T* __restrict__ lp, int kf,
                    const T* __restrict__ ridge, T* __restrict__ quat2,
                    T* __restrict__ pos2, T* __restrict__ q2,
                    T* __restrict__ vb2, T* __restrict__ qd2,
@@ -166,18 +170,21 @@ step_ground_kernel(const T* __restrict__ consts, const T* __restrict__ quat,
   const long long b = state_index();
   if (b >= B) return;
   grid::step_state<T, kTerrain>(R, sm + 152 * grid::N, quat, pos, q, vb, qd,
-                                tau, mu, push, off, geo, kf, ridge, sp, hf,
+                                tau, mu, push, off, geo, col, lp, kf, ridge,
+                                sp, hf,
                                 quat2, pos2, q2, vb2, qd2, imp, B, b);
 }
 
 // push == nullptr: no external base wrench; heights == nullptr: the plane
 // z = ground_z, else the H × W heightfield (ground_z unused); the first kf
-// contacts are feet, the rest ground-geom spheres (geo, null without any)
+// of the build's contact links are feet, the rest ground-geom spheres (geo,
+// null without any); col and lp the collision contacts' and the closures'
+// geometry (null without any)
 template <typename T>
 int step(const void* consts, const void* quat, const void* pos,
          const void* q, const void* vb, const void* qd, const void* tau,
          const void* mu, const void* push, const void* off, const void* geo,
-         const void* ridge, void* quat2, void* pos2, void* q2, void* vb2,
+         const void* col, const void* lp, const void* ridge, void* quat2, void* pos2, void* q2, void* vb2,
          void* qd2, void* imp, const void* heights, long long B, int kf,
          double dt,
          double ground_z, double gravity, int iters, double erp,
@@ -195,7 +202,8 @@ int step(const void* consts, const void* quat, const void* pos,
                                    s>>>(
         in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
         in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
-        in<T>(geo), kf, in<T>(ridge), static_cast<T*>(quat2),
+        in<T>(geo), in<T>(col), in<T>(lp), kf, in<T>(ridge),
+        static_cast<T*>(quat2),
         static_cast<T*>(pos2),
         static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
         static_cast<T*>(imp), B, sp, hf);
@@ -204,7 +212,8 @@ int step(const void* consts, const void* quat, const void* pos,
                                   s>>>(
         in<T>(consts), in<T>(quat), in<T>(pos), in<T>(q), in<T>(vb),
         in<T>(qd), in<T>(tau), in<T>(mu), in<T>(push), in<T>(off),
-        in<T>(geo), kf, in<T>(ridge), static_cast<T*>(quat2),
+        in<T>(geo), in<T>(col), in<T>(lp), kf, in<T>(ridge),
+        static_cast<T*>(quat2),
         static_cast<T*>(pos2),
         static_cast<T*>(q2), static_cast<T*>(vb2), static_cast<T*>(qd2),
         static_cast<T*>(imp), B, sp, hf);
@@ -293,12 +302,13 @@ int grid_stance_fd_f64(const void* consts, const void* quat, const void* pos,
 }
 
 // the flat ground: consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
-// ridge, quat2, pos2, q2, vb2, qd2, imp, B, kf, dt, ground_z, gravity, iters,
+// col, lp, ridge, quat2, pos2, q2, vb2, qd2, imp, B, kf, dt, ground_z, gravity, iters,
 // erp, margin, restitution, stream
 int grid_step_ground_f32(const void* consts, const void* quat,
                          const void* pos, const void* q, const void* vb,
                          const void* qd, const void* tau, const void* mu,
                          const void* push, const void* off, const void* geo,
+                         const void* col, const void* lp,
                          const void* ridge, void* quat2, void* pos2, void* q2,
                          void* vb2, void* qd2, void* imp, long long B, int kf,
                          double dt,
@@ -306,7 +316,7 @@ int grid_step_ground_f32(const void* consts, const void* quat,
                          double erp, double margin, double restitution,
                          void* stream) {
   return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
-                     ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf, dt,
+                     col, lp, ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf, dt,
                      ground_z,
                      gravity, iters, erp, margin, restitution, 0, 0, 0.0, 0.0,
                      0.0, stream);
@@ -315,6 +325,7 @@ int grid_step_ground_f64(const void* consts, const void* quat,
                          const void* pos, const void* q, const void* vb,
                          const void* qd, const void* tau, const void* mu,
                          const void* push, const void* off, const void* geo,
+                         const void* col, const void* lp,
                          const void* ridge, void* quat2, void* pos2, void* q2,
                          void* vb2, void* qd2, void* imp, long long B, int kf,
                          double dt,
@@ -322,7 +333,7 @@ int grid_step_ground_f64(const void* consts, const void* quat,
                          double erp, double margin, double restitution,
                          void* stream) {
   return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
-                      ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf,
+                      col, lp, ridge, quat2, pos2, q2, vb2, qd2, imp, nullptr, B, kf,
                       dt, ground_z, gravity, iters, erp, margin, restitution, 0,
                       0, 0.0, 0.0, 0.0, stream);
 }
@@ -332,14 +343,15 @@ int grid_step_ground_f64(const void* consts, const void* quat,
 int grid_step_ground_terrain_f32(
     const void* consts, const void* quat, const void* pos, const void* q,
     const void* vb, const void* qd, const void* tau, const void* mu,
-    const void* push, const void* off, const void* geo, const void* ridge,
+    const void* push, const void* off, const void* geo, const void* col,
+    const void* lp, const void* ridge,
     void* quat2, void* pos2, void* q2, void* vb2, void* qd2, void* imp,
     const void* heights, long long B, int kf, double dt, double gravity,
     int iters,
     double erp, double margin, double restitution, int H, int W, double cell,
     double x0, double y0, void* stream) {
   return step<float>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
-                     ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf, dt,
+                     col, lp, ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf, dt,
                      0.0,
                      gravity, iters, erp, margin, restitution, H, W, cell, x0,
                      y0, stream);
@@ -347,14 +359,15 @@ int grid_step_ground_terrain_f32(
 int grid_step_ground_terrain_f64(
     const void* consts, const void* quat, const void* pos, const void* q,
     const void* vb, const void* qd, const void* tau, const void* mu,
-    const void* push, const void* off, const void* geo, const void* ridge,
+    const void* push, const void* off, const void* geo, const void* col,
+    const void* lp, const void* ridge,
     void* quat2, void* pos2, void* q2, void* vb2, void* qd2, void* imp,
     const void* heights, long long B, int kf, double dt, double gravity,
     int iters,
     double erp, double margin, double restitution, int H, int W, double cell,
     double x0, double y0, void* stream) {
   return step<double>(consts, quat, pos, q, vb, qd, tau, mu, push, off, geo,
-                      ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf,
+                      col, lp, ridge, quat2, pos2, q2, vb2, qd2, imp, heights, B, kf,
                       dt, 0.0, gravity, iters, erp, margin, restitution, H, W,
                       cell, x0, y0, stream);
 }

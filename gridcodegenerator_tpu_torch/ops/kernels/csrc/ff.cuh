@@ -20,27 +20,37 @@
 //                   J̇·[vb; q̇] is contact_rows instantiated on Dual<T>,
 //                   seeded with (quat, ½ quat ⊗ [0, ω_b]) and (q, q̇), its
 //                   tangent rows contracted with [vb; q̇]
-//   step_state      _step_ground_body (:977) with its feet and ground-geom
-//                   rows (_ground_geom_rows_s :800), push and softness: the
-//                   free velocity, the contacts' gaps (on a heightfield
-//                   along the normal, the rows in the contact frame:
-//                   terrain_frame, _terrain_surface_s :735), G and b, PGS
-//                   on the friction cones (pgs, _pgs_rows :1128) and the
-//                   manifold integration (quat_step, _quat_exp_s :104)
+//   slot_rows       one row triplet of the step, any kind: a foot
+//                   (_ff_contact_rows_s), a ground geom's sphere
+//                   (_ground_geom_rows_s :800), a self-collision or
+//                   obstacle pair (_collision_rows_s :577), a loop closure
+//                   or world pin (_loop_rows_s :671)
+//   step_state      _step_ground_body (:977) whole: the free velocity, the
+//                   triplets' rows and gaps (on a heightfield along the
+//                   normal, the ground rows in the contact frame:
+//                   terrain_frame, _terrain_surface_s :735), G and b (the
+//                   closures' + erp·gap/dt), PGS on the friction cones and
+//                   the closures' bilateral rows (pgs, _pgs_rows :1128) and
+//                   the manifold integration (quat_step, _quat_exp_s :104)
 // The robot-independent pieces (the packed triangle and its factor and
-// solves, the quaternion helpers, the heightfield, the PGS sweeps) live in
-// contact.cuh, which the multi-dof step (md_step.cuh) shares.
+// solves, the quaternion helpers, the heightfield, the collision geometry,
+// the PGS sweeps) live in contact.cuh, which the multi-dof step
+// (md_step.cuh) shares.
 //
 // The arm is a compile-time constant as in rbd.cuh (-DGRID_N, -DGRID_PARENTS,
 // -DGRID_PRISMATIC), and the stance and step kernels' contact links too
-// (-DGRID_FF_K=<k> -DGRID_FF_LINKS=G(l0)G(l1)...): they fix which columns of
-// each contact row are nonzero. The numeric constants arrive in one packed
+// (-DGRID_FF_K=<k> -DGRID_FF_LINKS=G(l0)G(l1)...), the step's collision
+// contacts' two links (-DGRID_FF_KC=<c> -DGRID_FF_CA=... -DGRID_FF_CB=...,
+// −2 for an obstacle) and its closures' (-DGRID_FF_L=<l> -DGRID_FF_LA=...
+// -DGRID_FF_LB=..., −1 for a world pin): they fix which columns of each
+// row are nonzero. The numeric constants arrive in one packed
 // buffer (FreeFlyerModel.packed), staged in shared memory by ff.cu:
 //   Xb, Xs, Xc (36N each), S (6N), inertia (36N), damping (N), armature (N),
 //   I_base (36)
 // The foot offsets and anchors, gravity, the Baumgarte (α, β), reg and the
-// step's dt, ground_z, μ, push, ridge, sweeps, erp, margin, restitution and
-// height grid are run-time arguments, and the kernels take the same branches
+// step's dt, ground_z, μ, push, ridge, sweeps, erp, margin, restitution,
+// height grid and geom, collision and closure geometry are run-time
+// arguments, and the kernels take the same branches
 // as the plain versions (α = 0, β = 0 or no anchors, reg = 0, restitution = 0
 // skip their terms) uniformly across the batch. Joint parents, types and the contact chains are read from
 // __constant__ tables (a constexpr local table indexed at run time is rebuilt
@@ -109,63 +119,123 @@ GRID_ROLLED
 }
 
 // ---------------------------------------------------------- the contacts
-#if GRID_FF_K > 0
-constexpr int FF_K = GRID_FF_K;
-constexpr int FF_K3 = 3 * FF_K;
+#ifndef GRID_FF_KC
+#define GRID_FF_KC 0
+#endif
+#ifndef GRID_FF_L
+#define GRID_FF_L 0
+#endif
 
-// each contact's chain: its link and the link's ancestors, ascending
+#if GRID_FF_K > 0
+constexpr int FF_K = GRID_FF_K;     // feet and ground-geom spheres (the links)
+constexpr int FF_K3 = 3 * FF_K;
+constexpr int FF_KC = GRID_FF_KC;   // collision contacts (self, obstacle)
+constexpr int FF_L = GRID_FF_L;     // loop closures
+constexpr int FF_KT = FF_K + FF_KC; // the step's cone contacts
+constexpr int FF_T = FF_KT + FF_L;  // the step's row triplets
+
+// what a step's row triplet is (the chain's kind; a foot or a geom sphere
+// by the run-time feet count)
+enum RowKind : int { kFoot, kGeom, kSelf, kObstacle, kLoop, kPin };
+constexpr int kObstacleLink = -2;   // the build key's second link of an
+                                    // obstacle pair
+
+// Each row triplet's chain: the joints its rows read, ascending (closed
+// under ancestors: a foot's or geom's link and its ancestors; a pair's two
+// links' supports together), with each joint's parent's position in the
+// chain (−1 at a root), which side's support it is in (1: A, 2: B, 3:
+// both), the positions of links A and B (−1: the base, the world or an
+// obstacle) and the kind of a pair's chain. Chains 0..FF_K−1 are the
+// links', then the FF_KC collision contacts', then the FF_L closures'.
 struct Chains {
-  int link[FF_K];
-  int len[FF_K];
-  int joint[FF_K][N];
+  int link[FF_T];
+  int len[FF_T];
+  int joint[FF_T][N];
+  int ppos[FF_T][N];
+  int side[FF_T][N];
+  int posA[FF_T];
+  int posB[FF_T];
+  int kind[FF_T];
 };
 
 #define G(x) x,
 __host__ __device__ constexpr Chains make_chains() {
   constexpr int links[FF_K] = {GRID_FF_LINKS};
   constexpr int par[N] = {GRID_PARENTS};
-  Chains c{};
+  int la[FF_T] = {}, lb[FF_T] = {}, kind[FF_T] = {};
   for (int ci = 0; ci < FF_K; ++ci) {
+    la[ci] = links[ci];
+    lb[ci] = -1;
+    kind[ci] = kFoot;
+  }
+#if GRID_FF_KC > 0
+  constexpr int ca[FF_KC] = {GRID_FF_CA};
+  constexpr int cb[FF_KC] = {GRID_FF_CB};
+  for (int c = 0; c < FF_KC; ++c) {
+    la[FF_K + c] = ca[c];
+    lb[FF_K + c] = cb[c] == kObstacleLink ? -1 : cb[c];
+    kind[FF_K + c] = cb[c] == kObstacleLink ? kObstacle : kSelf;
+  }
+#endif
+#if GRID_FF_L > 0
+  constexpr int pa[FF_L] = {GRID_FF_LA};
+  constexpr int pb[FF_L] = {GRID_FF_LB};
+  for (int l = 0; l < FF_L; ++l) {
+    la[FF_KT + l] = pa[l];
+    lb[FF_KT + l] = pb[l];
+    kind[FF_KT + l] = pb[l] < 0 ? kPin : kLoop;
+  }
+#endif
+  Chains c{};
+  for (int ch = 0; ch < FF_T; ++ch) {
+    int in[N] = {};
+    for (int j = la[ch]; j >= 0; j = par[j]) in[j] |= 1;
+    for (int j = lb[ch]; j >= 0; j = par[j]) in[j] |= 2;
+    int pos[N] = {};
     int d = 0;
-    for (int j = links[ci]; j >= 0; j = par[j]) ++d;
-    c.link[ci] = links[ci];
-    c.len[ci] = d;
-    int t = d - 1;
-    for (int j = links[ci]; j >= 0; j = par[j]) c.joint[ci][t--] = j;
+    for (int j = 0; j < N; ++j) {
+      pos[j] = -1;
+      if (!in[j]) continue;
+      pos[j] = d;
+      c.joint[ch][d] = j;
+      c.ppos[ch][d] = par[j] >= 0 ? pos[par[j]] : -1;
+      c.side[ch][d] = in[j];
+      ++d;
+    }
+    c.link[ch] = la[ch];
+    c.len[ch] = d;
+    c.posA[ch] = la[ch] >= 0 ? pos[la[ch]] : -1;
+    c.posB[ch] = lb[ch] >= 0 ? pos[lb[ch]] : -1;
+    c.kind[ch] = kind[ch];
   }
   return c;
 }
 #undef G
 
+constexpr Chains kChains = make_chains();
+
 __host__ __device__ constexpr int max_chain() {
-  int d = 0;
-  for (int ci = 0; ci < FF_K; ++ci)
-    d = make_chains().len[ci] > d ? make_chains().len[ci] : d;
+  int d = 1;                        // (a base geom's chain, link −1, is empty)
+  for (int ci = 0; ci < FF_T; ++ci) d = kChains.len[ci] > d ? kChains.len[ci] : d;
   return d;
 }
-// the longest chain (a base geom's, link −1, is empty)
-constexpr int FF_D = max_chain() > 0 ? max_chain() : 1;
+constexpr int FF_D = max_chain();   // the longest chain
 constexpr int FF_C = 6 + FF_D;      // stored columns of a contact's rows
 
-__constant__ Chains c_chains = make_chains();
+__constant__ Chains c_chains = kChains;
 
-// The three world-frame rows of contact ci: columns [ω_b (3); v_b (3); the
-// chain's joints, ascending]. x_b ← the point off of the contact's link in
-// base coordinates (off itself on the base, an empty chain); point(x_b, x)
-// gives the point x whose rows are formed (x_b itself for a foot, the
-// material point of a geom's endpoint sphere: _point_rows). The chain's
-// poses come from the joint transforms on the way down (_fk_s: Rs world ←
-// link, ps), so the same code runs on T (the rows) and on Dual<T> (their
+// The poses of chain ch's links from q (_fk_s): Rs (world ← link) and ps,
+// in base coordinates, by chain position — a root joint's Rs is Eᵀ, a
+// child's its parent's Rs·Eᵀ. Runs on T (the rows) and on Dual<T> (their
 // time derivative).
-template <typename TT, typename Point>
-__device__ __forceinline__ void contact_point_rows(
-    const Robot<base_t<TT>>& R, int ci, const TT* q, const TT* Rw,
-    const base_t<TT>* off, TT rows[3][FF_C], TT* x_b, Point point) {
-  TT Rs[FF_D][9], ps[FF_D][3];
-  const int len = c_chains.len[ci];
+template <typename TT>
+__device__ __forceinline__ void chain_fk(const Robot<base_t<TT>>& R, int ch,
+                                         const TT* q, TT Rs[FF_D][9],
+                                         TT ps[FF_D][3]) {
+  const int len = c_chains.len[ch];
 GRID_ROLLED
   for (int t = 0; t < len; ++t) {
-    const int i = c_chains.joint[ci][t];
+    const int i = c_chains.joint[ch][t];
     bool prism;
     TT f1, f2;
     joint_args(i, q[i], &prism, &f1, &f2);
@@ -185,45 +255,54 @@ GRID_ROLLED
       const int a = mr[k], b = mc[k];
       rv[k] = -(E[a] * Xl[b] + E[3 + a] * Xl[3 + b] + E[6 + a] * Xl[6 + b]);
     }
-    if (t == 0) {  // a root joint: world ← link is Eᵀ
+    const int pt = c_chains.ppos[ch][t];
+    if (pt < 0) {
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) Rs[0][r * 3 + c] = E[c * 3 + r];
-        ps[0][r] = rv[r];
+        for (int c = 0; c < 3; ++c) Rs[t][r * 3 + c] = E[c * 3 + r];
+        ps[t][r] = rv[r];
       }
     } else {
-      const TT* Rp = Rs[t - 1];
 #pragma unroll
       for (int r = 0; r < 3; ++r)
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          Rs[t][r * 3 + c] = Rp[r * 3] * E[c * 3] + Rp[r * 3 + 1] * E[c * 3 + 1] +
-                             Rp[r * 3 + 2] * E[c * 3 + 2];
+          Rs[t][r * 3 + c] = Rs[pt][r * 3] * E[c * 3] +
+                             Rs[pt][r * 3 + 1] * E[c * 3 + 1] +
+                             Rs[pt][r * 3 + 2] * E[c * 3 + 2];
       TT t3[3];
-      mv3(Rp, rv, t3);
+      mv3(Rs[pt], rv, t3);
 #pragma unroll
-      for (int r = 0; r < 3; ++r) ps[t][r] = ps[t - 1][r] + t3[r];
+      for (int r = 0; r < 3; ++r) ps[t][r] = ps[pt][r] + t3[r];
     }
   }
+}
+
+// The three world-frame rows of stance contact ci (_ff_contact_rows_s):
+// columns [ω_b (3); v_b (3); the chain's joints, ascending], at the point
+// x_b ← ps + Rs·off of the contact's link (its chain's last), base
+// coordinates.
+template <typename TT>
+__device__ __forceinline__ void contact_rows(const Robot<base_t<TT>>& R,
+                                             int ci, const TT* q,
+                                             const TT* Rw,
+                                             const base_t<TT>* off,
+                                             TT rows[3][FF_C], TT* x_b) {
+  TT Rs[FF_D][9], ps[FF_D][3];
+  chain_fk(R, ci, q, Rs, ps);
+  const int len = c_chains.len[ci];
   const int l = len - 1;
-  if (len == 0) {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) x_b[r] = TT(off[r]);
-  } else {
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      x_b[r] = ps[l][r] + (Rs[l][r * 3] * off[0] + Rs[l][r * 3 + 1] * off[1] +
-                           Rs[l][r * 3 + 2] * off[2]);
-  }
-  TT x[3];
-  point(x_b, x);
+  for (int r = 0; r < 3; ++r)
+    x_b[r] = ps[l][r] + (Rs[l][r * 3] * off[0] + Rs[l][r * 3 + 1] * off[1] +
+                         Rs[l][r * 3 + 2] * off[2]);
   // ω_b columns R·(e_j × x): e_0 × x = (0, −x2, x1), e_1 × x = (x2, 0,
   // −x0), e_2 × x = (−x1, x0, 0)
-  const TT z = x[0] * base_t<TT>(0);
-  const TT ex[3][3] = {{z, -x[2], x[1]},
-                       {x[2], z, -x[0]},
-                       {-x[1], x[0], z}};
+  const TT z = x_b[0] * base_t<TT>(0);
+  const TT ex[3][3] = {{z, -x_b[2], x_b[1]},
+                       {x_b[2], z, -x_b[0]},
+                       {-x_b[1], x_b[0], z}};
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     TT col[3];
@@ -243,7 +322,7 @@ GRID_ROLLED
     mv3(Rs[t], S, a_ang);
     mv3(Rs[t], S + 3, a_lin);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) d[r] = x[r] - ps[t][r];
+    for (int r = 0; r < 3; ++r) d[r] = x_b[r] - ps[t][r];
     cross3(a_ang, d, cr);
 #pragma unroll
     for (int r = 0; r < 3; ++r) w[r] = cr[r] + a_lin[r];
@@ -253,18 +332,211 @@ GRID_ROLLED
   }
 }
 
-// The rows at the contact's own point x_b (a foot; the stance's points)
-template <typename TT>
-__device__ __forceinline__ void contact_rows(const Robot<base_t<TT>>& R,
-                                             int ci, const TT* q,
-                                             const TT* Rw,
-                                             const base_t<TT>* off,
-                                             TT rows[3][FF_C], TT* x_b) {
-  contact_point_rows(R, ci, q, Rw, off, rows, x_b,
-                     [](const TT* xb, TT* x) {
+// The step's row triplet ci → its chain: the feet keep theirs, the
+// collision contacts follow them in the JAX order (feet, collision, ground
+// geoms, loops), the ground geoms' chains sit after the feet's
+__device__ __forceinline__ int chain_of(int ci, int kf) {
+  if (FF_KC == 0 || ci < kf) return ci;
+  if (ci < kf + FF_KC) return FF_K + (ci - kf);
+  if (ci < FF_KT) return ci - FF_KC;
+  return ci;
+}
+
+// The three rows and the gap(s) of one row triplet of the step, of kind
+// ``kind`` over chain ch (_ff_contact_rows_s, _ground_geom_rows_s,
+// _collision_rows_s, _loop_rows_s). Columns [ω_b (3); v_b (3); the chain's
+// joints]. e is the triplet's run-time geometry: a foot's offset (3); a
+// geom sphere's centre and radius (4); a collision pair's side A (start,
+// vector, radius) and side B (the same of the second geom in its link's
+// frame, or of the obstacle in the world's) (14); a closure's offset on a
+// and b's offset or a pin's anchor (6). Out: rows (a foot's and a geom's in
+// the contact frame on a heightfield, a collision contact's always in its
+// frame, a closure's in the world's) and g3 (a cone contact's gap in g3[0],
+// a closure's three world gap components). One call per triplet, and not
+// inlined: inlined into the step, the four-bar's and the 3-link chain's
+// steps came out wrong in every state under nvcc 12.9, also with -Xptxas
+// -O0, and right with -G and on the host (as separate inlined row calls
+// for feet and geoms did before).
+template <typename T, bool kTerrain>
+__device__ __noinline__ void slot_rows(
+    const Robot<T>& R, int kind, int ch, const T* q, const T* Rw,
+    const T* pos, const T* __restrict__ e, const StepParams<T>& sp,
+    const Heightfield<T>& hf, T rows[3][FF_C], T* g3) {
+  // the chain's poses (_fk_s)
+  T Rs[FF_D][9], ps[FF_D][3];
+  chain_fk(R, ch, q, Rs, ps);
+  const int len = c_chains.len[ch];
+  // a point rigid with the link at chain position tp (−1: the base), of
+  // body-frame offset o: ps + Rs·o
+  auto attach = [&](int tp, const T* o, T* x) {
 #pragma unroll
-                       for (int r = 0; r < 3; ++r) x[r] = xb[r];
-                     });
+    for (int r = 0; r < 3; ++r)
+      x[r] = tp < 0 ? o[r]
+                    : ps[tp][r] + (Rs[tp][r * 3] * o[0] +
+                                   Rs[tp][r * 3 + 1] * o[1] +
+                                   Rs[tp][r * 3 + 2] * o[2]);
+  };
+  // a segment's start and vector in base coordinates
+  auto segment = [&](int tp, const T* g, T* a, T* d) {
+    attach(tp, g, a);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      d[r] = tp < 0 ? g[3 + r]
+                    : Rs[tp][r * 3] * g[3] + Rs[tp][r * 3 + 1] * g[4] +
+                          Rs[tp][r * 3 + 2] * g[5];
+  };
+  // joint t's column at the point x, base coordinates: a_ang × (x − p) +
+  // a_lin
+  auto jcol = [&](int t, const T* x, T* w) {
+    const T* S = R.S + 6 * c_chains.joint[ch][t];
+    T a_ang[3], a_lin[3], d[3], cr[3];
+    mv3(Rs[t], S, a_ang);
+    mv3(Rs[t], S + 3, a_lin);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) d[r] = x[r] - ps[t][r];
+    cross3(a_ang, d, cr);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) w[r] = cr[r] + a_lin[r];
+  };
+  // the ω_b columns R·(e_j × x) into rows[r][j] (ω_b rows of F·R·(e_j × x)
+  // with a frame F)
+  auto omega = [&](const T* x, T wc[3][3]) {
+    const T z = x[0] * T(0);
+    const T ex[3][3] = {{z, -x[2], x[1]}, {x[2], z, -x[0]},
+                        {-x[1], x[0], z}};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) mv3(Rw, ex[j], wc[j]);
+  };
+
+  T x[3], xb2[3] = {T(0), T(0), T(0)}, nrm[3], F[3][3], wc[3][3];
+  const bool pair = kind == kSelf || kind == kObstacle;
+  const bool closure = kind == kLoop || kind == kPin;
+  const int tA = c_chains.posA[ch], tB = c_chains.posB[ch];
+  if (pair) {
+    // the two capsules in base coordinates; the obstacle's as Rᵀ(a_w −
+    // pos), Rᵀd_w
+    T cA[3], dA[3], cB[3], dB[3];
+    segment(tA, e, cA, dA);
+    if (kind == kSelf) {
+      segment(tB, e + 7, cB, dB);
+    } else {
+      T rel[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rel[k] = e[7 + k] - pos[k];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        cB[i] = Rw[i] * rel[0] + Rw[3 + i] * rel[1] + Rw[6 + i] * rel[2];
+        dB[i] = Rw[i] * e[10] + Rw[3 + i] * e[11] + Rw[6 + i] * e[12];
+      }
+    }
+    T nb[3];
+    g3[0] = pair_geometry(cA, dA, e[6], cB, dB, e[13], nb, x);
+    mv3(Rw, nb, nrm);
+    contact_frame3(nrm, F);
+  } else {
+    attach(tA, e, x);
+  }
+  if (closure && kind == kLoop) attach(tB, e + 3, xb2);
+  if (kind == kFoot || kind == kGeom) {
+    // a foot's point x_b; a geom sphere's material point x_b − r·Rᵀn, its
+    // gap along the normal less r
+    const T r = kind == kGeom ? e[3] : T(0);
+    T pw[3], t3[3], h = T(0), C[3][3];
+    mv3(Rw, x, t3);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pw[d] = pos[d] + t3[d];
+    if constexpr (kTerrain) terrain_frame(hf, pw[0], pw[1], &h, C);
+    T nb[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if constexpr (kTerrain) {
+        nb[j] = Rw[j] * C[2][0] + Rw[3 + j] * C[2][1] + Rw[6 + j] * C[2][2];
+      } else {
+        nb[j] = Rw[6 + j];
+      }
+    }
+    if (kind == kGeom) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) x[d] = x[d] - r * nb[d];
+    }
+    if constexpr (kTerrain) {
+      g3[0] = (pw[2] - h) * C[2][2];
+      if (kind == kGeom) g3[0] = g3[0] - r;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) F[a][b] = C[a][b];
+    } else {
+      g3[0] = kind == kGeom ? (pw[2] - r) - sp.ground_z : pw[2] - sp.ground_z;
+    }
+  }
+
+  // the world columns: ω_b (about the point, or the closure's x_a − x_b),
+  // v_b (R's columns, absent where the base cancels), the joints'
+  T rel[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) rel[k] = kind == kLoop ? x[k] - xb2[k] : x[k];
+  const bool base_w = kind != kSelf;
+  const bool base_v = kind != kSelf && kind != kLoop;
+  omega(rel, wc);
+  T W[3][FF_C];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      W[r][j] = base_w ? wc[j][r] : T(0);
+      W[r][3 + j] = base_v ? Rw[r * 3 + j] : T(0);
+    }
+GRID_ROLLED
+  for (int t = 0; t < len; ++t) {
+    const int side = c_chains.side[ch][t];
+    T w[3], wa[3], wb[3];
+    if (kind == kLoop) {
+      jcol(t, x, wa);
+      jcol(t, xb2, wb);
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        w[r] = side == 3 ? wa[r] - wb[r] : (side == 1 ? wa[r] : -wb[r]);
+    } else {
+      jcol(t, x, wa);
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        w[r] = side == 3 ? wa[r] - wa[r] : (side == 1 ? wa[r] : -wa[r]);
+    }
+    T col[3];
+    mv3(Rw, w, col);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) W[r][6 + t] = col[r];
+  }
+  if (closure) {
+    // world rows; the gap R·(x_a − x_b), or pos + R·x_a − anchor
+    T gw[3];
+    mv3(Rw, rel, gw);
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      g3[d] = kind == kLoop ? gw[d] : (pos[d] + gw[d]) - e[3 + d];
+  }
+  const int cols = 6 + len;
+  const bool framed = pair || (kTerrain && !closure);
+GRID_ROLLED
+  for (int c = 0; c < cols; ++c) {
+    const T o0 = W[0][c], o1 = W[1][c], o2 = W[2][c];
+    if (!framed) {
+      rows[0][c] = o0;
+      rows[1][c] = o1;
+      rows[2][c] = o2;
+    } else if (pair) {
+      // F·col: the collision frame, each row a full dot product
+      rows[0][c] = F[0][0] * o0 + F[0][1] * o1 + F[0][2] * o2;
+      rows[1][c] = F[1][0] * o0 + F[1][1] * o1 + F[1][2] * o2;
+      rows[2][c] = F[2][0] * o0 + F[2][1] * o1 + F[2][2] * o2;
+    } else {
+      // the heightfield's frame: t1 has a structural zero
+      rows[0][c] = F[0][0] * o0 + F[0][2] * o2;
+      rows[1][c] = F[1][0] * o0 + F[1][1] * o1 + F[1][2] * o2;
+      rows[2][c] = F[2][0] * o0 + F[2][1] * o1 + F[2][2] * o2;
+    }
+  }
 }
 #endif  // GRID_FF_K > 0
 
@@ -774,23 +1046,27 @@ GRID_ROLLED
   store_rows<T, FF_K3>(rhs, B, b, lam_out);
 }
 
-// One frictional ground step of FF_K contacts — step_ground_fused (kTerrain
-// false: the plane z = ground_z) and step_ground_terrain_fused (true: the
-// heightfield hf): the first kf contacts are feet (the points off (kf, 3)),
-// the others the endpoint spheres of ground geoms (geo (FF_K − kf, 4): the
-// centre in its link's frame, then the radius; _ground_geom_rows_s), their
-// links in GRID_FF_LINKS after the feet's (−1: the base). mu (FF_K, B), the
-// feet's then the geoms'; push (6, B) or null; ridge (3·FF_K) the Delassus
-// ridge of each cone row. Outputs quat⁺, pos⁺, q⁺, vb⁺, q̇⁺ and the
-// impulses (3·FF_K, B).
+// One frictional ground step — step_ground_fused (kTerrain false: the plane
+// z = ground_z) and step_ground_terrain_fused (true: the heightfield hf) —
+// of FF_KT cone contacts and FF_L loop closures, in the JAX order: the kf
+// feet (the points off (kf, 3)), the FF_KC collision contacts (col (FF_KC,
+// 14), slot_rows), the endpoint spheres of ground geoms (geo (FF_K − kf,
+// 4): the centre in its link's frame, then the radius), their links in
+// GRID_FF_LINKS after the feet's (−1: the base), then the closures (lp
+// (FF_L, 6)). mu (FF_KT, B) the cone contacts'; push (6, B) or null; ridge
+// (3·FF_T) the Delassus ridge of each row. Outputs quat⁺, pos⁺, q⁺, vb⁺,
+// q̇⁺ and the cone impulses (3·FF_KT, B).
 template <typename T, bool kTerrain>
 __device__ __forceinline__ void step_state(
     const Robot<T>& R, const T* Ib, const T* quat, const T* pos, const T* q,
     const T* vb, const T* qd, const T* tau, const T* mu, const T* push,
-    const T* __restrict__ off, const T* __restrict__ geo, int kf,
+    const T* __restrict__ off, const T* __restrict__ geo,
+    const T* __restrict__ col, const T* __restrict__ lp, int kf,
     const T* __restrict__ ridge, const StepParams<T>& sp,
     const Heightfield<T>& hf, T* quat_out, T* pos_out, T* q_out, T* vb_out,
     T* qd_out, T* imp_out, long long B, long long b) {
+  constexpr int RT = 3 * FF_T;       // rows
+  constexpr int RC = 3 * FF_KT;      // cone rows
   T qt[4], ps[3], qs[N], vbs[6], qds[N], taus[N];
   load_rows<T, 4>(quat, B, b, qt);
   load_rows<T, 3>(pos, B, b, ps);
@@ -806,97 +1082,76 @@ __device__ __forceinline__ void step_state(
     for (int c = 0; c < 6; ++c) rhs_free[c] = push[c * B + b] + rhs_free[c];
   }
 
-  // the contacts' rows (rotated into each contact frame on a heightfield),
-  // gaps and active masks
-  T J[FF_K][3][FF_C], gap[FF_K];
-  bool active[FF_K];
+  // every triplet's rows, the cone contacts' gaps and active masks, the
+  // closures' gaps: one slot_rows call per triplet
+  T J[FF_T][3][FF_C], gap[FF_KT], lgap[FF_L > 0 ? 3 * FF_L : 1];
+  bool active[FF_KT];
 GRID_ROLLED
-  for (int ci = 0; ci < FF_K; ++ci) {
-    // a foot's point, or a geom sphere's centre and radius, through one
-    // call of contact_point_rows: with a separate inlined call for each
-    // kind, the 3-link chain's step came out wrong in every state under
-    // nvcc 12.9, also with -Xptxas -O0 (right with -G, at HyQ and Atlas,
-    // and on the host, where ASan and UBSan find nothing)
-    const bool geom = ci >= kf;
-    const T* e = geom ? geo + 4 * (ci - kf) : off + 3 * ci;
-    const T r = geom ? e[3] : T(0);
-    T xb[3], pw[3], h = T(0), C[3][3];
-    contact_point_rows<T>(
-        R, ci, qs, Rw, e, J[ci], xb, [&](const T* x_b, T* x) {
-          T t3[3];
-          mv3(Rw, x_b, t3);
-#pragma unroll
-          for (int d = 0; d < 3; ++d) pw[d] = ps[d] + t3[d];
-          if constexpr (kTerrain) terrain_frame(hf, pw[0], pw[1], &h, C);
-          // the material point x_b − r·Rᵀn of a geom: on the plane Rᵀe_z
-          // is R's third row
-          T nb[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            if constexpr (kTerrain) {
-              nb[j] = Rw[j] * C[2][0] + Rw[3 + j] * C[2][1] +
-                      Rw[6 + j] * C[2][2];
-            } else {
-              nb[j] = Rw[6 + j];
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < 3; ++d)
-            x[d] = geom ? x_b[d] - r * nb[d] : x_b[d];
-        });
-    if constexpr (kTerrain) {
-      gap[ci] = (pw[2] - h) * C[2][2];
-      if (geom) gap[ci] = gap[ci] - r;
-      const int cols = 6 + c_chains.len[ci];
-GRID_ROLLED
-      for (int c = 0; c < cols; ++c) {
-        const T o0 = J[ci][0][c], o1 = J[ci][1][c], o2 = J[ci][2][c];
-        J[ci][0][c] = C[0][0] * o0 + C[0][2] * o2;
-        J[ci][1][c] = C[1][0] * o0 + C[1][1] * o1 + C[1][2] * o2;
-        J[ci][2][c] = C[2][0] * o0 + C[2][1] * o1 + C[2][2] * o2;
-      }
+  for (int ci = 0; ci < FF_T; ++ci) {
+    const int ch = chain_of(ci, kf);
+    int kind = c_chains.kind[ch];
+    const T* e;
+    if (ci < kf) {
+      e = off + 3 * ci;
+    } else if (ci < kf + FF_KC) {
+      e = col + 14 * (ci - kf);
+    } else if (ci < FF_KT) {
+      kind = kGeom;
+      e = geo + 4 * (ci - kf - FF_KC);
     } else {
-      gap[ci] = geom ? (pw[2] - r) - sp.ground_z : pw[2] - sp.ground_z;
+      e = lp + 6 * (ci - FF_KT);
     }
-    active[ci] = gap[ci] < sp.margin;
+    T g3[3];
+    slot_rows<T, kTerrain>(R, kind, ch, qs, Rw, ps, e, sp, hf, J[ci], g3);
+    if (ci < FF_KT) {
+      gap[ci] = g3[0];
+      active[ci] = g3[0] < sp.margin;
+    } else {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) lgap[3 * (ci - FF_KT) + d] = g3[d];
+    }
   }
 
-  // one merged solve: sol[c][s < 3k] = (M⁻¹Jᵀ)[c][s], sol[c][3k] = the
+  // one merged solve: sol[c][s < RT] = (M⁻¹Jᵀ)[c][s], sol[c][RT] = the
   // free acceleration
-  T sol[FF_M][FF_K3 + 1];
+  T sol[FF_M][RT + 1];
 GRID_ROLLED
   for (int c = 0; c < FF_M; ++c) {
 GRID_ROLLED
-    for (int s = 0; s < FF_K3; ++s) sol[c][s] = T(0);
-    sol[c][FF_K3] = rhs_free[c];
+    for (int s = 0; s < RT; ++s) sol[c][s] = T(0);
+    sol[c][RT] = rhs_free[c];
   }
 GRID_ROLLED
-  for (int ci = 0; ci < FF_K; ++ci)
+  for (int ci = 0; ci < FF_T; ++ci) {
+    const int ch = chain_of(ci, kf);
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       const int s = 3 * ci + r;
 #pragma unroll
       for (int c = 0; c < 6; ++c) sol[c][s] = J[ci][r][c];
 GRID_ROLLED
-      for (int t = 0; t < c_chains.len[ci]; ++t)
-        sol[6 + c_chains.joint[ci][t]][s] = J[ci][r][6 + t];
+      for (int t = 0; t < c_chains.len[ch]; ++t)
+        sol[6 + c_chains.joint[ch][t]][s] = J[ci][r][6 + t];
     }
-  ptri_apply<T, FF_M, FF_K3 + 1>(
-      A, [&](int i, int k) -> T& { return sol[i][k]; });
+  }
+  ptri_apply<T, FF_M, RT + 1>(A,
+                              [&](int i, int k) -> T& { return sol[i][k]; });
   T v[FF_M], vfree[FF_M];
 #pragma unroll
   for (int c = 0; c < 6; ++c) v[c] = vbs[c];
 GRID_ROLLED
   for (int i = 0; i < N; ++i) v[6 + i] = qds[i];
 GRID_ROLLED
-  for (int c = 0; c < FF_M; ++c) vfree[c] = v[c] + sp.dt * sol[c][FF_K3];
+  for (int c = 0; c < FF_M; ++c) vfree[c] = v[c] + sp.dt * sol[c][RT];
 
-  // the Delassus G = J·M⁻¹Jᵀ (lower triangle) and b = J·v_free − v* (v* on
-  // the normal rows)
-  T Gm[FF_K3 * (FF_K3 + 1) / 2], bb[FF_K3];
+  // the Delassus G = J·M⁻¹Jᵀ (lower triangle) and b = J·v_free, less v* on
+  // the cone normals (−erp·min(gap, 0)/dt − restitution·min(vn, 0)), plus
+  // erp·gap/dt on the closures
+  T Gm[RT * (RT + 1) / 2], bb[RT];
 GRID_ROLLED
-  for (int ci = 0; ci < FF_K; ++ci) {
-    const int len = c_chains.len[ci];
+  for (int ci = 0; ci < FF_T; ++ci) {
+    const int ch = chain_of(ci, kf);
+    const int len = c_chains.len[ch];
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       const int row = 3 * ci + r;
@@ -907,7 +1162,7 @@ GRID_ROLLED
         for (int c = 1; c < 6; ++c) acc += J[ci][r][c] * sol[c][s];
 GRID_ROLLED
         for (int t = 0; t < len; ++t)
-          acc += J[ci][r][6 + t] * sol[6 + c_chains.joint[ci][t]][s];
+          acc += J[ci][r][6 + t] * sol[6 + c_chains.joint[ch][t]][s];
         Gm[tri(row, s)] = acc;
       }
       T acc = J[ci][r][0] * vfree[0];
@@ -915,8 +1170,17 @@ GRID_ROLLED
       for (int c = 1; c < 6; ++c) acc += J[ci][r][c] * vfree[c];
 GRID_ROLLED
       for (int t = 0; t < len; ++t)
-        acc += J[ci][r][6 + t] * vfree[6 + c_chains.joint[ci][t]];
+        acc += J[ci][r][6 + t] * vfree[6 + c_chains.joint[ch][t]];
       bb[row] = acc;
+    }
+    if (ci >= FF_KT) {
+      const T erp = -sp.neg_erp;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const int row = 3 * ci + r;
+        bb[row] = bb[row] + erp * lgap[row - RC] / sp.dt;
+      }
+      continue;
     }
     const T gmin = gap[ci] < T(0) ? gap[ci] : T(0);
     T v_star = sp.neg_erp * gmin / sp.dt;
@@ -926,19 +1190,20 @@ GRID_ROLLED
       for (int c = 1; c < 6; ++c) vn += J[ci][2][c] * v[c];
 GRID_ROLLED
       for (int t = 0; t < len; ++t)
-        vn += J[ci][2][6 + t] * v[6 + c_chains.joint[ci][t]];
+        vn += J[ci][2][6 + t] * v[6 + c_chains.joint[ch][t]];
       v_star = v_star - sp.restitution * (vn < T(0) ? vn : T(0));
     }
     bb[3 * ci + 2] = bb[3 * ci + 2] - v_star;
   }
 
-  // projected Gauss–Seidel (pgs, contact.cuh)
-  T reg[FF_K3], p[FF_K3], muv[FF_K];
+  // projected Gauss–Seidel (pgs, contact.cuh): the cones, then the
+  // closures' bilateral rows
+  T reg[RT], p[RT], muv[FF_KT];
 #pragma unroll
-  for (int r = 0; r < FF_K3; ++r) reg[r] = ridge[r];
+  for (int r = 0; r < RT; ++r) reg[r] = ridge[r];
 #pragma unroll
-  for (int ci = 0; ci < FF_K; ++ci) muv[ci] = mu[ci * B + b];
-  pgs<T, FF_K, 0>(Gm, bb, muv, active, reg, sp.iters, p);
+  for (int ci = 0; ci < FF_KT; ++ci) muv[ci] = mu[ci * B + b];
+  pgs<T, FF_KT, 3 * FF_L>(Gm, bb, muv, active, reg, sp.iters, p);
 
   // v⁺ = v_free + M⁻¹Jᵀ·p; the attitude by quat ⊗ exp(½·ω⁺·dt),
   // renormalised; pos by the new rotation; q by q̇⁺
@@ -947,7 +1212,7 @@ GRID_ROLLED
   for (int c = 0; c < FF_M; ++c) {
     T acc = sol[c][0] * p[0];
 #pragma unroll
-    for (int s = 1; s < FF_K3; ++s) acc += sol[c][s] * p[s];
+    for (int s = 1; s < RT; ++s) acc += sol[c][s] * p[s];
     vn[c] = vfree[c] + acc;
   }
   T w_dt[3], q2[4], R2[9], t3[3];
@@ -965,7 +1230,7 @@ GRID_ROLLED
   store_rows<T, N>(qs, B, b, q_out);
   store_rows<T, 6>(vn, B, b, vb_out);
   store_rows<T, N>(vn + 6, B, b, qd_out);
-  store_rows<T, FF_K3>(p, B, b, imp_out);
+  store_rows<T, RC>(p, B, b, imp_out);
 }
 #endif  // GRID_FF_K > 0
 

@@ -187,7 +187,7 @@ PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
                 "ops.kernels.contact_fused", "ops.multidof", "ops.md_blops",
                 "ops.freeflyer", "ops.contact", "ops.terrain",
                 "ops.kernels.multidof_fused", "ops.kernels.multidof_staged",
-                "ops.collision", "ops.md_contact",
+                "ops.collision", "ops.loops", "ops.md_contact",
                 "ops.kernels.md_contact_fused", "models.mjcf",
                 "models.robot", "utils.golden")
 
@@ -199,8 +199,8 @@ def test_port_imports_no_jax():
     four multi-dof entries (on the ball arm), the two multi-dof
     gradients of free Atlas (the staged multi-dof pipeline), the
     free-flyer FD and stance FD, the ground step (flat and on a
-    heightfield, and with ground geoms) and its rollout (on the 3-link
-    chain), and the multi-dof ground step on the ball ant parsed from its
+    heightfield, with ground geoms, with a collision set and with loop
+    closures) and its rollout (on the 3-link chain), and the multi-dof ground step on the ball ant parsed from its
     MJCF document, with its torso sphere."""
     code = (
         "import importlib, sys\n"
@@ -279,6 +279,19 @@ def test_port_imports_no_jax():
         "nxt, imp = gt.fb_step_ground_batched(m, state, q, 1e-3, (2,), "
         "[[0.1, 0.0, 0.0]], ground_geoms=gg, mu_ground=0.6)\n"
         "assert tuple(imp.shape) == (2, 4, 3)\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in (*nxt, imp))\n"
+        "cm = gt.make_collision_model(gt.make_geoms((0, 2), [[0.0, 0.0, 0.0]]"
+        " * 2, r=0.2, dtype=torch.float64, device='cpu'), pairs=((0, 1),), "
+        "obstacles=gt.make_obstacles([[0.0, 0.0, 0.0]], r=0.1, "
+        "dtype=torch.float64, device='cpu'))\n"
+        "nxt, imp = gt.fb_step_ground_batched(m, state, q, 1e-3, (2,), "
+        "[[0.1, 0.0, 0.0]], collision=cm, mu_collision=0.5)\n"
+        "assert tuple(imp.shape) == (2, 4, 3)\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in (*nxt, imp))\n"
+        "nxt, imp = gt.fb_step_ground_batched(m, state, q, 1e-3, (2,), "
+        "[[0.1, 0.0, 0.0]], loops=(((2, 0), (1, -1)), [[0.1, 0.0, 0.0]] * 2,"
+        " [[0.0, 0.0, -0.1], [0.0, 0.0, 0.3]]))\n"
+        "assert tuple(imp.shape) == (2, 1, 3)\n"
         "assert all(bool(torch.isfinite(o).all()) for o in (*nxt, imp))\n"
         "src = zoo.ball_ant_mjcf()\n"
         "m = gt.multidof_model_from_description(gt.parse_mjcf(src), "

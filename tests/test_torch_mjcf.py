@@ -50,7 +50,7 @@ ACCESSORS = ("parse_mjcf", "mjcf_sites", "mjcf_bodies", "mjcf_actuators",
 
 
 # fields a port-side named tuple has beyond its JAX counterpart's
-PORT_FIELDS = {"Geoms": ("ground",)}
+PORT_FIELDS = {"Geoms": ("ground",), "CollisionModel": ("static",)}
 
 
 def _same(a, b, where="") -> None:

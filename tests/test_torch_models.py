@@ -30,6 +30,7 @@ FIXTURES = {
                                              prismatic_every=2),
     "random_tree": lambda z: z.random_tree(12, seed=3),
     "double_pendulum": lambda z: z.double_pendulum(),
+    "four_bar": lambda z: z.four_bar(damping=0.05),
     "ball_arm": lambda z: z.ball_arm(damping=0.1),
     "free_iiwa14": lambda z: z.with_free_joint(z.iiwa14(damping=0.1)),
     "free_atlas": lambda z: z.with_free_joint(z.atlas()),

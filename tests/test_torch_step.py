@@ -396,9 +396,6 @@ def test_step_helpers_match_jax():
 
 # ------------------------------------------------------------- errors
 UNPORTED = {
-    "collision": (dict(collision=object()), "Ground stepping, part three"),
-    "mu_collision": (dict(mu_collision=0.5), "Ground stepping, part three"),
-    "loops": (dict(loops=((), (), ())), "Ground stepping, part three"),
     "welds": (dict(welds=((), ())), "The rest of kinematics and contact"),
     "tendons": (dict(tendons=object()), "The rest of kinematics and contact"),
     "frictionloss": (dict(frictionloss=np.ones(3)),
@@ -425,8 +422,7 @@ def test_unported_options_raise(option):
         tct.fb_step_ground_batched(tm, tuple(s[:5]), s[5], DT, links,
                                    offsets, **kw)
     assert f"ROADMAP Queue 1, '{title}'" in str(e.value)
-    rollout_kw = {k: v for k, v in kw.items()
-                  if k in ("collision", "mu_collision", "loops", "impl")}
+    rollout_kw = {k: v for k, v in kw.items() if k == "impl"}
     if rollout_kw:
         with pytest.raises(NotImplementedError, match=title):
             tct.fb_simulate_ground_batched(tm, tuple(s[:5]), s[5][None], DT,
