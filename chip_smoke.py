@@ -25,7 +25,12 @@ kernels/csrc`` and runs, on ``cuda:0``:
    both and on Atlas; the staged kernels (K1, K2′ with and without a
    right-hand side, K4, the ∂ID vaf sweep, K5 with and without the finish)
    on Atlas (n = 28, a forest) and forced on the branched arm at a column
-   block that leaves a ragged last block; the second-order kernels; the
+   block that leaves a ragged last block; the M⁻¹ and FD variants (the
+   dense-M⁻¹ ∇FD and the composition FD on iiwa-14 and the branched arm;
+   the factor-solve FD, K2 and K3, K2″, K4 and K5 reading bf16 stage
+   tensors — also against the full-precision plain stages, 2e-2 — and K5
+   one side a launch on Atlas and the branched arm, K3 there at its
+   compiled width and at a ragged one); the second-order kernels; the
    five multi-dof kernels of md.cu on the ball arm, free iiwa-14, the mixed
    chain and free HyQ, and on the ball arm with armature; the staged
    multi-dof kernels (K1md with and without q̈, K2md with and without the
@@ -71,8 +76,9 @@ H. the second-order paths at B = 2¹⁶ (iiwa-14, the double pendulum,
    plain version at its path's shape, the API times, and profiler
    breakdowns; each kernel's bound (the larger of its operations over the
    card's float32 rate and its bytes over its memory rate; operations as
-   :class:`OpCount` counts them); ∇FD and λᵀ·H on both routes on either
-   side of their joint-count limits;
+   :class:`OpCount` counts them, in a child process on the CPU started
+   at the top of the run, ``chip_smoke.py --count-ops``); ∇FD and λᵀ·H on
+   both routes on either side of their joint-count limits;
 M. the multi-dof paths at B = 2¹⁸, float32: free Atlas's tangent-space
    ∇FD and ∂ID through the staged multi-dof pipeline (the main path of
    the staged slice), its CRBA FD (``impl="crba"``), ID and ABA; free HyQ's
@@ -128,7 +134,20 @@ S. the frictional ground step at B = 2¹⁸, float32, through
    pn ≥ 0 and 0 off contact, the cones with each contact's μ), the
    four-bar's 64-step rollout keeping its closure gap within twice the
    plain version's; and both cells' kernel, plain, bound, API times and
-   env-steps/s (their profiles in the same child).
+   env-steps/s (their profiles in the same child);
+V. the fixed-base M⁻¹ and FD variants, float32, from a generator of their
+   own: Atlas at 2¹⁴ and 2¹⁸ through bench_dense_minv.py's seven cases
+   (dense, merged-K2″ and recursion ∇FD; K2′; M⁻¹ and FD on the
+   single-thread kernels, its lane-recursion arms; the factor-solve FD),
+   bench_bf16_staging.py's bf16 arm and the other options (per-side K5,
+   the unfused finish, ∂ID per side and in bf16, ``minv_staged``,
+   ``fd_staged``) — each call's launches pinned, the dense-vs-recursion
+   and bf16-vs-full ∇FD parity —; iiwa-14 and HyQ ∇FD with ``minv_impl``
+   recursion and dense at 2¹⁸ with their golden parity heads;
+   ``forward_dynamics_fused`` against ABA on iiwa-14 and Atlas; each new
+   kernel's time, plain time, bound and head against its plain version,
+   and for the kernels that factor, the batched ``torch.linalg``
+   Cholesky on the same CRBA matrices (the factor stage alone).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -139,6 +158,7 @@ kernels' JSON record; the last is ``{"ok": true, "device": {...}}``.
 import dataclasses
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -518,6 +538,77 @@ def staged_pairs(cb=None):
     }
 
 
+# the fused.cu variants (minv_impl="dense", the composition FD): name →
+# (LAUNCHES key, kernel, plain, inputs); built and routed up to
+# MAX_KERNEL_JOINTS
+VARIANT_PAIRS = {
+    "fd_grad_dense": (
+        "fd_grad_dense",
+        lambda m, *s: fused.fd_grad_fused(m, *s, minv_impl="dense"),
+        lambda m, *s: fused.fd_grad_plain(m, *s, minv_impl="dense"), 3),
+    "fd": ("fd", fused.forward_dynamics_fused, fused.forward_dynamics_plain,
+           3),
+}
+
+
+def variant_pairs(cb=None, mcb=None):
+    """The staged.cu variants as (LAUNCHES key, kernel, plain, inputs), on
+    the plain upstream stages' outputs like staged_pairs: the factor-solve
+    FD, K2 and K3 (K3 at column width ``mcb``), K2″, K4 and K5 reading bf16
+    stage tensors (staged.to_stage of the plain stages'), and K5 one side
+    a launch (the ∇FD's ∂/∂q̇ side with the finish; the ∂ID's ∂/∂q side)."""
+    def up(m, q, qd, u):
+        c, v = staged.bias_and_v_plain(m, q, qd)
+        Minv, qdd = staged.minv_qdd_dense_plain(m, q, u - c)
+        a, f = staged.af_plain(m, q, qd, qdd, v)
+        U, Dinv = staged.minv_ud_plain(m, q)
+        v2, a2, f2 = staged.vaf_plain(m, q, qd, u)
+        x = dict(umc=u - c, v=v, Minv=Minv, qdd=qdd, a=a, f=f, U=U,
+                 Dinv=Dinv, v2=v2, a2=a2, f2=f2)
+        x.update({f"{k}16": staged.to_stage(x[k])
+                  for k in ("v", "a", "f", "Minv", "v2", "a2", "f2")})
+        return x
+
+    def k5(sides, finish):
+        def kern(m, *a):
+            return staged.grad_cols_staged(
+                m, *a[:5], cb=cb, Minv=a[5] if finish else None, sides=sides)
+
+        def plain(m, *a):
+            return staged.grad_cols_plain(
+                m, *a[:5], cb=cb, Minv=a[5] if finish else None, sides=sides)
+        return kern, plain
+
+    both, fin16, raw16 = ("q", "qd"), "grad_cols_finish_bf16", "grad_cols_bf16"
+    return up, {
+        "fd_dense": ("fd_dense", staged.fd_dense_staged,
+                     staged.fd_dense_plain, lambda s, x: tuple(s)),
+        "minv_ud": ("minv_ud", staged.minv_ud_staged, staged.minv_ud_plain,
+                    lambda s, x: (s[0],)),
+        "minv_cols": (
+            "minv_cols",
+            lambda m, *a: staged.minv_cols_staged(m, *a, cb=mcb),
+            lambda m, *a: staged.minv_cols_plain(m, *a, cb=mcb),
+            lambda s, x: (s[0], x["U"], x["Dinv"])),
+        "minv_af": ("minv_af", staged.minv_qdd_af_dense_staged,
+                    staged.minv_af_plain,
+                    lambda s, x: (s[0], s[1], x["umc"], x["v"])),
+        "af_bf16": ("af_bf16", staged.af_staged, staged.af_plain,
+                    lambda s, x: (s[0], s[1], x["qdd"], x["v16"])),
+        fin16: (fin16, *k5(both, True),
+                lambda s, x: (s[0], s[1], x["v16"], x["a16"], x["f16"],
+                              x["Minv16"])),
+        raw16: (raw16, *k5(both, False),
+                lambda s, x: (s[0], s[1], x["v216"], x["a216"], x["f216"])),
+        "grad_cols_finish_side": (
+            "grad_cols_finish_side", *k5(("qd",), True),
+            lambda s, x: (s[0], s[1], x["v"], x["a"], x["f"], x["Minv"])),
+        "grad_cols_side": (
+            "grad_cols_side", *k5(("q",), False),
+            lambda s, x: (s[0], s[1], x["v2"], x["a2"], x["f2"])),
+    }
+
+
 def uniform_lam(n, B, dtype, gen, layout="nB"):
     """λ ∈ [−1, 1] (a DDP value gradient's scale)."""
     shape = (n, B) if layout == "nB" else (B, n)
@@ -713,12 +804,12 @@ MD_PATHS = {
 }
 
 
-def md_model(label, dtype=torch.float32, armature=None):
+def md_model(label, dtype=torch.float32, armature=None, device="cuda"):
     desc = gt.parse_urdf(MD_ROBOTS[label])
     if armature is not None:
         desc = dataclasses.replace(desc, armature=np.full(desc.n, armature))
     return gt.multidof_model_from_description(desc, dtype=dtype,
-                                              device="cuda")
+                                              device=device)
 
 
 def md_states(m, B, gen, layout="nB"):
@@ -733,11 +824,11 @@ def md_states(m, B, gen, layout="nB"):
     return out if layout == "Bn" else [x.T.contiguous() for x in out]
 
 
-def ff_model(label, dtype=torch.float32, armature=None):
+def ff_model(label, dtype=torch.float32, armature=None, device="cuda"):
     desc = gt.parse_urdf(FF_ROBOTS[label][0])
     if armature is not None:
         desc = dataclasses.replace(desc, armature=np.full(desc.n, armature))
-    return tff.free_flyer_model(desc, dtype=dtype, device="cuda")
+    return tff.free_flyer_model(desc, dtype=dtype, device=device)
 
 
 def ff_states(m, B, gen, label, layout="dB"):
@@ -1053,11 +1144,12 @@ _PTXAS_NAME = re.compile(
     r"(md_step_ground|md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf"
     r"|md_minv"
     r"|md_grad_cols|fb_aba|fb_fd|stance_fd|step_ground|fd_grad|id_grad"
-    r"|minv_dense|minv"
+    r"|fd_dense|fd|minv_dense|minv_af|minv_ud|minv_cols|minv"
     r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
     r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
+                 "fd_grad": "dense",
                  "md_rnea": "qdd", "md_id_grad": "qdd", "md_vaf": "qdd",
                  "md_minv": "rhs", "md_grad_cols": "finish",
                  "step_ground": "terrain"}
@@ -1332,6 +1424,8 @@ def phase1_kernels_vs_plain(gen):
                      if _build.dense_grads(m.n)
                      or k in ("inverse_dynamics", "bias_force")}
             pairs["aba"] = ABA
+            if _build.dense_grads(m.n):
+                pairs.update(VARIANT_PAIRS)
             for name, (key, kern, plain, k) in pairs.items():
                 args = (q, qd, u)[:k]
                 before = _launch.LAUNCHES[key]
@@ -1359,6 +1453,52 @@ def phase1_kernels_vs_plain(gen):
                     f"phase1 {label} {str(dtype)[6:]} B={B} staged "
                     f"{name}{'' if cb is None else f' cb={cb}'}",
                     got, plain, m, args)
+            phase1_variants(label, m, q, qd, u)
+
+
+BF16_REL = 2e-2   # bf16 staging against full precision (test_blops.py:379)
+FORCED_MINV_CB = 2  # K3 on the branched arm: blocks 2, 2, 2, 2, 1
+
+
+def phase1_variants(label, m, q, qd, u):
+    """The staged.cu variants against their plain versions on the same
+    inputs (variant_pairs): on Atlas at the compiled widths, on the branched
+    arm at FORCED_CB and K3 at its compiled width (one block) and at
+    FORCED_MINV_CB. On the branched arm — the JAX test's setting, one
+    branched robot — the bf16-reading K4 and K5 are also held to the plain
+    versions on the full-precision stage tensors (BF16_REL); at Atlas, where
+    bf16 round-off of M⁻¹ in the finish moves one stage's worst of 1000
+    states by ≈ 2e-2 (the JAX record: 0.8–1.7e-2, BENCHLOG.md:155), phase
+    V holds the whole pipeline's bf16-vs-full ∇FD to BF16_REL with JAX's
+    tensor-wide metric."""
+    tag = f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]} variant"
+    widths = ([(FORCED_CB, None), (FORCED_CB, FORCED_MINV_CB)]
+              if label == "branched_arm" else [(None, None)])
+    for cb, mcb in widths:
+        up, vpairs = variant_pairs(cb, mcb)
+        x = up(m, q, qd, u)
+        names = list(vpairs) if mcb is None else ["minv_cols"]
+        for name in names:
+            key, kern, plain, inputs = vpairs[name]
+            args = inputs((q, qd, u), x)
+            where = "".join(f" {k}={w}" for k, w in
+                            (("cb", cb), ("K3 cb", mcb)) if w is not None)
+            run_pair(f"{tag} {name}{where}", key, kern, plain, m, args)
+        if mcb is not None or label != "branched_arm":
+            continue
+        _, spairs = staged_pairs(cb)
+        for name, full in (("af_bf16", "af"),
+                           ("grad_cols_finish_bf16", "grad_cols_finish"),
+                           ("grad_cols_bf16", "grad_cols")):
+            got = vpairs[name][1](m, *vpairs[name][3]((q, qd, u), x))
+            ref = spairs[full][2](m, *spairs[full][3]((q, qd, u), x))
+            rel, _, _ = compare(got, ref)
+            ok = rel <= BF16_REL
+            log(f"{tag} {name} vs plain {full} at full precision: rel "
+                f"{rel:.3e} tol {BF16_REL:.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{tag} {name}: bf16 staging too far "
+                                   f"from full precision")
 
 
 def phase1_multidof(gen):
@@ -2188,6 +2328,149 @@ def ops_per_state(plain, m, make_args, states=1):
     return (counts[1] - counts[0]) / states
 
 
+@functools.lru_cache(maxsize=None)
+def _count_model(kind, label):
+    """A timed model rebuilt on the CPU in float32, as phase 3 builds it on
+    the card (ops_per_state counts on its float64 copy)."""
+    if kind == "md":
+        return md_model(label, device="cpu")
+    if kind == "ff":
+        return ff_model(label, device="cpu")
+    if kind == "md_step":
+        return md_step_model(label, device="cpu")
+    return gt.load_robot({**HESS_ROUTE_ROBOTS, **ROBOTS}[label],
+                         dtype=torch.float32, device="cpu")
+
+
+def count_jobs():
+    """Every operation count phase 3 reads, as ``"label:name"`` (the
+    arguments of time_entry and time_so_entry) → a thunk giving the counts
+    to take, each (function, CPU model, make_args, states): the plain
+    version's (ABA's for the two FD variants: the least work for q̈), then
+    the work the bound takes off it (a stance's repeated
+    primal; a second-order kernel's primal, taken off once per direction).
+    The counting child (count_ops_child) runs them all."""
+    jobs = {}
+
+    def add(key, *counts):
+        jobs[key] = lambda: [(fn, _count_model(*mk), make, k)
+                             for fn, mk, make, k in counts]
+    for name in ("fd_grad", "id_grad", "minv", "inverse_dynamics"):
+        _, _, plain, k = PAIRS[name]
+        add(f"iiwa14:{name}", (plain, ("robot", "iiwa14"), _cpu_states(k), 1))
+    add("iiwa14:aba", (ABA[2], ("robot", "iiwa14"), _cpu_states(3), 1))
+    for name in ("inverse_dynamics", "aba"):
+        pair = ABA if name == "aba" else PAIRS[name]
+        add(f"atlas:{name}",
+            (pair[2], ("robot", "atlas"), _cpu_states(pair[3]), 1))
+    for name, (_, _, plain, _) in staged_pairs()[1].items():
+        add(f"atlas:{name}",
+            (plain, ("robot", "atlas"), _staged_cpu_args(name), 1))
+    # q̈ = FD(q, q̇, u) takes the fewest operations by ABA: the composition
+    # FD and the factor-solve FD are bounded by ABA's count, not their own
+    least = {"fd": ABA[2], "fd_dense": ABA[2]}
+    for name, (_, _, plain, _) in VARIANT_PAIRS.items():
+        add(f"iiwa14:{name}", (least.get(name, plain), ("robot", "iiwa14"),
+                               _cpu_states(3), 1))
+    for name, (_, _, plain, _) in variant_pairs()[1].items():
+        add(f"atlas:{name}",
+            (least.get(name, plain), ("robot", "atlas"),
+             _staged_cpu_args(name, variant_pairs), 1))
+    so_cache = {}
+    for name, label in (("hessian_vp", SMALL_SO_ROBOT), ("hessian", "iiwa14"),
+                        ("t1_q", "atlas"), ("t2", "atlas"), ("t4_q", "atlas"),
+                        ("t5_q_q", "atlas")):
+        plain = (HESS_PAIRS[name][2] if name in HESS_PAIRS
+                 else so_stage_pairs()[1][name][2])
+        make = _so_cpu_args(name, so_cache)
+        add(f"{label}:{name}", (plain, ("robot", label), make, 1),
+            (SO_PRIMALS[name][0], ("robot", label), make, 1))
+    for name, (label, fam) in MD_TIMED.items():
+        _, _, plain, k = MD_PAIRS[name]
+        add(f"{label}:{name}", (plain, ("md", label), _md_cpu_states(k), 1))
+    for name in MD_STAGED_TIMED:
+        add(f"free_atlas:{name}", (md_staged_pairs()[1][name][2],
+                                   ("md", "free_atlas"),
+                                   _md_staged_cpu_args(name), 1))
+    for name, (label, entry) in FF_TIMED.items():
+        _, _, plain, wp = ff_pairs(label)[ff_entries(label)[entry][2]]
+        make = _ff_cpu_states(label, wp)
+        add(f"{label}:{name}", (plain, ("ff", label), make, 1),
+            *([(stance_primal_repeat(label), ("ff", label), make, 1)]
+              if wp else []))
+    for name, cell in STEP_TIMED.items():
+        label, grid = STEP_PATHS[cell]
+        add(f"{cell}:{name}",
+            (step_fns(label, grid, False, torch.float32, "cpu")[1],
+             ("ff", label), _step_cpu_states(label), STEP_OPS_STATES))
+    add("md_ball_ant:md_step_ground",
+        (md_step_fns("ball_ant", True, False, torch.float32, "cpu")[1],
+         ("md_step", "ball_ant"), _md_cpu_step_states, STEP_OPS_STATES))
+    add("hyq_geoms:step_ground[hyq_geoms]",
+        (step_fns("hyq", None, False, torch.float32, "cpu", geoms=True)[1],
+         ("ff", "hyq"), _geoms_cpu_states, STEP_OPS_STATES))
+    for case in ROWS_PATHS:
+        add(f"{case}:step_ground[{case}]",
+            (rows_fns(case, torch.float32, "cpu")[1],
+             ("ff", ROWS_CASES[case][0]), _rows_cpu_states(case),
+             STEP_OPS_STATES))
+    return jobs
+
+
+def count_ops_child():
+    """``chip_smoke.py --count-ops``: every count of count_jobs on the CPU
+    (started with no visible CUDA device), printed as one JSON line
+    {key: [counts], "seconds": s} — run beside the GPU phases."""
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)
+    out = {key: [ops_per_state(*c) for c in job()]
+           for key, job in count_jobs().items()}
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+class OpCounts:
+    """The counting child: started at the top of main(), read at the
+    first bound phase 3 writes."""
+
+    def __init__(self):
+        self.proc, self.counts, self.t0 = None, None, None
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--count-ops"],
+            stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+    def get(self, key):
+        if self.counts is None:
+            w0 = time.perf_counter()
+            out, _ = self.proc.communicate()
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"the counting child failed "
+                                   f"({self.proc.returncode})")
+            self.counts = json.loads(out.strip().splitlines()[-1])
+            waited = time.perf_counter() - w0
+            log(f"operation counts: the child took "
+                f"{self.counts['seconds']:.1f} s beside the GPU phases "
+                f"(started {w0 - self.t0:.1f} s before its first read, "
+                f"waited {waited:.1f} s for it): {self.counts['seconds'] - waited:.1f}"
+                f" s of wall time saved")
+        return list(self.counts[key])
+
+
+    def stop(self):
+        """End the child if it still runs (a phase failed before phase 3
+        read it)."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+COUNTS = OpCounts()
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -2210,30 +2493,29 @@ def _cpu_states(k, extra=None):
     return make
 
 
-def _staged_cpu_args(name):
+def _staged_cpu_args(name, pairs=staged_pairs):
+    """make_args of a staged_pairs (or variant_pairs) stage: random CPU
+    states and the plain upstream stages' outputs on them."""
     def extra(mc, B, st):
-        up, spairs = staged_pairs()
+        up, spairs = pairs()
         return spairs[name][3](st, up(mc, *st))
     return _cpu_states(3, extra)
 
 
-def time_entry(label, name, kern, plain, m, args, make_cpu_args, name_limit,
-               repeat=None, states=1, const_bytes=0):
+def time_entry(label, name, kern, plain, m, args, name_limit, const_bytes=0):
     """Time a kernel and its plain version (plain, kernel, kernel, plain in
     one call), and its bound at these inputs: the plain version's
-    operations (a state's, averaged over ``states``), less those of
-    ``repeat`` — work the plain version does a second time (a forward-mode
-    pass re-evaluates its primal), which the least work does once; bytes:
-    the inputs and outputs, and ``const_bytes`` read once (a height
-    grid)."""
+    operations a state (count_jobs' ``label:name``: averaged over its
+    states, less a repeat — work the plain version does a second time, a
+    forward-mode pass re-evaluating its primal, which the least work does
+    once); bytes: the inputs and outputs, and ``const_bytes`` read once (a
+    height grid)."""
     p1 = time_plain_ms(plain, (m, *args))
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
     p2 = time_plain_ms(plain, (m, *args))
     outs = _as_tuple(kern(m, *args))
-    total = ops_per_state(plain, m, make_cpu_args, states)
-    again = (0 if repeat is None
-             else ops_per_state(repeat, m, make_cpu_args, states))
+    total, again = (COUNTS.get(f"{label}:{name}") + [0])[:2]
     ops = (total - again) * args[0].shape[-1]
     nb = nbytes(*args, *outs) + const_bytes
     b_ms, b_by = bound(ops, nb)
@@ -2302,9 +2584,9 @@ def phase3_times(m, mA, atlas_states, gen):
     for name in ("fd_grad", "id_grad", "minv", "inverse_dynamics"):
         _, kern, plain, k = PAIRS[name]
         times[name] = time_entry("iiwa14", name, kern, plain, m,
-                                 (q, qd, u)[:k], _cpu_states(k), name_limit)
+                                 (q, qd, u)[:k], name_limit)
     times["aba"] = time_entry("iiwa14", "aba", ABA[1], ABA[2], m, (q, qd, u),
-                              _cpu_states(3), name_limit)
+                              name_limit)
     qb, qdb, ub = (x.T.contiguous() for x in (q, qd, u))
     for fn in (gt.forward_dynamics_gradient, gt.forward_dynamics):
         api = time_ms(fn, (m, qb, qdb, ub))
@@ -2318,7 +2600,7 @@ def phase3_times(m, mA, atlas_states, gen):
         pair = ABA if name == "aba" else PAIRS[name]
         times[f"{name}[atlas]"] = time_entry(
             "atlas", name, pair[1], pair[2], mA, tuple(s[:pair[3]]),
-            _cpu_states(pair[3]), name_limit)
+            name_limit)
     _, spairs = staged_pairs()
     x = {}
     x["c"], x["v"] = staged.bias_and_v_staged(mA, s[0], s[1])
@@ -2328,8 +2610,7 @@ def phase3_times(m, mA, atlas_states, gen):
     x["v2"], x["a2"], x["f2"] = staged.vaf_staged(mA, *s)
     for name, (_, kern, plain, inputs) in spairs.items():
         times[name] = time_entry("atlas", name, kern, plain, mA,
-                                 tuple(inputs(s, x)), _staged_cpu_args(name),
-                                 name_limit)
+                                 tuple(inputs(s, x)), name_limit)
     del x
     qa, qda, ua = atlas_states
     for fn in (gt.forward_dynamics_gradient, gt.inverse_dynamics_gradient,
@@ -2362,7 +2643,7 @@ def _so_cpu_args(name, cache):
     return make
 
 
-def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
+def time_so_entry(label, name, kern, plain, m, args, name_limit):
     """Time a second-order kernel and its plain version (once, on
     the first B / PLAIN_SO_DIV states, scaled to B), and its bound: the
     plain version's operations less the primal's repeats (both versions
@@ -2377,12 +2658,11 @@ def time_so_entry(label, name, kern, plain, m, args, name_limit, cache):
     k = time_ms(kern, (m, *args))
     outs = _as_tuple(kern(m, *args))
     w2 = time.perf_counter()
-    make = _so_cpu_args(name, cache)
-    primal, dirs = SO_PRIMALS[name]
-    total = ops_per_state(plain, m, make)
-    once = ops_per_state(primal, m, make)
+    _, dirs = SO_PRIMALS[name]
+    total, once = COUNTS.get(f"{label}:{name}")
     log(f"phase3 {name} {label}: wall {w1 - w0:.1f} s plain, {w2 - w1:.1f} "
-        f"s kernel, {time.perf_counter() - w2:.1f} s operation count")
+        f"s kernel, {time.perf_counter() - w2:.1f} s waiting for the "
+        f"operation count")
     ops = (total - (dirs * m.n - 1) * once) * B
     b_ms, b_by = bound(ops, nbytes(*args, *outs))
     log(f"phase3 {name} {label} f32 B={B}: kernel {k:.3f} ms "
@@ -2413,7 +2693,7 @@ def phase3_second_order(mA, sA, gen):
     """Times of the second-order kernels at phase H's shapes, the API times,
     and a profiler breakdown of Atlas's λᵀ·H by stage."""
     name_limit = card()
-    times, cache = {}, {}
+    times = {}
     for name, label in (("hessian_vp", SMALL_SO_ROBOT),
                         ("hessian", "iiwa14")):
         _, kern, plain, k = HESS_PAIRS[name]
@@ -2422,7 +2702,7 @@ def phase3_second_order(mA, sA, gen):
         s = uniform_states(m.n, HESS_B, torch.float32, gen)
         s.append(uniform_lam(m.n, HESS_B, torch.float32, gen))
         times[name] = time_so_entry(label, name, kern, plain, m, s[:k],
-                                    name_limit, cache)
+                                    name_limit)
         sb = [x.T.contiguous() for x in s]
         api_ms(gt.forward_dynamics_hessian_vp, (m, *sb), label, name_limit)
     for fn in (gt.forward_dynamics_hessian, gt.forward_dynamics_gradient_full):
@@ -2447,7 +2727,7 @@ def phase3_second_order(mA, sA, gen):
     for name in ("t1_q", "t2", "t4_q", "t5_q_q"):
         _, kern, plain, inputs = pairs[name]
         times[name] = time_so_entry("atlas", name, kern, plain, mA,
-                                    tuple(inputs(sc, x)), name_limit, cache)
+                                    tuple(inputs(sc, x)), name_limit)
     del x
     api_ms(gt.forward_dynamics_hessian_vp, (mA, *sA), "atlas", name_limit)
     profile_breakdown(gt.forward_dynamics_hessian_vp, (mA, *sA),
@@ -2586,7 +2866,7 @@ def phase3_multidof(models, states, gen):
         m, s = models[label], states[label]
         cols = tuple(x.T.contiguous() for x in s[:k])
         times[name] = time_entry(label, name, kern, plain, m, cols,
-                                 _md_cpu_states(k), name_limit)
+                                 name_limit)
         del cols
     m = models["free_atlas"]
     cols = [x.T.contiguous() for x in states["free_atlas"]]
@@ -2599,8 +2879,7 @@ def phase3_multidof(models, states, gen):
     for name in MD_STAGED_TIMED:
         _, kern, plain, inputs = pairs[name]
         times[name] = time_entry("free_atlas", name, kern, plain, m,
-                                 tuple(inputs(cols, x)),
-                                 _md_staged_cpu_args(name), name_limit)
+                                 tuple(inputs(cols, x)), name_limit)
     ms = [(cb, time_ms(lambda: mds.md_grad_cols_staged(
         m, q, qd, x["v"], x["a"], x["f"], cb=cb, Minv=x["Minv"]), ()))
         for cb in MD_CB_WIDTHS]
@@ -2888,9 +3167,7 @@ def phase3_free_flyer(models, states):
         m = models[label]
         cols = tuple(x.T.contiguous() for x in ff_args(states[label], wp))
         times[name] = time_entry(label, name, kern, plain, m, cols,
-                                 _ff_cpu_states(label, wp), name_limit,
-                                 repeat=(stance_primal_repeat(label)
-                                         if wp else None))
+                                 name_limit)
         del cols
     for label in FF_PATHS:
         m, s = models[label], states[label]
@@ -2924,14 +3201,15 @@ def stance_height(label):
     """The base height of phase S's states: the bench's 0.5 m where
     STEP_DEPTH is None (HyQ), else the height that puts the lowest foot
     STEP_DEPTH into the ground at the identity attitude and the zero
-    posture."""
+    posture — computed on the CPU, so that the counting child
+    (count_ops_child) draws the states this process draws."""
     depth = STEP_DEPTH[label]
     if depth is None:
         return 0.5
-    m = ff_model(label, torch.float64)
-    one = torch.ones((1, 1), dtype=torch.float64, device="cuda")
+    m = ff_model(label, torch.float64, device="cpu")
+    one = torch.ones((1, 1), dtype=torch.float64)
     quat = torch.cat([one, 0 * one, 0 * one, 0 * one])
-    q = torch.zeros((m.n, 1), dtype=torch.float64, device="cuda")
+    q = torch.zeros((m.n, 1), dtype=torch.float64)
     gaps, _ = step_feet(m, quat, 0 * quat[:3], q, label, None)
     return float(-gaps.min()) - depth
 
@@ -3176,8 +3454,7 @@ def phase3_ground_step(models, states):
             f"{float((gaps < STEP_MARGIN).double().mean()):.1%} of their feet"
             f" active; {STEP_ITERS} sweeps")
         times[name] = time_entry(
-            cell, name, kern, plain, m, cols, make, name_limit,
-            states=STEP_OPS_STATES,
+            cell, name, kern, plain, m, cols, name_limit,
             const_bytes=0 if terr is None else nbytes(terr.heights))
         api = time_ms(step_api(label, grid), (m, state, tau))
         log(f"phase3 fb_step_ground_batched API {cell} B={MAIN_B}: "
@@ -3460,8 +3737,7 @@ def phase3_md_and_geoms(models, states):
         f"contacts active; {STEP_ITERS} sweeps")
     times["md_step_ground"] = time_entry(
         "md_ball_ant", "md_step_ground", kern, plain, m,
-        md_cols(m, q, qd, tau), _md_cpu_step_states, name_limit,
-        states=STEP_OPS_STATES)
+        md_cols(m, q, qd, tau), name_limit)
     api = time_ms(md_api(m), (m, q, qd, tau))
     feet = md_step_contacts("ball_ant", True)[0]
     log(f"phase3 md_step_ground_batched API ball_ant B={MAIN_B}: {api:.3f} "
@@ -3481,8 +3757,7 @@ def phase3_md_and_geoms(models, states):
         f"their contacts active; {STEP_ITERS} sweeps")
     times["step_ground[hyq_geoms]"] = time_entry(
         "hyq_geoms", "step_ground[hyq_geoms]", kern, plain, m,
-        geoms_cols(m, state, tau), _geoms_cpu_states, name_limit,
-        states=STEP_OPS_STATES)
+        geoms_cols(m, state, tau), name_limit)
     api = time_ms(geoms_api, (m, state, tau))
     links = FF_ROBOTS["hyq"][1] + cff.geom_links(
         cff.ground_geoms_static(step_geoms(m.dtype)))
@@ -3713,8 +3988,7 @@ def phase3_rows(models, states):
             f"of their contacts active; {STEP_ITERS} sweeps")
         name = f"step_ground[{case}]"
         times[name] = time_entry(case, name, kern, plain, m,
-                                 rows_cols(m, state, tau, case), make,
-                                 name_limit, states=STEP_OPS_STATES)
+                                 rows_cols(m, state, tau, case), name_limit)
         api = time_ms(rows_api(case), (m, state, tau))
         links, pairs = rows_key(case)
         log(f"phase3 fb_step_ground_batched API {case} B={MAIN_B}: "
@@ -3724,6 +3998,257 @@ def phase3_rows(models, states):
             f"{lib_frame(m, links, 'ff.cu', 'step_ground', pairs)}; card "
             f"{name_limit}")
     return times
+
+
+# ------------------------------------------- phase V: the M⁻¹/FD variants
+V_SEED = 2               # phase V's own generator: earlier phases unchanged
+V_BATCHES = (1 << 14, MAIN_B)   # bench_dense_minv.py's two batches
+V_HEAD = 1024            # each new kernel's head against its plain version
+
+
+@contextmanager
+def one_thread(n):
+    """Route M⁻¹ and the composition FD to their single-thread kernels up
+    to ``n`` joints (built for every robot; nothing is rebuilt) — the JAX
+    benchmarks' lane-recursion arms (bench_dense_minv.py:63-79)."""
+    saved = _build.MAX_KERNEL_JOINTS
+    _build.MAX_KERNEL_JOINTS = max(n, saved)
+    try:
+        yield
+    finally:
+        _build.MAX_KERNEL_JOINTS = saved
+
+
+def v_atlas_cases(mA):
+    """Atlas's phase-V calls, name → (f(q, q̇, u), the launches one call
+    makes): bench_dense_minv.py:86-101's seven cases (its lane-recursion
+    arms as the single-thread kernels), bench_bf16_staging.py's bf16 arm,
+    and the other options of the staged ∇FD and ∂ID."""
+    def fdg(**kw):
+        return lambda q, qd, u: staged.fd_grad_staged(mA, q, qd, u, **kw)
+
+    def one(fn):
+        def call(q, qd, u):
+            with one_thread(mA.n):
+                return fn(q, qd, u)
+        return call
+    k1, k4, k5 = {"bias_and_v": 1}, {"af": 1}, {"grad_cols_finish": 1}
+    return {
+        "fd_grad dense": (fdg(), {**k1, "minv_dense": 1, **k4, **k5}),
+        "fd_grad dense mergeaf": (fdg(merge_af=True),
+                                  {**k1, "minv_af": 1, **k5}),
+        "fd_grad recursion": (fdg(minv_impl="recursion"),
+                              {**k1, "minv_ud": 1, "minv_cols": 1, **k4,
+                               **k5}),
+        "minv dense-kernel": (
+            lambda q, qd, u: staged.minv_qdd_dense_staged(mA, q)[0],
+            {"minv_dense": 1}),
+        "minv one-thread": (one(lambda q, qd, u: fused.minv_fused(mA, q)),
+                            {"minv": 1}),
+        "fd factor-solve": (
+            lambda q, qd, u: staged.fd_dense_staged(mA, q, qd, u),
+            {"fd_dense": 1}),
+        "fd one-thread": (
+            one(lambda q, qd, u: fused.forward_dynamics_fused(mA, q, qd, u)),
+            {"fd": 1}),
+        "fd_grad bf16": (fdg(stage_dtype=torch.bfloat16),
+                         {**k1, "minv_dense": 1, "af_bf16": 1,
+                          "grad_cols_finish_bf16": 1}),
+        "fd_grad per-side": (fdg(merge_sides=False),
+                             {**k1, "minv_dense": 1, **k4,
+                              "grad_cols_finish_side": 2}),
+        "fd_grad unfused": (fdg(fuse_finish=False),
+                            {**k1, "minv_dense": 1, **k4, "grad_cols": 1}),
+        "id_grad per-side": (
+            lambda q, qd, u: staged.id_grad_staged(mA, q, qd, u,
+                                                   merge_sides=False),
+            {"vaf": 1, "grad_cols_side": 2}),
+        "id_grad bf16": (
+            lambda q, qd, u: staged.id_grad_staged(
+                mA, q, qd, u, stage_dtype=torch.bfloat16),
+            {"vaf": 1, "grad_cols_bf16": 1}),
+        "minv_staged": (lambda q, qd, u: staged.minv_staged(mA, q),
+                        {"minv_ud": 1, "minv_cols": 1}),
+        "fd_staged": (lambda q, qd, u: staged.fd_staged(mA, q, qd, u),
+                      {**k1, "minv_ud": 1, "minv_cols": 1}),
+    }
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp(min=1.0))
+
+
+def crba_dense(m, q):
+    """The plain CRBA M + diag(armature), batch first (B, n, n)."""
+    M = blops.crba_bl(m, blops.joint_transforms_bl(m, q))
+    zero = torch.zeros_like(q[0:1])
+    return torch.stack([torch.cat([zero if e is None else e for e in row])
+                        for row in M]).permute(2, 0, 1).contiguous()
+
+
+def chol_library_ms(tag, m, q, rhs, name_limit):
+    """library_ms of a kernel that contains a Cholesky: the batched
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse`` (rhs None) or
+    ``torch.cholesky_solve`` on the plain CRBA matrices of the same states
+    — the factor stage only, not the whole function."""
+    M = crba_dense(m, q)
+    if rhs is None:
+        def fn(M):
+            return torch.cholesky_inverse(torch.linalg.cholesky_ex(M)[0])
+        args = (M,)
+    else:
+        def fn(M, r):
+            return torch.cholesky_solve(r, torch.linalg.cholesky_ex(M)[0])
+        args = (M, rhs.T.contiguous()[..., None])
+    ms = time_ms(fn, args)
+    log(f"phaseV library {tag}: torch.linalg.cholesky_ex + "
+        f"{'torch.cholesky_inverse' if rhs is None else 'torch.cholesky_solve'}"
+        f" on the plain CRBA matrices ({M.shape[-1]}², f32, B={M.shape[0]}): "
+        f"{ms:.3f} ms — the factor stage only; card {name_limit}")
+    return ms
+
+
+def phaseV_variants():
+    """The fixed-base M⁻¹ and FD variants at the JAX benchmarks' shapes,
+    float32, on their own generator: Atlas's cases (v_atlas_cases) once each
+    at 2¹⁸ with every count set to 0 before and read after — the launches
+    of each call pinned —, the ∇FD parity dense vs recursion and bf16 vs
+    full precision (bench_dense_minv.py:114-120, bench_bf16_staging.py;
+    bf16 held to BF16_REL, max|Δ| / max(1, max|full|) as JAX's test),
+    then each case timed at 2¹⁴ and 2¹⁸; iiwa-14 and HyQ ∇FD with
+    ``minv_impl`` recursion and dense at 2¹⁸ (bench_dense_headline.py;
+    HyQ on the single-thread kernels, as JAX runs it on its single tile)
+    with their float64-golden parity heads; iiwa-14 and Atlas
+    ``forward_dynamics_fused`` against ABA (bench_aba.py); then each new
+    kernel's time, plain time, bound, head against its plain version, and
+    the Cholesky library time where the kernel factors.
+    → (launches, max_abs, times)."""
+    name_limit = card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(V_SEED)
+    mA = gt.load_robot(ROBOTS["atlas"], dtype=torch.float32, device="cuda")
+    mI = gt.load_robot(ROBOTS["iiwa14"], dtype=torch.float32, device="cuda")
+    mH = gt.load_robot(ROUTE_ROBOTS["hyq"], dtype=torch.float32,
+                       device="cuda")
+    sA = uniform_states(mA.n, MAIN_B, torch.float32, gen)
+    sI = uniform_states(mI.n, MAIN_B, torch.float32, gen)
+    sH = uniform_states(mH.n, MAIN_B, torch.float32, gen)
+    cases = v_atlas_cases(mA)
+    # the main-path run: one call of each case
+    _launch.reset_launches()
+    outs = {}
+    for case, (fn, expect) in cases.items():
+        before = dict(_launch.LAUNCHES)
+        outs[case] = _as_tuple(fn(*sA))
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
+                if v != before[k]}
+        check_finite(f"phaseV atlas {case}", outs[case])
+        if made != expect:
+            raise RuntimeError(f"phaseV atlas {case}: launches {made}, "
+                               f"expected {expect}")
+    for fam in ("recursion", "dense"):
+        for mm, s, label in ((mI, sI, "iiwa14"), (mH, sH, "hyq")):
+            with route_limits():
+                outs[f"{label} {fam}"] = fused.fd_grad_fused(
+                    mm, *s, minv_impl=fam)
+    for mm, s, label in ((mI, sI, "iiwa14"), (mA, sA, "atlas")):
+        outs[f"{label} fd"] = fused.forward_dynamics_fused(mm, *s)
+        outs[f"{label} aba"] = fused.forward_dynamics_aba_fused(mm, *s)
+    torch.cuda.synchronize()
+    launches = dict(_launch.LAUNCHES)
+    log(f"phaseV launches of the main-path run: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for side, k in (("ddq", 0), ("ddqd", 1)):
+        for a, b, what in (("fd_grad recursion", "fd_grad dense",
+                            "dense_vs_recursion"),
+                           ("fd_grad bf16", "fd_grad dense", "bf16"),
+                           ("fd_grad per-side", "fd_grad dense", "per-side"),
+                           ("fd_grad unfused", "fd_grad dense", "unfused"),
+                           ("fd_grad dense mergeaf", "fd_grad dense",
+                            "mergeaf")):
+            rel = _rel(outs[a][k], outs[b][k])
+            held = what == "bf16"
+            ok = not held or rel <= BF16_REL
+            log(f"phaseV parity atlas B={MAIN_B} {side} {what}: rel err "
+                f"{rel:.3e} (scale {float(outs[b][k].abs().max()):.3e})"
+                + (f" tol {BF16_REL:.0e} {'ok' if ok else 'FAIL'}"
+                   if held else ""))
+            if not ok:
+                raise RuntimeError(f"phaseV atlas {side}: bf16 staging too "
+                                   f"far from full precision ({rel:.3e})")
+    for a, b in (("minv_staged", "minv dense-kernel"),
+                 ("minv one-thread", "minv dense-kernel"),
+                 ("fd factor-solve", "atlas aba"),
+                 ("fd one-thread", "atlas aba"), ("fd_staged", "atlas aba"),
+                 ("iiwa14 fd", "iiwa14 aba")):
+        log(f"phaseV parity {a} vs {b}: rel err "
+            f"{_rel(_as_tuple(outs[a])[0], _as_tuple(outs[b])[0]):.3e}")
+    for label, mm, s, urdf in (("iiwa14", mI, sI, ROBOTS["iiwa14"]),
+                               ("hyq", mH, sH, ROUTE_ROBOTS["hyq"])):
+        desc = gt.parse_urdf(urdf)
+        for fam in ("recursion", "dense"):
+            J = torch.cat(outs[f"{label} {fam}"], 1).permute(2, 0, 1)
+            parity_head(desc, J, *(x.T for x in s),
+                        f"phaseV {label} fd_grad minv_impl={fam}")
+    del outs
+
+    for B in V_BATCHES:
+        s = [x[..., :B].contiguous() for x in sA]
+        for case, (fn, _) in cases.items():
+            ms = time_ms(fn, s)
+            log(f"phaseV atlas B={B} {case}: {ms:.3f} ms "
+                f"({B / ms * 1e3:.3e} evals/s); card {name_limit}")
+    for label, mm, s in (("iiwa14", mI, sI), ("hyq", mH, sH)):
+        with route_limits():
+            for fam in ("recursion", "dense"):
+                ms = time_ms(lambda *a: fused.fd_grad_fused(
+                    mm, *a, minv_impl=fam), s)
+                log(f"phaseV {label} B={MAIN_B} fd_grad_fused "
+                    f"minv_impl={fam}: {ms:.3f} ms ({MAIN_B / ms * 1e3:.3e} "
+                    f"evals/s); card {name_limit}")
+    for label, mm, s in (("iiwa14", mI, sI), ("atlas", mA, sA)):
+        for fn in (fused.forward_dynamics_fused,
+                   fused.forward_dynamics_aba_fused):
+            ms = time_ms(fn, (mm, *s))
+            log(f"phaseV {label} B={MAIN_B} {fn.__name__}: {ms:.3f} ms "
+                f"({MAIN_B / ms * 1e3:.3e} evals/s); card {name_limit}")
+
+    # each new kernel at its main-path shape: iiwa-14's fused.cu variants;
+    # Atlas's staged.cu ones on the pipeline's own kernel intermediates
+    times, max_abs = {}, {}
+
+    def entry(label, name, kern, plain, mm, args):
+        times[name] = time_entry(label, name, kern, plain, mm, args,
+                                 name_limit)
+        head = [a[..., :V_HEAD].contiguous() for a in args]
+        max_abs[name], _ = check_against_plain(
+            f"phaseV {label} {name} head ({V_HEAD} states) vs plain",
+            kern(mm, *head), plain, mm, head)
+    for name, (_, kern, plain, _) in VARIANT_PAIRS.items():
+        entry("iiwa14", name, kern, plain, mI, tuple(sI))
+    q, qd, u = sA
+    x = {}
+    c, x["v"] = staged.bias_and_v_staged(mA, q, qd)
+    x["umc"] = u - c
+    x["Minv"], x["qdd"] = staged.minv_qdd_dense_staged(mA, q, x["umc"])
+    x["a"], x["f"] = staged.af_staged(mA, q, qd, x["qdd"], x["v"])
+    x["U"], x["Dinv"] = staged.minv_ud_staged(mA, q)
+    x["v2"], x["a2"], x["f2"] = staged.vaf_staged(mA, q, qd, u)
+    x.update({f"{k}16": staged.to_stage(x[k])
+              for k in ("v", "a", "f", "Minv", "v2", "a2", "f2")})
+    for name, (_, kern, plain, inputs) in variant_pairs()[1].items():
+        entry("atlas", name, kern, plain, mA, tuple(inputs(sA, x)))
+    del x
+    times["fd_grad_dense"]["library_ms"] = chol_library_ms(
+        "fd_grad_dense iiwa14", mI, sI[0], None, name_limit)
+    times["minv_af"]["library_ms"] = chol_library_ms(
+        "minv_af / minv_dense atlas", mA, q, None, name_limit)
+    times["fd_dense"]["library_ms"] = chol_library_ms(
+        "fd_dense atlas", mA, q,
+        u - staged.bias_and_v_staged(mA, q, qd)[0], name_limit)
+    return launches, max_abs, times
 
 
 # (JSON name, LAUNCHES key, path, source, TPU kernel it replaces)
@@ -3797,6 +4322,23 @@ RECORD = [
      "step_collision_step_hyq", FF_SRC, TPU + "contact_fused.py:1458"),
     ("step_ground[loop_ground_step_four_bar]", "step_ground",
      "step_loop_ground_step_four_bar", FF_SRC, TPU + "contact_fused.py:1458"),
+    # phase V: the fixed-base M⁻¹ and FD variants
+    ("fd_grad_dense", "fd_grad_dense", "variants", FUSED_SRC,
+     TPU + "fused.py:394"),
+    ("fd", "fd", "variants", FUSED_SRC, TPU + "fused.py:326"),
+    ("fd_dense", "fd_dense", "variants", STAGED_SRC, TPU + "staged.py:294"),
+    ("minv_ud", "minv_ud", "variants", STAGED_SRC, TPU + "staged.py:186"),
+    ("minv_cols", "minv_cols", "variants", STAGED_SRC, TPU + "staged.py:186"),
+    ("minv_af", "minv_af", "variants", STAGED_SRC, TPU + "staged.py:257"),
+    ("af_bf16", "af_bf16", "variants", STAGED_SRC, TPU + "staged.py:373"),
+    ("grad_cols_finish_bf16", "grad_cols_finish_bf16", "variants",
+     STAGED_SRC, TPU + "staged.py:373"),
+    ("grad_cols_finish_side", "grad_cols_finish_side", "variants",
+     STAGED_SRC, TPU + "staged.py:373"),
+    ("grad_cols_bf16", "grad_cols_bf16", "variants", STAGED_SRC,
+     TPU + "staged.py:319"),
+    ("grad_cols_side", "grad_cols_side", "variants", STAGED_SRC,
+     TPU + "staged.py:319"),
 ]
 
 
@@ -3806,6 +4348,9 @@ def main():
                          "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
+    # the bounds' operation counts run on the CPU in a child process, beside
+    # every GPU phase up to phase 3
+    COUNTS.start()
 
     def done(phase):
         log(f"-- {phase} done at {time.perf_counter() - t0:.1f} s")
@@ -3899,6 +4444,10 @@ def main():
     times.update(phase3_rows(rows_models, rows_st))
     del rows_models, rows_st
     done("phase 3 collision and loops")
+    v_launches, v_max_abs, v_times = phaseV_variants()
+    max_abs.update(v_max_abs)
+    times.update(v_times)
+    done("phase V")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
     max_abs.update(md_stage_abs)
@@ -3913,11 +4462,12 @@ def main():
     path_launches = {"iiwa14": launches, "atlas": a_launches, **h_launches,
                      **md_launches,
                      **{f"ff_{k}": v for k, v in ff_launches.items()},
-                     **{f"step_{k}": v for k, v in st_launches.items()}}
+                     **{f"step_{k}": v for k, v in st_launches.items()},
+                     "variants": v_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": path_launches[path][key], "max_abs_err": max_abs[name],
-         **times[name], "library_ms": None}
+         **{"library_ms": None, **times[name]}}
         for name, key, path, src, tpu in RECORD]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
@@ -3926,9 +4476,14 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--md-profile"]:
+    if sys.argv[1:2] == ["--count-ops"]:
+        count_ops_child()
+    elif sys.argv[1:2] == ["--md-profile"]:
         md_profile_child(sys.argv[2])
     elif sys.argv[1:2] == ["--step-profile"]:
         step_profile_child()
     else:
-        main()
+        try:
+            main()
+        finally:
+            COUNTS.stop()

@@ -6,7 +6,9 @@ every spatial quantity carries a trailing batch axis (``v: (6, B)``,
 unrolled sum over the small (≤ 6 or n) index, in the same order, as the JAX
 code — so the two agree at float64 round-off. These functions are the plain
 versions the CUDA kernels (``kernels/csrc``) are held to, and the CPU branch
-of every wrapper in :mod:`.kernels.fused`.
+of every wrapper in :mod:`.kernels.fused`. The column-blocked M⁻¹
+(:func:`minv_UD_bl`, :func:`minv_cols_bl`: blops.py:515, :588) and
+``fd_grad_bl``'s ``minv_fn`` (:475) follow the JAX code the same way.
 
 Robot constants are broadcast with trailing unit axes instead of being
 expanded to the batch (the JAX code's ``batchify``, a Mosaic workaround);
@@ -378,17 +380,22 @@ def rnea_grad_inner_bl(model: RobotModel, X, qd, v, a, f, gravity=-9.81,
     return {side: one_side(side) for side in sides}
 
 
-def fd_grad_bl(model: RobotModel, q, qd, u, gravity=-9.81):
+def fd_grad_bl(model: RobotModel, q, qd, u, gravity=-9.81, minv_fn=None):
     """Batch-last ∇FD: q/qd/u (n, B) → (∂q̈/∂q, ∂q̈/∂q̇), each (n, n, B).
 
     One X evaluation, v reused across the two RNEA sweeps; the q and q̇
     sides run one after the other and each is contracted with −M⁻¹ at once.
+    ``minv_fn(model, X) -> (n, n, B)`` replaces the articulated M⁻¹
+    recursion (``kernels.fused._dense_minv_bl``: CRBA + Cholesky).
     """
     X = joint_transforms_bl(model, q)
     v, a0, f0 = rnea_fwd_bl(model, X, qd, None, gravity)
     c, _ = rnea_bwd_bl(model, X, f0, qd)
-    rows, _, _ = minv_bl(model, X)
-    Minv = densify_rows(rows)                       # (n,n,B)
+    if minv_fn is None:
+        rows, _, _ = minv_bl(model, X)
+        Minv = densify_rows(rows)                   # (n,n,B)
+    else:
+        Minv = minv_fn(model, X)
     qdd = matvecN(Minv, u - c)
     _, a, f = rnea_fwd_bl(model, X, qd, qdd, gravity, v_known=v)
     _, f = rnea_bwd_bl(model, X, f, None)
@@ -403,6 +410,74 @@ def fd_grad_bl(model: RobotModel, q, qd, u, gravity=-9.81):
 # --------------------------------------------------------------------------
 # column-blocked variants (the staged large-robot pipeline, kernels/staged.py)
 # --------------------------------------------------------------------------
+def minv_UD_bl(model: RobotModel, X):
+    """The backward articulated-inertia sweep of :func:`minv_bl` alone: U
+    (list of (6, B)) and D⁻¹ (list of (1, B)) — the column-independent half
+    of the M⁻¹ recursion, staged apart so that the F and row sweeps
+    (:func:`minv_cols_bl`) can run a column block at a time. A leaf's U and
+    D⁻¹ do not depend on q and keep a unit batch axis."""
+    n = model.n
+    parents = model.topology.parents
+    IA = [_mat(model.inertia[i]) for i in range(n)]
+    Sb = [_col(model.S[i]) for i in range(n)]
+    U = [None] * n
+    Dinv = [None] * n
+    for i in range(n - 1, -1, -1):
+        S = Sb[i]
+        Ui = sum(IA[i][:, c] * S[c:c + 1] for c in range(6))
+        Di = 1.0 / (sum(S[c:c + 1] * Ui[c:c + 1] for c in range(6))
+                    + model.armature[i:i + 1, None])
+        U[i], Dinv[i] = Ui, Di
+        p = parents[i]
+        if p >= 0:
+            UDU = Ui[:, None] * (Di[:, None] * Ui[None])
+            Ia = IA[i] - UDU
+            IA[p] = IA[p] + matmat6_T(X[i], matmat6(Ia, X[i]))
+    return U, Dinv
+
+
+def minv_cols_bl(model: RobotModel, X, U, Dinv, c0: int, cb: int):
+    """Columns [c0, c0 + cb) of the upper-triangular M⁻¹, rows stacked to
+    (n, cb, B), from :func:`minv_UD_bl`'s U and D⁻¹: the F and row
+    recursions of :func:`minv_bl` restricted to one column block, the
+    global column of each local one compared with the joint index as a
+    0/1 mask (``gcol``). Entries below the diagonal are left as the first
+    sweep made them; :func:`densify_rows` drops them."""
+    n = model.n
+    parents = model.topology.parents
+    B = X[0].shape[-1]
+    dtype, device = X[0].dtype, X[0].device
+    Sb = [_col(model.S[i]) for i in range(n)]
+    rows = [torch.zeros((cb, B), dtype=dtype, device=device)
+            for _ in range(n)]
+    F = [torch.zeros((6, cb, B), dtype=dtype, device=device)
+         for _ in range(n)]
+    gcol = torch.arange(c0, c0 + cb, device=device)[:, None]     # (cb, 1)
+    for i in range(n - 1, -1, -1):
+        S = Sb[i]
+        SF = sum(S[c:c + 1] * F[i][c] for c in range(6))          # (cb,B)
+        ei = (gcol == i).to(dtype)
+        row = ei * Dinv[i] - Dinv[i] * SF
+        rows[i] = row
+        p = parents[i]
+        if p >= 0:
+            Fi = F[i] + U[i][:, None] * row[None]
+            F[i] = Fi
+            F[p] = F[p] + matmat6_T(X[i], Fi)
+    for i in range(n):
+        p = parents[i]
+        geq = (gcol >= i).to(dtype)
+        if p >= 0:
+            UX = matvec6_T(X[i], U[i])
+            corr = sum(UX[c:c + 1] * F[p][c] for c in range(6))
+            rows[i] = rows[i] - geq * (Dinv[i] * corr)
+        new_cols = torch.stack([Sb[i][r:r + 1] * rows[i] for r in range(6)])
+        if p >= 0:
+            new_cols = new_cols + matmat6(X[i], F[p])
+        F[i] = geq[None] * new_cols + (1 - geq)[None] * F[i]
+    return torch.stack(rows)                                       # (n,cb,B)
+
+
 def crba_bl(model: RobotModel, X):
     """Batch-last Composite Rigid Body Algorithm: the joint-space mass
     matrix ``M + diag(armature)`` as an (n, n) list of lists of (1, B)

@@ -45,7 +45,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The single-thread ∇FD, ∂ID and M⁻¹ kernels keep O(n²) values a state in
 # local memory (∇FD's frame is ≈ 28·n² values) while the staged kernels
 # (staged.cu) hold 18·n·cb + O(n). Past this joint count those three
-# families take the staged route; RNEA and ABA, O(n) a state, run on one
+# families, and the composition FD, take the staged route (the ∇FD and ∂ID
+# kernels are not built there); RNEA and ABA, O(n) a state, run on one
 # thread for every robot. Set where the two routes' ∇FD times cross on an
 # H100 (chip_smoke.py's routes phase, f32, 2¹⁸ states): the single-thread
 # kernel is faster at 9, 10 and 11 joints, the staged pipeline at 12 and 16.
@@ -94,8 +95,12 @@ _UNITS = {
         "grid_fd_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, qdd, dq, dqd, B, gravity, stream
         "grid_id_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, u, ddq, ddqd, B, gravity, stream (minv_impl="dense")
+        "grid_fd_grad_dense": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, M, B, stream
         "grid_minv": (_P, _P, _P, _LL, _P),
+        # consts, q, qd, u, qdd, B, gravity, stream (q̈ = M⁻¹(u − c))
+        "grid_fd": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, qdd (or NULL), c, B, gravity, stream
         "grid_rnea": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, u, qdd, B, gravity, stream
@@ -104,16 +109,25 @@ _UNITS = {
     "staged.cu": {
         # consts, q, qd, c, v, B, gravity, stream
         "grid_bias_v": (_P, _P, _P, _P, _P, _LL, _D, _P),
-        # consts, q, qd, qdd, v, a, f, B, gravity, stream
-        "grid_af": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, qdd, v, a, f, B, s16 (v in bf16), gravity, stream
+        "grid_af": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _D, _P),
         # consts, q, qd, qdd, v, a, f, B, gravity, stream
         "grid_vaf": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, rhs (or NULL), M, qdd (or NULL), B, stream
         "grid_minv_dense": (_P, _P, _P, _P, _P, _LL, _P),
-        # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, gravity,
+        # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, sides (1
+        # ∂c/∂q, 2 ∂c/∂q̇, 3 both), s16 (v, a, f, Minv in bf16), gravity,
         # stream
-        "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _D,
-                           _P),
+        "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                           _I, _D, _P),
+        # consts, q, qd, u, qdd, B, gravity, stream (factor and solve)
+        "grid_fd_dense": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, qd, umc, v, M, a, f, B, gravity, stream (K2″)
+        "grid_minv_af": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        # consts, q, U, Dinv, B, stream (K2)
+        "grid_minv_ud": (_P, _P, _P, _P, _LL, _P),
+        # consts, q, U, Dinv, M, B, cb, stream (K3, every block one launch)
+        "grid_minv_cols": (_P, _P, _P, _P, _P, _LL, _I, _P),
     },
     "so.cu": {
         # consts, q, qd, u, lam (or NULL: the full tensor), out, B, gravity,
@@ -230,6 +244,12 @@ def _widest_block(ncols: int, values_per_col: int,
 def default_col_block(n: int) -> int:
     """K5's column-block width (dv, da, df: 18·n values a column)."""
     return _widest_block(n, 18 * n)
+
+
+def minv_col_block(n: int) -> int:
+    """K3's column-block width (minv_staged: F and the rows, 7·n values a
+    column)."""
+    return _widest_block(n, 7 * n)
 
 
 def so_col_block(n: int) -> int:
@@ -380,6 +400,7 @@ def _macros(key: tuple) -> list[str]:
         "-DGRID_PRISMATIC=" + "".join(f"G({p})" for p in prism),
         f"-DGRID_DENSE_GRADS={int(dense_grads(n))}",
         f"-DGRID_CB={default_col_block(n)}",
+        f"-DGRID_MINV_CB={minv_col_block(n)}",
         f"-DGRID_DENSE_HESSIAN={int(dense_hessian(n))}",
         f"-DGRID_SO_CB={so_col_block(n)}",
     ]

@@ -15,9 +15,15 @@ from . import _build
 LAUNCHES = {
     # csrc/fused.cu: the single-kernel families
     "inverse_dynamics": 0, "minv": 0, "id_grad": 0, "fd_grad": 0, "aba": 0,
-    # csrc/staged.cu: the staged pipeline
+    "fd_grad_dense": 0, "fd": 0,
+    # csrc/staged.cu: the staged pipeline (K5 one side a launch: "_side";
+    # reading bf16 stage tensors: "_bf16")
     "bias_and_v": 0, "minv_dense": 0, "af": 0, "vaf": 0, "grad_cols": 0,
-    "grad_cols_finish": 0,
+    "grad_cols_finish": 0, "af_bf16": 0, "grad_cols_side": 0,
+    "grad_cols_finish_side": 0, "grad_cols_bf16": 0,
+    "grad_cols_finish_bf16": 0, "grad_cols_side_bf16": 0,
+    "grad_cols_finish_side_bf16": 0, "fd_dense": 0, "minv_af": 0,
+    "minv_ud": 0, "minv_cols": 0,
     # csrc/so.cu: the single-thread Hessians and the staged tangent stages
     "hessian_vp": 0, "hessian": 0, "t1": 0, "t2": 0, "t4": 0, "t5": 0,
     # csrc/md.cu: the multi-dof (ball and free joint) families
@@ -103,13 +109,15 @@ def check_ff(model, states) -> int:
     return ref.shape[-1]
 
 
-def check_staged(model, name: str, t, shape) -> None:
-    """A staged input (v, a, f, M⁻¹, …) on the model's device and dtype, in
-    its contiguous (…, B) layout."""
-    if (t.device != model.device or t.dtype != model.dtype
+def check_staged(model, name: str, t, shape, dtype=None) -> None:
+    """A staged input (v, a, f, M⁻¹, …) on the model's device, in the
+    model's dtype or ``dtype`` (bf16 staging), in its contiguous (…, B)
+    layout."""
+    dtype = dtype or model.dtype
+    if (t.device != model.device or t.dtype != dtype
             or tuple(t.shape) != shape or not t.is_contiguous()):
         raise ValueError(f"{name} must be a contiguous {shape} tensor on "
-                         f"{model.device} in {model.dtype}, got "
+                         f"{model.device} in {dtype}, got "
                          f"{tuple(t.shape)} on {t.device} in {t.dtype}")
 
 

@@ -6,10 +6,16 @@
 //   minv_fused, one tile   (fused.py:290)  -> grid_minv_{f32,f64}
 //   inverse_dynamics_fused (fused.py:270)  -> grid_rnea_{f32,f64}
 //   forward_dynamics_aba_fused (fused.py:357) -> grid_aba_{f32,f64}
-// The first three hold O(n²) values a state and are built only for robots
-// of at most MAX_KERNEL_JOINTS joints (GRID_DENSE_GRADS=1, _build.py);
-// larger robots take the staged kernels of staged.cu. RNEA and ABA are
-// O(n) a state and are built for every robot.
+//   fd_grad_fused, minv_impl="dense" (fused.py:394, :387)
+//                                        -> grid_fd_grad_dense_{f32,f64}
+//   forward_dynamics_fused, one tile (fused.py:326) -> grid_fd_{f32,f64}
+// The two ∇FD kernels and ∂ID hold O(n²) values a state and are built only
+// for robots of at most MAX_KERNEL_JOINTS joints (GRID_DENSE_GRADS=1,
+// _build.py); larger robots take the staged kernels of staged.cu. M⁻¹ and
+// the composition FD (≈ 7n² values) are built for every robot, though the
+// routing sends robots past that limit to the staged K2′ and factor-solve
+// kernels (the one-thread versions stay timeable there, as the JAX
+// benchmarks time the lane-tile ones); RNEA and ABA are O(n) a state.
 // Each Pallas kernel ran its blops body on a VMEM tile of (8·k, 128) states;
 // here the same body (rbd.cuh) runs per thread, one state per thread, on
 // the (n, B) batch-last layout at the boundary: a warp's loads of q[i·B + b]
@@ -40,6 +46,7 @@
 
 #include "aba.cuh"
 #include "rbd.cuh"
+#include "staged.cuh"  // crba, chol_minv: the dense M⁻¹ of minv_impl="dense"
 
 #ifndef GRID_DENSE_GRADS
 #error "compile with -DGRID_DENSE_GRADS=0|1"
@@ -69,7 +76,7 @@ __device__ __forceinline__ long long state_index() {
 }
 
 #if GRID_DENSE_GRADS
-template <typename T>
+template <typename T, bool kDense>
 __global__ void __launch_bounds__(kThreads)
 fd_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
                const T* __restrict__ qd, const T* __restrict__ u,
@@ -78,7 +85,7 @@ fd_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   const grid::Robot<T> R(stage_constants(consts));
   const long long b = state_index();
   if (b >= B) return;
-  grid::fd_grad_state(R, q, qd, u, ddq, ddqd, B, b, minus_g);
+  grid::fd_grad_state<T, kDense>(R, q, qd, u, ddq, ddqd, B, b, minus_g);
 }
 
 template <typename T>
@@ -93,6 +100,8 @@ id_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   grid::id_grad_state(R, q, qd, qdd, dq, dqd, B, b, minus_g);
 }
 
+#endif  // GRID_DENSE_GRADS
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 minv_kernel(const T* __restrict__ consts, const T* __restrict__ q,
@@ -102,7 +111,17 @@ minv_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   if (b >= B) return;
   grid::minv_state(R, q, M, B, b);
 }
-#endif  // GRID_DENSE_GRADS
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fd_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+          const T* __restrict__ qd, const T* __restrict__ u,
+          T* __restrict__ qdd, long long B, T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::fd_state(R, q, qd, u, qdd, B, b, minus_g);
+}
 
 template <typename T, bool kQdd>
 __global__ void __launch_bounds__(kThreads)
@@ -136,12 +155,12 @@ size_t smem_bytes() {
 }
 
 #if GRID_DENSE_GRADS
-template <typename T>
+template <typename T, bool kDense>
 int fd_grad(const void* consts, const void* q, const void* qd, const void* u,
             void* ddq, void* ddqd, long long B, double gravity,
             void* stream) {
-  fd_grad_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
-                      static_cast<cudaStream_t>(stream)>>>(
+  fd_grad_kernel<T, kDense><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(consts), static_cast<const T*>(q),
       static_cast<const T*>(qd), static_cast<const T*>(u),
       static_cast<T*>(ddq), static_cast<T*>(ddqd), B,
@@ -162,6 +181,8 @@ int id_grad(const void* consts, const void* q, const void* qd,
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif  // GRID_DENSE_GRADS
+
 template <typename T>
 int minv(const void* consts, const void* q, void* M, long long B,
          void* stream) {
@@ -171,7 +192,18 @@ int minv(const void* consts, const void* q, void* M, long long B,
       static_cast<T*>(M), B);
   return static_cast<int>(cudaGetLastError());
 }
-#endif  // GRID_DENSE_GRADS
+
+template <typename T>
+int launch_fd(const void* consts, const void* q, const void* qd,
+              const void* u, void* qdd, long long B, double gravity,
+              void* stream) {
+  fd_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(u),
+      static_cast<T*>(qdd), B, static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // qdd == nullptr is the bias-force variant (no S·q̈, no armature term)
 template <typename T>
@@ -221,12 +253,26 @@ const char* grid_error_string(int code) {
 int grid_fd_grad_f32(const void* consts, const void* q, const void* qd,
                      const void* u, void* ddq, void* ddqd, long long B,
                      double gravity, void* stream) {
-  return fd_grad<float>(consts, q, qd, u, ddq, ddqd, B, gravity, stream);
+  return fd_grad<float, false>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                               stream);
 }
 int grid_fd_grad_f64(const void* consts, const void* q, const void* qd,
                      const void* u, void* ddq, void* ddqd, long long B,
                      double gravity, void* stream) {
-  return fd_grad<double>(consts, q, qd, u, ddq, ddqd, B, gravity, stream);
+  return fd_grad<double, false>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                                stream);
+}
+int grid_fd_grad_dense_f32(const void* consts, const void* q, const void* qd,
+                           const void* u, void* ddq, void* ddqd, long long B,
+                           double gravity, void* stream) {
+  return fd_grad<float, true>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                              stream);
+}
+int grid_fd_grad_dense_f64(const void* consts, const void* q, const void* qd,
+                           const void* u, void* ddq, void* ddqd, long long B,
+                           double gravity, void* stream) {
+  return fd_grad<double, true>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                               stream);
 }
 
 int grid_id_grad_f32(const void* consts, const void* q, const void* qd,
@@ -240,6 +286,8 @@ int grid_id_grad_f64(const void* consts, const void* q, const void* qd,
   return id_grad<double>(consts, q, qd, qdd, dq, dqd, B, gravity, stream);
 }
 
+#endif  // GRID_DENSE_GRADS
+
 int grid_minv_f32(const void* consts, const void* q, void* M, long long B,
                   void* stream) {
   return minv<float>(consts, q, M, B, stream);
@@ -248,7 +296,17 @@ int grid_minv_f64(const void* consts, const void* q, void* M, long long B,
                   void* stream) {
   return minv<double>(consts, q, M, B, stream);
 }
-#endif  // GRID_DENSE_GRADS
+
+int grid_fd_f32(const void* consts, const void* q, const void* qd,
+                const void* u, void* qdd, long long B, double gravity,
+                void* stream) {
+  return launch_fd<float>(consts, q, qd, u, qdd, B, gravity, stream);
+}
+int grid_fd_f64(const void* consts, const void* q, const void* qd,
+                const void* u, void* qdd, long long B, double gravity,
+                void* stream) {
+  return launch_fd<double>(consts, q, qd, u, qdd, B, gravity, stream);
+}
 
 int grid_rnea_f32(const void* consts, const void* q, const void* qd,
                   const void* qdd, void* c, long long B, double gravity,

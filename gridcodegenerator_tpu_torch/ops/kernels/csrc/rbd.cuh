@@ -526,6 +526,12 @@ GRID_ROLLED
   }
 }
 
+// CRBA + Cholesky dense M⁻¹ (staged.cuh): the alternative M⁻¹ stage of
+// fd_grad_state<T, true>
+template <typename T>
+__device__ __forceinline__ void dense_minv(const Robot<base_t<T>>& R,
+                                           const T X[N][36], T M[N][N]);
+
 // ------------------------------------------------------ per-state bodies
 // Each reads its state column b of (n, B) inputs and writes column b of
 // (n[, n], B) outputs: element (r, c) of state b lives at (r·n + c)·B + b.
@@ -639,9 +645,43 @@ __device__ __forceinline__ void id_grad_state(const Robot<T>& R, const T* q,
   store_mat(dc, B, b, dqd_out);
 }
 
-// (∂q̈/∂q, ∂q̈/∂q̇) — fd_grad_fused: X → bias RNEA → M⁻¹ → q̈ → second
-// RNEA sweep (v reused) → ∂ID one side at a time → −M⁻¹·∂c
+// q̈ = M⁻¹(u − c) — forward_dynamics_fused, the composition form: bias
+// RNEA, the articulated M⁻¹, one matvec
 template <typename T>
+__device__ __forceinline__ void fd_state(const Robot<T>& R, const T* q,
+                                         const T* qd, const T* u,
+                                         T* qdd_out, long long B,
+                                         long long b, T minus_g) {
+  T qs[N], qds[N], us[N], c[N];
+  load_col(q, B, b, qs);
+  load_col(qd, B, b, qds);
+  load_col(u, B, b, us);
+  T X[N][36];
+  joint_transforms(R, qs, X);
+  {
+    T v[N][6], a[N][6], f[N][6];
+    rnea_fwd<T, false, false>(R, X, qds, nullptr, minus_g, v, a, f);
+    rnea_bwd<T, true, false>(R, X, f, qds, nullptr, c);
+  }
+  T M[N][N];
+  minv(R, X, M);
+  T x[N];
+GRID_ROLLED
+  for (int k = 0; k < N; ++k) x[k] = us[k] - c[k];
+GRID_ROLLED
+  for (int r = 0; r < N; ++r) {
+    T acc = M[r][0] * x[0];
+GRID_ROLLED
+    for (int k = 1; k < N; ++k) acc += M[r][k] * x[k];
+    qdd_out[r * B + b] = acc;
+  }
+}
+
+// (∂q̈/∂q, ∂q̈/∂q̇) — fd_grad_fused: X → bias RNEA → M⁻¹ → q̈ → second
+// RNEA sweep (v reused) → ∂ID one side at a time → −M⁻¹·∂c. kDense takes
+// M⁻¹ from CRBA + Cholesky (minv_impl="dense") instead of the articulated
+// recursion.
+template <typename T, bool kDense = false>
 __device__ __forceinline__ void fd_grad_state(const Robot<T>& R, const T* q,
                                               const T* qd, const T* u,
                                               T* ddq_out, T* ddqd_out,
@@ -657,7 +697,11 @@ __device__ __forceinline__ void fd_grad_state(const Robot<T>& R, const T* q,
   rnea_fwd<T, false, false>(R, X, qds, nullptr, minus_g, v, a, f);
   rnea_bwd<T, true, false>(R, X, f, qds, nullptr, c);
   T M[N][N];
-  minv(R, X, M);
+  if constexpr (kDense) {
+    dense_minv(R, X, M);
+  } else {
+    minv(R, X, M);
+  }
   T x[N], qdd[N];
 GRID_ROLLED
   for (int k = 0; k < N; ++k) x[k] = us[k] - c[k];

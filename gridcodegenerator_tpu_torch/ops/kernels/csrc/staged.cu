@@ -8,6 +8,13 @@
 //   fd_grad_staged body_grad, K5 with the fused −M⁻¹·∂c finish
 //                                  (staged.py:470) -> grid_grad_cols_{..}
 //   id_grad_staged body_grad, K5   (staged.py:356)    with Minv == NULL
+//   K4 and K5 reading bf16 stage tensors (stage_dtype, staged.py:319, :373)
+//                                  -> grid_af_* / grid_grad_cols_* with s16
+//   K5 one side a launch (merge_sides=False)  -> grid_grad_cols_*, sides
+//   minv_staged body_ud, K2        (staged.py:201) -> grid_minv_ud_{f32,f64}
+//   minv_staged body_cols, K3      (staged.py:207) -> grid_minv_cols_{..}
+//   minv_qdd_af_dense_staged, K2″  (staged.py:257) -> grid_minv_af_{..}
+//   fd_dense_staged                (staged.py:294) -> grid_fd_dense_{..}
 // On the TPU a working set that outgrew VMEM was cut into several Pallas
 // kernels with HBM-staged v, a, f, M⁻¹ between them, and the ∂ID into
 // column blocks, one pallas_call each. Here the same cut bounds the
@@ -15,7 +22,13 @@
 // values a state, the K5 body 18·n·CB + O(n).
 // All column blocks of K5 are one launch on a 2-D grid (⌈B/128⌉, ⌈n/cb⌉):
 // blockIdx.y is the column block, c0 = blockIdx.y·cb is a runtime value and
-// cb ≤ GRID_CB (the compile-time width of the ∂-tensor arrays).
+// cb ≤ GRID_CB (the compile-time width of the ∂-tensor arrays). K3 does the
+// same with its column blocks (cb ≤ GRID_MINV_CB): one launch where the
+// TPU made ⌈n/cb⌉.
+// The bf16 stage tensors are cast between launches (torch, round to
+// nearest even from the compute type); K4 and K5 take a flag, s16, and
+// read them as bf16, upcast in registers (staged.cuh, load_stage): one
+// instance a kernel for both storage types.
 //
 // What bounds them on an H100 is, as for fused.cu, the per-state working
 // set in local memory (L1/L2 traffic), not DRAM: K5 reads ≈ 21n values a
@@ -52,12 +65,14 @@ template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 vaf_kernel(const T* __restrict__ consts, const T* __restrict__ q,
            const T* __restrict__ qd, const T* __restrict__ qdd,
-           const T* __restrict__ v_in, T* __restrict__ c, T* __restrict__ v,
-           T* __restrict__ a, T* __restrict__ f, long long B, T minus_g) {
+           const void* __restrict__ v_in, bool s16, T* __restrict__ c,
+           T* __restrict__ v, T* __restrict__ a, T* __restrict__ f,
+           long long B, T minus_g) {
   const grid::Robot<T> R(stage_constants(consts));
   const long long b = state_index();
   if (b >= B) return;
-  grid::vaf_state<T, kMode>(R, q, qd, qdd, v_in, c, v, a, f, B, b, minus_g);
+  grid::vaf_state<T, kMode>(R, q, qd, qdd, v_in, s16, c, v, a, f, B, b,
+                            minus_g);
 }
 
 template <typename T, bool kRhs>
@@ -74,17 +89,65 @@ minv_dense_kernel(const T* __restrict__ consts, const T* __restrict__ q,
 template <typename T, bool kFinish>
 __global__ void __launch_bounds__(kThreads)
 grad_cols_kernel(const T* __restrict__ consts, const T* __restrict__ q,
-                 const T* __restrict__ qd, const T* __restrict__ v,
-                 const T* __restrict__ a, const T* __restrict__ f,
-                 const T* __restrict__ Minv, T* __restrict__ dq,
-                 T* __restrict__ dqd, long long B, int cb, T minus_g) {
+                 const T* __restrict__ qd, const void* __restrict__ v,
+                 const void* __restrict__ a, const void* __restrict__ f,
+                 const void* __restrict__ Minv, bool s16,
+                 T* __restrict__ dq, T* __restrict__ dqd, long long B,
+                 int cb, int sides, T minus_g) {
   const grid::Robot<T> R(stage_constants(consts));
   const long long b = state_index();
   if (b >= B) return;
   const int c0 = static_cast<int>(blockIdx.y) * cb;
   const int w = grid::N - c0 < cb ? grid::N - c0 : cb;
-  grid::grad_cols_state<T, kFinish>(R, q, qd, v, a, f, Minv, dq, dqd, B, b,
-                                    c0, w, minus_g);
+  grid::grad_cols_state<T, kFinish>(R, q, qd, v, a, f, Minv, s16, dq, dqd, B,
+                                    b, c0, w, sides, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fd_dense_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                const T* __restrict__ qd, const T* __restrict__ u,
+                T* __restrict__ qdd, long long B, T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::fd_dense_state(R, q, qd, u, qdd, B, b, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+minv_af_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+               const T* __restrict__ qd, const T* __restrict__ umc,
+               const T* __restrict__ v, T* __restrict__ M,
+               T* __restrict__ a, T* __restrict__ f, long long B,
+               T minus_g) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::minv_af_state(R, q, qd, umc, v, M, a, f, B, b, minus_g);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+minv_ud_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+               T* __restrict__ U, T* __restrict__ Dinv, long long B) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  grid::minv_ud_state(R, q, U, Dinv, B, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+minv_cols_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                 const T* __restrict__ U, const T* __restrict__ Dinv,
+                 T* __restrict__ M, long long B, int cb) {
+  const grid::Robot<T> R(stage_constants(consts));
+  const long long b = state_index();
+  if (b >= B) return;
+  const int c0 = static_cast<int>(blockIdx.y) * cb;
+  const int w = grid::N - c0 < cb ? grid::N - c0 : cb;
+  grid::minv_cols_state(R, q, U, Dinv, M, B, b, c0, w);
 }
 
 unsigned blocks_for(long long B) {
@@ -96,29 +159,29 @@ size_t smem_bytes() {
   return grid::kConstCount * sizeof(T);
 }
 
+// s16: v_in is bf16 (K4 under stage_dtype)
 template <typename T>
 int launch_vaf(int mode, const void* consts, const void* q, const void* qd,
-               const void* qdd, const void* v_in, void* c, void* v, void* a,
-               void* f, long long B, double gravity, void* stream) {
+               const void* qdd, const void* v_in, bool s16, void* c, void* v,
+               void* a, void* f, long long B, double gravity, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const T*>(consts);
   auto tq = static_cast<const T*>(q);
   auto tqd = static_cast<const T*>(qd);
   auto tqdd = static_cast<const T*>(qdd);
-  auto tv_in = static_cast<const T*>(v_in);
   const T mg = static_cast<T>(-gravity);
   const dim3 grid_dim(blocks_for(B));
   if (mode == grid::kBiasV) {
     vaf_kernel<T, grid::kBiasV><<<grid_dim, kThreads, smem_bytes<T>(), s>>>(
-        k, tq, tqd, nullptr, nullptr, static_cast<T*>(c), static_cast<T*>(v),
-        nullptr, nullptr, B, mg);
+        k, tq, tqd, nullptr, nullptr, false, static_cast<T*>(c),
+        static_cast<T*>(v), nullptr, nullptr, B, mg);
   } else if (mode == grid::kAF) {
     vaf_kernel<T, grid::kAF><<<grid_dim, kThreads, smem_bytes<T>(), s>>>(
-        k, tq, tqd, tqdd, tv_in, nullptr, nullptr, static_cast<T*>(a),
+        k, tq, tqd, tqdd, v_in, s16, nullptr, nullptr, static_cast<T*>(a),
         static_cast<T*>(f), B, mg);
   } else if (mode == grid::kVAF) {
     vaf_kernel<T, grid::kVAF><<<grid_dim, kThreads, smem_bytes<T>(), s>>>(
-        k, tq, tqd, tqdd, nullptr, nullptr, static_cast<T*>(v),
+        k, tq, tqd, tqdd, nullptr, false, nullptr, static_cast<T*>(v),
         static_cast<T*>(a), static_cast<T*>(f), B, mg);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -146,32 +209,82 @@ int launch_minv_dense(const void* consts, const void* q, const void* rhs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Minv == nullptr: the ∂ID blocks (∂c); else the fused finish (−M⁻¹·∂c)
+// Minv == nullptr: the ∂ID blocks (∂c); else the fused finish (−M⁻¹·∂c).
+// sides: 1 ∂c/∂q only, 2 ∂c/∂q̇ only, 3 both; s16: v, a, f, Minv in bf16.
 template <typename T>
 int launch_grad_cols(const void* consts, const void* q, const void* qd,
                      const void* v, const void* a, const void* f,
                      const void* Minv, void* dq, void* dqd, long long B,
-                     int cb, double gravity, void* stream) {
-  if (cb < 1 || cb > grid::CB) return static_cast<int>(cudaErrorInvalidValue);
+                     int cb, int sides, int s16, double gravity,
+                     void* stream) {
+  if (cb < 1 || cb > grid::CB || sides < 1 || sides > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid_dim(blocks_for(B), (grid::N + cb - 1) / cb);
   auto k = static_cast<const T*>(consts);
   auto tq = static_cast<const T*>(q);
   auto tqd = static_cast<const T*>(qd);
-  auto tv = static_cast<const T*>(v);
-  auto ta = static_cast<const T*>(a);
-  auto tf = static_cast<const T*>(f);
-  auto tM = static_cast<const T*>(Minv);
   auto tdq = static_cast<T*>(dq);
   auto tdqd = static_cast<T*>(dqd);
   const T mg = static_cast<T>(-gravity);
   if (Minv != nullptr) {
     grad_cols_kernel<T, true><<<grid_dim, kThreads, smem_bytes<T>(), s>>>(
-        k, tq, tqd, tv, ta, tf, tM, tdq, tdqd, B, cb, mg);
+        k, tq, tqd, v, a, f, Minv, s16 != 0, tdq, tdqd, B, cb, sides, mg);
   } else {
     grad_cols_kernel<T, false><<<grid_dim, kThreads, smem_bytes<T>(), s>>>(
-        k, tq, tqd, tv, ta, tf, nullptr, tdq, tdqd, B, cb, mg);
+        k, tq, tqd, v, a, f, nullptr, s16 != 0, tdq, tdqd, B, cb, sides,
+        mg);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fd_dense(const void* consts, const void* q, const void* qd,
+                    const void* u, void* qdd, long long B, double gravity,
+                    void* stream) {
+  fd_dense_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(u),
+      static_cast<T*>(qdd), B, static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_minv_af(const void* consts, const void* q, const void* qd,
+                   const void* umc, const void* v, void* M, void* a, void* f,
+                   long long B, double gravity, void* stream) {
+  minv_af_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(qd), static_cast<const T*>(umc),
+      static_cast<const T*>(v), static_cast<T*>(M), static_cast<T*>(a),
+      static_cast<T*>(f), B, static_cast<T>(-gravity));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_minv_ud(const void* consts, const void* q, void* U, void* Dinv,
+                   long long B, void* stream) {
+  minv_ud_kernel<T><<<blocks_for(B), kThreads, smem_bytes<T>(),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<T*>(U), static_cast<T*>(Dinv), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_minv_cols(const void* consts, const void* q, const void* U,
+                     const void* Dinv, void* M, long long B, int cb,
+                     void* stream) {
+  if (cb < 1 || cb > grid::MINV_CB)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid_dim(blocks_for(B), (grid::N + cb - 1) / cb);
+  minv_cols_kernel<T><<<grid_dim, kThreads, smem_bytes<T>(),
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(consts), static_cast<const T*>(q),
+      static_cast<const T*>(U), static_cast<const T*>(Dinv),
+      static_cast<T*>(M), B, cb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,20 +305,20 @@ const char* grid_error_string(int code) {
   int grid_bias_v_##tag(const void* consts, const void* q, const void* qd,   \
                         void* c, void* v, long long B, double gravity,       \
                         void* stream) {                                      \
-    return launch_vaf<T>(grid::kBiasV, consts, q, qd, nullptr, nullptr, c,   \
-                         v, nullptr, nullptr, B, gravity, stream);           \
+    return launch_vaf<T>(grid::kBiasV, consts, q, qd, nullptr, nullptr,      \
+                         false, c, v, nullptr, nullptr, B, gravity, stream); \
   }                                                                          \
   int grid_af_##tag(const void* consts, const void* q, const void* qd,       \
                     const void* qdd, const void* v, void* a, void* f,        \
-                    long long B, double gravity, void* stream) {             \
-    return launch_vaf<T>(grid::kAF, consts, q, qd, qdd, v, nullptr, nullptr, \
-                         a, f, B, gravity, stream);                          \
+                    long long B, int s16, double gravity, void* stream) {    \
+    return launch_vaf<T>(grid::kAF, consts, q, qd, qdd, v, s16 != 0,         \
+                         nullptr, nullptr, a, f, B, gravity, stream);        \
   }                                                                          \
   int grid_vaf_##tag(const void* consts, const void* q, const void* qd,      \
                      const void* qdd, void* v, void* a, void* f,             \
                      long long B, double gravity, void* stream) {            \
-    return launch_vaf<T>(grid::kVAF, consts, q, qd, qdd, nullptr, nullptr,   \
-                         v, a, f, B, gravity, stream);                       \
+    return launch_vaf<T>(grid::kVAF, consts, q, qd, qdd, nullptr, false,     \
+                         nullptr, v, a, f, B, gravity, stream);              \
   }                                                                          \
   int grid_minv_dense_##tag(const void* consts, const void* q,               \
                             const void* rhs, void* M, void* qdd,             \
@@ -215,10 +328,31 @@ const char* grid_error_string(int code) {
   int grid_grad_cols_##tag(const void* consts, const void* q,                \
                            const void* qd, const void* v, const void* a,     \
                            const void* f, const void* Minv, void* dq,        \
-                           void* dqd, long long B, int cb, double gravity,   \
-                           void* stream) {                                   \
+                           void* dqd, long long B, int cb, int sides,        \
+                           int s16, double gravity, void* stream) {          \
     return launch_grad_cols<T>(consts, q, qd, v, a, f, Minv, dq, dqd, B, cb, \
-                               gravity, stream);                             \
+                               sides, s16, gravity, stream);                 \
+  }                                                                          \
+  int grid_fd_dense_##tag(const void* consts, const void* q, const void* qd, \
+                          const void* u, void* qdd, long long B,             \
+                          double gravity, void* stream) {                    \
+    return launch_fd_dense<T>(consts, q, qd, u, qdd, B, gravity, stream);    \
+  }                                                                          \
+  int grid_minv_af_##tag(const void* consts, const void* q, const void* qd,  \
+                         const void* umc, const void* v, void* M, void* a,   \
+                         void* f, long long B, double gravity,               \
+                         void* stream) {                                     \
+    return launch_minv_af<T>(consts, q, qd, umc, v, M, a, f, B, gravity,     \
+                             stream);                                        \
+  }                                                                          \
+  int grid_minv_ud_##tag(const void* consts, const void* q, void* U,         \
+                         void* Dinv, long long B, void* stream) {            \
+    return launch_minv_ud<T>(consts, q, U, Dinv, B, stream);                 \
+  }                                                                          \
+  int grid_minv_cols_##tag(const void* consts, const void* q, const void* U, \
+                           const void* Dinv, void* M, long long B, int cb,   \
+                           void* stream) {                                   \
+    return launch_minv_cols<T>(consts, q, U, Dinv, M, B, cb, stream);        \
   }
 
 GRID_STAGED_ENTRIES(float, f32)

@@ -25,16 +25,45 @@
 // that grow with the block width GRID_CB.
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "rbd.cuh"
 #include "chol.cuh"
 
 #ifndef GRID_CB
 #error "compile with -DGRID_CB=<the K5 column-block width>"
 #endif
+#ifndef GRID_MINV_CB
+#error "compile with -DGRID_MINV_CB=<the K3 column-block width>"
+#endif
 
 namespace grid {
 
 constexpr int CB = GRID_CB;
+constexpr int MINV_CB = GRID_MINV_CB;
+
+// A staged input read in the compute type T: of T, or of bf16 where s16
+// (stage_dtype=torch.bfloat16), upcast exactly in registers. One kernel
+// serves both storage types: the flag is uniform across a launch.
+template <typename T>
+__device__ __forceinline__ T load_stage(const void* x, bool s16,
+                                        long long k) {
+  return s16 ? static_cast<T>(
+                   __bfloat162float(static_cast<const __nv_bfloat16*>(x)[k]))
+             : static_cast<const T*>(x)[k];
+}
+
+// a staged (6, n, B) tensor (load_vec6's layout) into T
+template <typename T>
+__device__ __forceinline__ void load_stage6(const void* x, bool s16,
+                                            long long B, long long b,
+                                            T out[N][6]) {
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+      out[i][r] = load_stage<T>(x, s16, (r * N + i) * B + b);
+}
 
 // ------------------------------------------------------------ K1, K4, vaf
 enum VafMode { kBiasV = 0, kAF = 1, kVAF = 2 };
@@ -45,7 +74,8 @@ enum VafMode { kBiasV = 0, kAF = 1, kVAF = 2 };
 template <typename T, int kMode>
 __device__ __forceinline__ void vaf_state(const Robot<T>& R, const T* q,
                                           const T* qd, const T* qdd,
-                                          const T* v_in, T* c_out, T* v_out,
+                                          const void* v_in, bool s16,
+                                          T* c_out, T* v_out,
                                           T* a_out, T* f_out, long long B,
                                           long long b, T minus_g) {
   T qs[N], qds[N], qdds[N];
@@ -55,7 +85,7 @@ __device__ __forceinline__ void vaf_state(const Robot<T>& R, const T* q,
   T X[N][36];
   joint_transforms(R, qs, X);
   T v[N][6], a[N][6], f[N][6];
-  if (kMode == kAF) load_vec6(v_in, B, b, v);
+  if (kMode == kAF) load_stage6(v_in, s16, B, b, v);
   rnea_fwd<T, kMode != kBiasV, kMode == kAF>(R, X, qds, qdds, minus_g, v, a,
                                              f);
   if (kMode == kBiasV) {
@@ -170,6 +200,227 @@ GRID_ROLLED
       qdd_out[i * B + b] = acc;
     }
   }
+}
+
+// CRBA + Cholesky M⁻¹ into the full matrix M — fused.py's _dense_minv_bl,
+// the M⁻¹ stage of fd_grad_state<T, true> (declared in rbd.cuh)
+template <typename T>
+__device__ __forceinline__ void dense_minv(const Robot<base_t<T>>& R,
+                                           const T X[N][36], T M[N][N]) {
+  crba(R, X, M);
+  chol_minv<T, N>(M);
+}
+
+// q̈ by factor and solve — fd_dense_staged: bias RNEA, CRBA, the column
+// Cholesky, one forward and back substitution; M⁻¹ is never formed
+template <typename T>
+__device__ __forceinline__ void fd_dense_state(const Robot<T>& R, const T* q,
+                                               const T* qd, const T* u,
+                                               T* qdd_out, long long B,
+                                               long long b, T minus_g) {
+  T qs[N], qds[N], us[N], c[N];
+  load_col(q, B, b, qs);
+  load_col(qd, B, b, qds);
+  load_col(u, B, b, us);
+  T X[N][36];
+  joint_transforms(R, qs, X);
+  {
+    T v[N][6], a[N][6], f[N][6];
+    rnea_fwd<T, false, false>(R, X, qds, nullptr, minus_g, v, a, f);
+    rnea_bwd<T, true, false>(R, X, f, qds, nullptr, c);
+  }
+  T A[N][N];
+  crba(R, X, A);
+  chol_factor<T, N>(A);
+  T x[N][1];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) x[i][0] = us[i] - c[i];
+  chol_solve<T, N, 1>(A, x);
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) qdd_out[i * B + b] = x[i][0];
+}
+
+// K2″ — minv_qdd_af_dense_staged: K2′ with q̈ = M⁻¹·(u − c) kept in
+// registers, then K4's sweep (a, f at that q̈, the staged v reused)
+template <typename T>
+__device__ __forceinline__ void minv_af_state(const Robot<T>& R, const T* q,
+                                              const T* qd, const T* umc,
+                                              const T* v_in, T* M_out,
+                                              T* a_out, T* f_out,
+                                              long long B, long long b,
+                                              T minus_g) {
+  T qs[N], qds[N], r[N], qdd[N];
+  load_col(q, B, b, qs);
+  load_col(qd, B, b, qds);
+  load_col(umc, B, b, r);
+  T X[N][36];
+  joint_transforms(R, qs, X);
+  {
+    T A[N][N];
+    dense_minv(R, X, A);
+    store_mat(A, B, b, M_out);
+GRID_ROLLED
+    for (int i = 0; i < N; ++i) {
+      T acc = A[i][0] * r[0];
+GRID_ROLLED
+      for (int j = 1; j < N; ++j) acc += A[i][j] * r[j];
+      qdd[i] = acc;
+    }
+  }
+  T v[N][6], a[N][6], f[N][6];
+  load_vec6(v_in, B, b, v);
+  rnea_fwd<T, true, true>(R, X, qds, qdd, minus_g, v, a, f);
+  rnea_bwd<T, false, false>(R, X, f, qds, nullptr, nullptr);
+  store_vec6(a, B, b, a_out);
+  store_vec6(f, B, b, f_out);
+}
+
+// ------------------------------------------------------------------ K2, K3
+// K2 — minv_staged's body_ud (blops.minv_UD_bl): the backward IA sweep of
+// minv() alone; U (6, n, B), D⁻¹ (n, B)
+template <typename T>
+__device__ __forceinline__ void minv_ud_state(const Robot<T>& R, const T* q,
+                                              T* U_out, T* Dinv_out,
+                                              long long B, long long b) {
+  T qs[N];
+  load_col(q, B, b, qs);
+  T X[N][36];
+  joint_transforms(R, qs, X);
+  T IA[N][36], U[N][6];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 36; ++e) IA[i][e] = R.I[36 * i + e];
+GRID_ROLLED
+  for (int i = N - 1; i >= 0; --i) {
+    const int p = parent(i);
+    const auto* S = R.S + 6 * i;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      T acc = IA[i][r * 6] * S[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) acc += IA[i][r * 6 + c] * S[c];
+      U[i][r] = acc;
+    }
+    T d = S[0] * U[i][0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) d += S[c] * U[i][c];
+    const T Di = T(1) / (d + R.armature[i]);
+    Dinv_out[i * B + b] = Di;
+    if (p < 0) continue;
+    // IA_p += Xᵀ·(IA_i − U·D⁻¹·Uᵀ)·X
+    T Ia[36], IaX[36];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        Ia[r * 6 + c] = IA[i][r * 6 + c] - U[i][r] * (Di * U[i][c]);
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        T acc = Ia[r * 6] * X[i][c];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) acc += Ia[r * 6 + k] * X[i][k * 6 + c];
+        IaX[r * 6 + c] = acc;
+      }
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        T acc = X[i][r] * IaX[c];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) acc += X[i][k * 6 + r] * IaX[k * 6 + c];
+        IA[p][r * 6 + c] += acc;
+      }
+  }
+  store_vec6(U, B, b, U_out);
+}
+
+// K3 — minv_staged's body_cols (blops.minv_cols_bl): columns [c0, c0 + w)
+// of the upper-triangular M⁻¹ rows from K2's U and D⁻¹, w ≤ MINV_CB; F
+// holds 6·n·MINV_CB values and the rows n·MINV_CB. Writes M[i][c0 + k]
+// of the (n, n, B) output for every row i (entries below the diagonal as
+// the first sweep leaves them: densify_rows drops them).
+template <typename T>
+__device__ __forceinline__ void minv_cols_state(const Robot<T>& R,
+                                                const T* q, const T* U_in,
+                                                const T* Dinv_in, T* M_out,
+                                                long long B, long long b,
+                                                int c0, int w) {
+  T qs[N], Dinv[N];
+  load_col(q, B, b, qs);
+  load_col(Dinv_in, B, b, Dinv);
+  T X[N][36];
+  joint_transforms(R, qs, X);
+  T U[N][6];
+  load_vec6(U_in, B, b, U);
+  T F[N][6][MINV_CB], rows[N][MINV_CB];
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+GRID_ROLLED
+      for (int k = 0; k < w; ++k) F[i][r][k] = T(0);
+  // row = e_i·D⁻¹ − D⁻¹·SᵀF; F_i += U·row; F_p += X_iᵀ·F_i (leaves to root)
+GRID_ROLLED
+  for (int i = N - 1; i >= 0; --i) {
+    const int p = parent(i);
+    const auto* S = R.S + 6 * i;
+    const T Di = Dinv[i];
+GRID_ROLLED
+    for (int k = 0; k < w; ++k) {
+      T sf = S[0] * F[i][0][k];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) sf += S[c] * F[i][c][k];
+      rows[i][k] = (c0 + k == i ? Di : T(0)) - Di * sf;
+    }
+    if (p < 0) continue;
+GRID_ROLLED
+    for (int k = 0; k < w; ++k) {
+      T Fi[6];
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        Fi[r] = F[i][r][k] + U[i][r] * rows[i][k];
+        F[i][r][k] = Fi[r];
+      }
+      T t[6];
+      matvec6_T(X[i], Fi, t);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) F[p][r][k] = F[p][r][k] + t[r];
+    }
+  }
+  // root to leaves, the columns at or right of the diagonal only
+GRID_ROLLED
+  for (int i = 0; i < N; ++i) {
+    const int p = parent(i);
+    const auto* S = R.S + 6 * i;
+    T UX[6];
+    if (p >= 0) matvec6_T(X[i], U[i], UX);
+GRID_ROLLED
+    for (int k = 0; k < w; ++k) {
+      if (c0 + k < i) continue;
+      T Fp[6];
+      if (p >= 0) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) Fp[c] = F[p][c][k];
+        T corr = UX[0] * Fp[0];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) corr += UX[c] * Fp[c];
+        rows[i][k] = rows[i][k] - Dinv[i] * corr;
+      }
+      const T row = rows[i][k];
+      T XF[6];
+      if (p >= 0) matvec6(X[i], Fp, XF);
+#pragma unroll
+      for (int r = 0; r < 6; ++r)
+        F[i][r][k] = p >= 0 ? S[r] * row + XF[r] : S[r] * row;
+    }
+  }
+GRID_ROLLED
+  for (int i = 0; i < N; ++i)
+GRID_ROLLED
+    for (int k = 0; k < w; ++k) M_out[(i * N + c0 + k) * B + b] = rows[i][k];
 }
 
 // ------------------------------------------------------------------- K5
@@ -336,18 +587,19 @@ GRID_ROLLED
 // rows included. Outputs are (n,n,B); this block writes its w columns.
 template <typename T, bool kFinish>
 __device__ __forceinline__ void grad_cols_state(
-    const Robot<T>& R, const T* q, const T* qd, const T* v_in,
-    const T* a_in, const T* f_in, const T* Minv, T* dq_out, T* dqd_out,
-    long long B, long long b, int c0, int w, T minus_g) {
+    const Robot<T>& R, const T* q, const T* qd, const void* v_in,
+    const void* a_in, const void* f_in, const void* Minv, bool s16,
+    T* dq_out, T* dqd_out, long long B, long long b, int c0, int w,
+    int sides, T minus_g) {
   T qs[N], qds[N];
   load_col(q, B, b, qs);
   load_col(qd, B, b, qds);
   T X[N][36];
   joint_transforms(R, qs, X);
   T v[N][6], a[N][6], f[N][6];
-  load_vec6(v_in, B, b, v);
-  load_vec6(a_in, B, b, a);
-  load_vec6(f_in, B, b, f);
+  load_stage6(v_in, s16, B, b, v);
+  load_stage6(a_in, s16, B, b, a);
+  load_stage6(f_in, s16, B, b, f);
   bool in_sub[N];
 GRID_ROLLED
   for (int i = 0; i < N; ++i) {
@@ -357,30 +609,37 @@ GRID_ROLLED
   T dv[N][6][CB], da[N][6][CB], df[N][6][CB];
   bool has_row[N], has_qd[N];
   T dcq[N][CB], dcqd[N][CB];
-  grad_cols_side<T, true>(R, X, qds, v, a, f, minus_g, c0, w, in_sub, dv, da,
-                          df, has_row, dcq);
-  grad_cols_side<T, false>(R, X, qds, v, a, f, minus_g, c0, w, in_sub, dv,
-                           da, df, has_qd, dcqd);
+  // sides: bit 0 ∂c/∂q, bit 1 ∂c/∂q̇ (merge_sides=False launches one each)
+  const bool sq = sides & 1, sqd = sides & 2;
+  if (sq)
+    grad_cols_side<T, true>(R, X, qds, v, a, f, minus_g, c0, w, in_sub, dv,
+                            da, df, has_row, dcq);
+  if (sqd)
+    grad_cols_side<T, false>(R, X, qds, v, a, f, minus_g, c0, w, in_sub, dv,
+                             da, df, has_qd, dcqd);
   if (kFinish) {
+    // both sides share one nonzero row set (ancestors ∪ subtree)
+    const bool* has = sq ? has_row : has_qd;
 GRID_ROLLED
     for (int r = 0; r < N; ++r) {
       T accq[CB], accqd[CB];
       bool first = true;
 GRID_ROLLED
       for (int i = 0; i < N; ++i) {
-        if (!has_row[i]) continue;
-        const T m = Minv[(r * N + i) * B + b];
+        if (!has[i]) continue;
+        const T m = load_stage<T>(Minv, s16, (r * N + i) * B + b);
 GRID_ROLLED
         for (int k = 0; k < w; ++k) {
-          accq[k] = first ? m * dcq[i][k] : accq[k] + m * dcq[i][k];
-          accqd[k] = first ? m * dcqd[i][k] : accqd[k] + m * dcqd[i][k];
+          if (sq) accq[k] = first ? m * dcq[i][k] : accq[k] + m * dcq[i][k];
+          if (sqd)
+            accqd[k] = first ? m * dcqd[i][k] : accqd[k] + m * dcqd[i][k];
         }
         first = false;
       }
 GRID_ROLLED
       for (int k = 0; k < w; ++k) {
-        dq_out[(r * N + c0 + k) * B + b] = -accq[k];
-        dqd_out[(r * N + c0 + k) * B + b] = -accqd[k];
+        if (sq) dq_out[(r * N + c0 + k) * B + b] = -accq[k];
+        if (sqd) dqd_out[(r * N + c0 + k) * B + b] = -accqd[k];
       }
     }
   } else {
@@ -388,8 +647,9 @@ GRID_ROLLED
     for (int i = 0; i < N; ++i)
 GRID_ROLLED
       for (int k = 0; k < w; ++k) {
-        dq_out[(i * N + c0 + k) * B + b] = has_row[i] ? dcq[i][k] : T(0);
-        dqd_out[(i * N + c0 + k) * B + b] = has_qd[i] ? dcqd[i][k] : T(0);
+        if (sq) dq_out[(i * N + c0 + k) * B + b] = has_row[i] ? dcq[i][k] : T(0);
+        if (sqd)
+          dqd_out[(i * N + c0 + k) * B + b] = has_qd[i] ? dcqd[i][k] : T(0);
       }
   }
 }

@@ -13,7 +13,22 @@ Where ``_build.dense_grads(n)`` is false (past ``MAX_KERNEL_JOINTS``
 joints), ∇FD, ∂ID and M⁻¹ route to the staged pipeline (:mod:`.staged`) on
 the CPU and on the card alike, as the JAX wrappers do (fused.py:294, :421,
 :454); RNEA and ABA are O(n) a state and run on one thread for every robot.
-Launches are counted in :mod:`._launch`.
+
+The variants the JAX package keeps for its benchmarks, one launch each:
+
+* ``fd_grad_fused(..., minv_impl="dense")`` — the ∇FD kernel with M⁻¹
+  from CRBA, the active-region Cholesky and L⁻ᵀL⁻¹ (:func:`_dense_minv_bl`,
+  ``grid_fd_grad_dense``) in place of the articulated recursion; past
+  ``MAX_KERNEL_JOINTS`` the staged ∇FD with its default K2′, as JAX.
+* ``forward_dynamics_fused`` — q̈ = M⁻¹(u − c), the composition form
+  (``grid_fd``); past ``MAX_KERNEL_JOINTS`` the factor-solve
+  ``staged.fd_dense_staged``, JAX's first choice past its single tile for
+  every n ≤ 49.
+
+JAX's lane-tile branches (fused.py:298-314, :340-347, :375-380, :411-420,
+:437-453) run the same bodies on 128-state tiles; here the one-thread
+kernels compute those bodies at any n, and the routing follows the card's
+timings (``MAX_KERNEL_JOINTS``). Launches are counted in :mod:`._launch`.
 """
 
 from __future__ import annotations
@@ -54,8 +69,27 @@ def id_grad_plain(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
     return dq, dqd
 
 
-def fd_grad_plain(model: RobotModel, q, qd, u, gravity=-9.81):
-    return blops.fd_grad_bl(model, q, qd, u, gravity)
+# CRBA + active-region Cholesky + symmetric L⁻ᵀL⁻¹ dense M⁻¹, (model, X) →
+# (n, n, B): the M⁻¹ stage of ``minv_impl="dense"`` (JAX's name, fused.py:387)
+_dense_minv_bl = staged._dense_minv
+
+
+def _check_minv_impl(minv_impl):
+    if minv_impl not in ("recursion", "dense"):
+        raise ValueError(f"minv_impl must be 'recursion' or 'dense', got "
+                         f"{minv_impl!r}")
+
+
+def fd_grad_plain(model: RobotModel, q, qd, u, gravity=-9.81,
+                  minv_impl="recursion"):
+    _check_minv_impl(minv_impl)
+    return blops.fd_grad_bl(
+        model, q, qd, u, gravity,
+        minv_fn=_dense_minv_bl if minv_impl == "dense" else None)
+
+
+def forward_dynamics_plain(model: RobotModel, q, qd, u, gravity=-9.81):
+    return blops.fd_bl(model, q, qd, u, gravity)
 
 
 def forward_dynamics_aba_plain(model: RobotModel, q, qd, u, gravity=-9.81):
@@ -114,23 +148,46 @@ def id_grad_fused(model: RobotModel, q, qd, qdd=None, gravity=-9.81):
     return dq, dqd
 
 
-def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81):
+def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81,
+                  minv_impl="recursion"):
     """∇FD — the north-star kernel: X → RNEA → M⁻¹ → q̈ → second RNEA sweep
     → ∂ID → −M⁻¹·∂c in one launch. Returns (∂q̈/∂q, ∂q̈/∂q̇), each (n,n,B).
-    Past ``MAX_KERNEL_JOINTS`` joints, the staged pipeline (K1, K2′, K4,
-    K5 with the fused finish: four launches)."""
+    ``minv_impl="dense"`` takes M⁻¹ from CRBA + Cholesky. Past
+    ``MAX_KERNEL_JOINTS`` joints, the staged pipeline (K1, K2′, K4, K5
+    with the fused finish: four launches) whatever ``minv_impl``."""
+    _check_minv_impl(minv_impl)
     if not dense_grads(model.n):
         return staged.fd_grad_staged(model, q, qd, u, gravity)
     if on_cpu(q):
-        return fd_grad_plain(model, q, qd, u, gravity)
+        return fd_grad_plain(model, q, qd, u, gravity, minv_impl)
     B = check(model, [q, qd, u])
     ddq = empty(model, model.n, model.n, B)
     ddqd = empty(model, model.n, model.n, B)
+    dense = minv_impl == "dense"
     if B:
-        launch("fd_grad", "grid_fd_grad", model,
+        launch("fd_grad_dense" if dense else "fd_grad",
+                "grid_fd_grad_dense" if dense else "grid_fd_grad", model,
                 (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
                  ddqd.data_ptr()), B, float(gravity))
     return ddq, ddqd
+
+
+def forward_dynamics_fused(model: RobotModel, q, qd, u, gravity=-9.81):
+    """Forward dynamics by the composition q̈ = M⁻¹(u − c): q, q̇, u (n,B)
+    → q̈ (n,B), bias RNEA, the articulated M⁻¹ and the matvec in one
+    launch; past ``MAX_KERNEL_JOINTS`` joints the factor-solve kernel
+    (``staged.fd_dense_staged``), which never forms M⁻¹."""
+    if not dense_grads(model.n):
+        return staged.fd_dense_staged(model, q, qd, u, gravity)
+    if on_cpu(q):
+        return forward_dynamics_plain(model, q, qd, u, gravity)
+    B = check(model, [q, qd, u])
+    qdd = empty(model, model.n, B)
+    if B:
+        launch("fd", "grid_fd", model,
+                (q.data_ptr(), qd.data_ptr(), u.data_ptr(), qdd.data_ptr()),
+                B, float(gravity))
+    return qdd
 
 
 def forward_dynamics_aba_fused(model: RobotModel, q, qd, u, gravity=-9.81):

@@ -195,6 +195,8 @@ PORT_MODULES = ("api", "ops.blops", "ops.aba", "ops.so", "ops.kernels._build",
 def test_port_imports_no_jax():
     """The port runs in a process where importing jax fails: every module,
     the single-kernel families on iiwa-14 and the staged ones on Atlas, the
+    fixed-base M⁻¹ and FD variants and the staged pipelines' options (on
+    the branched arm), the
     three second-order entries (on the double pendulum, to stay quick), the
     four multi-dof entries (on the ball arm), the two multi-dof
     gradients of free Atlas (the staged multi-dof pipeline), the
@@ -217,6 +219,25 @@ def test_port_imports_no_jax():
         "    a = gt.forward_dynamics(m, q, q, q)\n"
         "    assert J.shape == (3, n, 2 * n) and a.shape == (3, n)\n"
         "    assert bool(torch.isfinite(J).all() & torch.isfinite(a).all())\n"
+        "from gridcodegenerator_tpu_torch.ops.kernels import fused, staged\n"
+        "m = gt.load_robot(zoo.branched_arm(), dtype=torch.float64, "
+        "device='cpu')\n"
+        "q = torch.full((9, 2), 0.3, dtype=torch.float64)\n"
+        "outs = (fused.forward_dynamics_fused(m, q, q, q),\n"
+        "        staged.fd_staged(m, q, q, q), staged.minv_staged(m, q),\n"
+        "        staged.fd_dense_staged(m, q, q, q),\n"
+        "        *fused.fd_grad_fused(m, q, q, q, minv_impl='dense'),\n"
+        "        *staged.fd_grad_staged(m, q, q, q, minv_impl='recursion', "
+        "merge_sides=False, fuse_finish=False, "
+        "stage_dtype=torch.bfloat16),\n"
+        "        *staged.fd_grad_staged(m, q, q, q, merge_af=True),\n"
+        "        *staged.id_grad_staged(m, q, q, q, merge_sides=False, "
+        "stage_dtype=torch.bfloat16),\n"
+        "        *staged.minv_qdd_af_dense_staged(m, q, q, q, "
+        "torch.zeros((6, 9, 2), dtype=torch.float64)))\n"
+        "assert [tuple(o.shape)[:2] for o in outs] == [(9, 2)] * 2 + "
+        "[(9, 9)] + [(9, 2)] + [(9, 9)] * 8 + [(9, 9), (6, 9), (6, 9)]\n"
+        "assert all(bool(torch.isfinite(o).all()) for o in outs)\n"
         "m = gt.load_robot(zoo.double_pendulum(), dtype=torch.float64, "
         "device='cpu')\n"
         "q = torch.full((3, 2), 0.3, dtype=torch.float64)\n"
