@@ -25,7 +25,12 @@ kernels/csrc`` and runs, on ``cuda:0``:
    both and on Atlas; the staged kernels (K1, K2′ with and without a
    right-hand side, K4, the ∂ID vaf sweep, K5 with and without the finish)
    on Atlas (n = 28, a forest) and forced on the branched arm at a column
-   block that leaves a ragged last block; the M⁻¹ and FD variants (the
+   block that leaves a ragged last block; K2′ and K5 — CTA tiles — in
+   every mode (``tile_pairs``: K5 with and without the finish, both
+   sides and each alone, on full-precision and bf16 stage tensors; K2′ with
+   and without a right-hand side) on HyQ, and on the branched arm and Atlas
+   the modes the staged pairs leave out (TILE_EXTRA); the M⁻¹ and FD
+   variants (the
    dense-M⁻¹ ∇FD and the composition FD on iiwa-14 and the branched arm;
    the factor-solve FD, K2 and K3, K2″, K4 and K5 reading bf16 stage
    tensors — also against the full-precision plain stages, 2e-2 — and K5
@@ -78,7 +83,10 @@ H. the second-order paths at B = 2¹⁶ (iiwa-14, the double pendulum,
    card's float32 rate and its bytes over its memory rate; operations as
    :class:`OpCount` counts them, in a child process on the CPU started
    at the top of the run, ``chip_smoke.py --count-ops``); ∇FD and λᵀ·H on
-   both routes on either side of their joint-count limits;
+   both routes on either side of their joint-count limits; K2′'s library
+   yardstick (``torch.linalg.cholesky_ex``, ``cholesky_inverse`` and
+   ``cholesky_solve`` on the same CRBA matrices); the Atlas ∇FD profile in
+   a child process (``chip_smoke.py --atlas-profile``);
 M. the multi-dof paths at B = 2¹⁸, float32: free Atlas's tangent-space
    ∇FD and ∂ID through the staged multi-dof pipeline (the main path of
    the staged slice), its CRBA FD (``impl="crba"``), ID and ABA; free HyQ's
@@ -147,7 +155,15 @@ V. the fixed-base M⁻¹ and FD variants, float32, from a generator of their
    ``forward_dynamics_fused`` against ABA on iiwa-14 and Atlas; each new
    kernel's time, plain time, bound and head against its plain version,
    and for the kernels that factor, the batched ``torch.linalg``
-   Cholesky on the same CRBA matrices (the factor stage alone).
+   Cholesky on the same CRBA matrices (the factor stage alone); the
+   one-thread K2′ and K5 that the CTA tiles replaced (``design("thread")``)
+   as an arm: Atlas's dense ∇FD, ∂ID and M⁻¹ on them, launches pinned,
+   and each kernel's row (time, plain, bound, head).
+
+``chip_smoke.py --tile-probe`` is the short first call for the tile
+kernels: it builds staged.cu for the branched arm, HyQ and Atlas, prints
+ptxas's report, holds K2′ and K5 in every mode to their plain versions in
+float64 and float32, and times both designs at Atlas f32, 2¹⁸.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -193,6 +209,7 @@ from gridcodegenerator_tpu_torch.ops import md_contact as tmc
 
 SEED = 0
 ROWS_SEED = 1            # phase 1's collision and loop cases (phase1_rows)
+TILE_SEED = 3            # phase 1's HyQ states for the K2′ and K5 tiles
 MAIN_B = 1 << 18
 PARITY_STATES = 256      # bench.py's parity head
 COMPARE_STATES = 4096    # main-path kernel-vs-plain comparison
@@ -607,6 +624,63 @@ def variant_pairs(cb=None, mcb=None):
             "grad_cols_side", *k5(("q",), False),
             lambda s, x: (s[0], s[1], x["v2"], x["a2"], x["f2"])),
     }
+
+
+def tile_pairs():
+    """K5 and K2′ in every mode as (LAUNCHES key, kernel, plain, inputs),
+    on the plain upstream stages' outputs like staged_pairs: K5 with the
+    finish and without (the ∂ID's sweep), both sides and each side alone,
+    on full-precision and bf16 stage tensors; K2′ with and without a
+    right-hand side. Names: the LAUNCHES key, then the side of a one-side
+    launch."""
+    up, _ = variant_pairs()
+
+    def k5(sides, fin, s16):
+        t = "16" if s16 else ""
+        if fin:
+            def inputs(st, x):
+                return (st[0], st[1], *(x[k + t] for k in ("v", "a", "f",
+                                                           "Minv")))
+        else:
+            def inputs(st, x):
+                return (st[0], st[1], *(x[k + t] for k in ("v2", "a2",
+                                                           "f2")))
+
+        def kern(m, *a):
+            return staged.grad_cols_staged(
+                m, *a[:5], Minv=a[5] if fin else None, sides=sides)
+
+        def plain(m, *a):
+            return staged.grad_cols_plain(
+                m, *a[:5], Minv=a[5] if fin else None, sides=sides)
+        return kern, plain, inputs
+
+    out = {}
+    for fin in (True, False):
+        for sides in (("q", "qd"), ("q",), ("qd",)):
+            for s16 in (False, True):
+                key = (("grad_cols_finish" if fin else "grad_cols")
+                       + ("_side" if len(sides) == 1 else "")
+                       + ("_bf16" if s16 else ""))
+                name = key + ("" if len(sides) == 2 else f"_{sides[0]}")
+                out[name] = (key, *k5(sides, fin, s16))
+    out["minv_dense"] = ("minv_dense", staged.minv_qdd_dense_staged,
+                         staged.minv_qdd_dense_plain,
+                         lambda st, x: (st[0], x["umc"]))
+    out["minv_dense_norhs"] = ("minv_dense", staged.minv_qdd_dense_staged,
+                               staged.minv_qdd_dense_plain,
+                               lambda st, x: (st[0],))
+    return up, out
+
+
+# the K5 modes phase 1 adds on the robots staged_pairs and variant_pairs
+# already cover: each side alone with and without the finish, and (on the
+# branched arm) on bf16 stage tensors
+TILE_EXTRA = {"branched_arm": ("grad_cols_finish_side_q", "grad_cols_side_qd",
+                               "grad_cols_finish_side_bf16_q",
+                               "grad_cols_side_bf16_qd"),
+              "atlas": ("grad_cols_finish_side_q", "grad_cols_side_qd")}
+TILE_ROBOT = "hyq"   # phase 1 holds it in every mode of tile_pairs
 
 
 def uniform_lam(n, B, dtype, gen, layout="nB"):
@@ -1144,10 +1218,12 @@ _PTXAS_NAME = re.compile(
     r"(md_step_ground|md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf"
     r"|md_minv"
     r"|md_grad_cols|fb_aba|fb_fd|stance_fd|step_ground|fd_grad|id_grad"
-    r"|fd_dense|fd|minv_dense|minv_af|minv_ud|minv_cols|minv"
-    r"|rnea|aba|vaf|grad_cols|hessian|t1|t2|t4|t5)_kernelI([fd])"
+    r"|fd_dense|fd|minv_dense_tile|minv_dense|minv_af|minv_ud|minv_cols"
+    r"|minv|rnea|aba|vaf|grad_cols_tile|grad_cols|hessian|t1|t2|t4|t5)"
+    r"_kernelI([fd])"
     r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
+                 "minv_dense_tile": "rhs",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
                  "fd_grad": "dense",
                  "md_rnea": "qdd", "md_id_grad": "qdd", "md_vaf": "qdd",
@@ -1453,7 +1529,29 @@ def phase1_kernels_vs_plain(gen):
                     f"phase1 {label} {str(dtype)[6:]} B={B} staged "
                     f"{name}{'' if cb is None else f' cb={cb}'}",
                     got, plain, m, args)
-            phase1_variants(label, m, q, qd, u)
+            x = phase1_variants(label, m, q, qd, u)
+            phase1_tiles(label, m, q, qd, u, TILE_EXTRA[label], x)
+    # HyQ's states come from a generator of their own: the later phases
+    # draw the states they drew before these checks were added
+    tile_gen = torch.Generator(device="cuda")
+    tile_gen.manual_seed(TILE_SEED)
+    for dtype in (torch.float64, torch.float32):
+        m = gt.load_robot(ROUTE_ROBOTS[TILE_ROBOT], dtype=dtype,
+                          device="cuda")
+        phase1_tiles(TILE_ROBOT, m,
+                     *uniform_states(m.n, PHASE1_B, dtype, tile_gen))
+
+
+def phase1_tiles(label, m, q, qd, u, names=None, x=None):
+    """K5 and K2′ (the CTA tiles) against their plain versions in the modes
+    ``names`` of tile_pairs (None: every mode), on the plain upstream
+    stages ``x`` (variant_pairs' up; computed where not given)."""
+    up, pairs = tile_pairs()
+    x = up(m, q, qd, u) if x is None else x
+    for name in names or pairs:
+        key, kern, plain, inputs = pairs[name]
+        run_pair(f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]} tile "
+                 f"{name}", key, kern, plain, m, inputs((q, qd, u), x))
 
 
 BF16_REL = 2e-2   # bf16 staging against full precision (test_blops.py:379)
@@ -1470,13 +1568,15 @@ def phase1_variants(label, m, q, qd, u):
     bf16 round-off of M⁻¹ in the finish moves one stage's worst of 1000
     states by ≈ 2e-2 (the JAX record: 0.8–1.7e-2, BENCHLOG.md:155), phase
     V holds the whole pipeline's bf16-vs-full ∇FD to BF16_REL with JAX's
-    tensor-wide metric."""
+    tensor-wide metric. Returns the plain upstream stages (up's x)."""
     tag = f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]} variant"
+    first = None
     widths = ([(FORCED_CB, None), (FORCED_CB, FORCED_MINV_CB)]
               if label == "branched_arm" else [(None, None)])
     for cb, mcb in widths:
         up, vpairs = variant_pairs(cb, mcb)
         x = up(m, q, qd, u)
+        first = first or x
         names = list(vpairs) if mcb is None else ["minv_cols"]
         for name in names:
             key, kern, plain, inputs = vpairs[name]
@@ -1499,6 +1599,7 @@ def phase1_variants(label, m, q, qd, u):
             if not ok:
                 raise RuntimeError(f"{tag} {name}: bf16 staging too far "
                                    f"from full precision")
+    return first
 
 
 def phase1_multidof(gen):
@@ -2502,20 +2603,23 @@ def _staged_cpu_args(name, pairs=staged_pairs):
     return _cpu_states(3, extra)
 
 
-def time_entry(label, name, kern, plain, m, args, name_limit, const_bytes=0):
+def time_entry(label, name, kern, plain, m, args, name_limit, const_bytes=0,
+               count=None, plain_ms=None):
     """Time a kernel and its plain version (plain, kernel, kernel, plain in
     one call), and its bound at these inputs: the plain version's
     operations a state (count_jobs' ``label:name``: averaged over its
     states, less a repeat — work the plain version does a second time, a
     forward-mode pass re-evaluating its primal, which the least work does
     once); bytes: the inputs and outputs, and ``const_bytes`` read once (a
-    height grid)."""
-    p1 = time_plain_ms(plain, (m, *args))
+    height grid). ``count`` names the count, and ``plain_ms`` gives the
+    plain version's time, where both are another kernel's (a second design
+    of the same function at the same shapes)."""
+    p1 = plain_ms or time_plain_ms(plain, (m, *args))
     k1 = time_ms(kern, (m, *args))
     k2 = time_ms(kern, (m, *args))
-    p2 = time_plain_ms(plain, (m, *args))
+    p2 = plain_ms or time_plain_ms(plain, (m, *args))
     outs = _as_tuple(kern(m, *args))
-    total, again = (COUNTS.get(f"{label}:{name}") + [0])[:2]
+    total, again = (COUNTS.get(f"{label}:{count or name}") + [0])[:2]
     ops = (total - again) * args[0].shape[-1]
     nb = nbytes(*args, *outs) + const_bytes
     b_ms, b_by = bound(ops, nb)
@@ -2611,6 +2715,13 @@ def phase3_times(m, mA, atlas_states, gen):
     for name, (_, kern, plain, inputs) in spairs.items():
         times[name] = time_entry("atlas", name, kern, plain, mA,
                                  tuple(inputs(s, x)), name_limit)
+    # K2′'s yardstick: the batched factor, inverse (and solve) on the same
+    # CRBA matrices
+    times["minv_dense"]["library_ms"] = chol_library_ms(
+        "minv_dense atlas", mA, s[0], s[2] - x["c"], name_limit,
+        inverse=True)
+    times["minv_dense_norhs"]["library_ms"] = chol_library_ms(
+        "minv_dense_norhs atlas", mA, s[0], None, name_limit)
     del x
     qa, qda, ua = atlas_states
     for fn in (gt.forward_dynamics_gradient, gt.inverse_dynamics_gradient,
@@ -2619,9 +2730,34 @@ def phase3_times(m, mA, atlas_states, gen):
         api = time_ms(fn, (mA, qa, qda, ua)[:k + 1])
         log(f"phase3 {fn.__name__} API atlas B={MAIN_B}: {api:.3f} ms "
             f"({MAIN_B / api * 1e3:.3e} evals/s); card {name_limit}")
-    profile_breakdown(gt.forward_dynamics_gradient, (mA, qa, qda, ua),
-                      "forward_dynamics_gradient atlas", name_limit)
+    atlas_profile()
     return times
+
+
+def atlas_profile():
+    """The profiler breakdown of Atlas's ∇FD through the API at MAIN_B,
+    taken in a child process (torch.profiler loses events after this
+    process's earlier traces)."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--atlas-profile"],
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"profile child failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-3000:]}")
+
+
+def atlas_profile_child():
+    """atlas_profile's child: loads the library the parent built and traces
+    ``forward_dynamics_gradient``."""
+    m = gt.load_robot(ROBOTS["atlas"], dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    s = uniform_states(m.n, MAIN_B, torch.float32, gen, layout="Bn")
+    profile_breakdown(gt.forward_dynamics_gradient, (m, *s),
+                      "forward_dynamics_gradient atlas (a fresh process)",
+                      card())
 
 
 def _so_cpu_args(name, cache):
@@ -2777,17 +2913,19 @@ def phase3_hessian_routes(gen):
 
 
 def phase3_k5_width(mA, atlas_states):
-    """Atlas's K5 with the finish at column blocks of 4 (the built width)
-    and 2 (the 7-wide build timed when the width was chosen is in
-    PERF.md)."""
+    """Atlas's one-thread K5 with the finish (the width sets its column
+    blocks; the tile takes every column at once) at column blocks of 4 (the
+    built width) and 2 (the 7-wide build timed when the width was chosen is
+    in PERF.md)."""
     name_limit = card()
     q, qd, u = (x.T.contiguous() for x in atlas_states)
     c, v = staged.bias_and_v_staged(mA, q, qd)
     Minv, qdd = staged.minv_qdd_dense_staged(mA, q, u - c)
     a, f = staged.af_staged(mA, q, qd, qdd, v)
-    ms = [(cb, time_ms(lambda: staged.grad_cols_staged(
-        mA, q, qd, v, a, f, cb=cb, Minv=Minv), ())) for cb in (4, 2)]
-    log(f"phase3 K5 with the finish, Atlas f32 B={q.shape[-1]}: "
+    with design("thread"):
+        ms = [(cb, time_ms(lambda: staged.grad_cols_staged(
+            mA, q, qd, v, a, f, cb=cb, Minv=Minv), ())) for cb in (4, 2)]
+    log(f"phase3 one-thread K5 with the finish, Atlas f32 B={q.shape[-1]}: "
         + "; ".join(f"cb {w} {t:.3f} ms" for w, t in ms)
         + f"; card {name_limit}")
 
@@ -4001,6 +4139,84 @@ def phase3_rows(models, states):
 
 
 # ------------------------------------------- phase V: the M⁻¹/FD variants
+@contextmanager
+def design(name):
+    """K2′ and K5 on the CTA tiles ("tile", the route) or on the one-thread
+    kernels they replaced ("thread")."""
+    saved = staged.DESIGN
+    staged.DESIGN = name
+    try:
+        yield
+    finally:
+        staged.DESIGN = saved
+
+
+TILE_PROBE_ROBOTS = ("branched_arm", "hyq", "atlas")
+
+
+def tile_probe():
+    """``chip_smoke.py --tile-probe``: the short first call for the tile
+    kernels — build staged.cu for the branched arm, HyQ and Atlas, print
+    ptxas's report, hold K5 and K2′ in every mode (tile_pairs) to their
+    plain versions at PHASE1_B in float64 and float32, then time both
+    designs at Atlas f32, 2¹⁸ (thread, tile, tile, thread)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    t0 = time.perf_counter()
+    phase0_toolchain()
+    urdf = {**ROBOTS, **ROUTE_ROBOTS}
+    models = {label: gt.load_robot(urdf[label], device="cuda")
+              for label in TILE_PROBE_ROBOTS}
+    threads = [threading.Thread(target=_build.library,
+                                args=(m, ("staged.cu",)))
+               for m in models.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for label, m in models.items():
+        lib = _build.library(m, ("staged.cu",))
+        log(f"build {label} (n={m.n}) staged.cu: nvcc "
+            f"{lib.build_seconds['staged.cu']:.1f} s")
+        for line in ptxas_report(lib.logs["staged.cu"]):
+            log(line)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for label in TILE_PROBE_ROBOTS:
+        for dtype in (torch.float64, torch.float32):
+            m = gt.load_robot(urdf[label], dtype=dtype, device="cuda")
+            phase1_tiles(label, m,
+                         *uniform_states(m.n, PHASE1_B, dtype, gen))
+    log(f"-- probe checks done at {time.perf_counter() - t0:.1f} s")
+    name_limit = card()
+    m = models["atlas"]
+    q, qd, u = uniform_states(m.n, MAIN_B, torch.float32, gen)
+    up, pairs = tile_pairs()
+    x = {}
+    c, x["v"] = staged.bias_and_v_staged(m, q, qd)
+    x["umc"] = u - c
+    x["Minv"], x["qdd"] = staged.minv_qdd_dense_staged(m, q, x["umc"])
+    x["a"], x["f"] = staged.af_staged(m, q, qd, x["qdd"], x["v"])
+    x["v2"], x["a2"], x["f2"] = staged.vaf_staged(m, q, qd, u)
+    for name in ("grad_cols_finish", "grad_cols", "minv_dense",
+                 "minv_dense_norhs"):
+        _, kern, _, inputs = pairs[name]
+        args = (m, *inputs((q, qd, u), x))
+        ms = {}
+        for d in ("thread", "tile", "tile", "thread"):
+            with design(d):
+                ms.setdefault(d, []).append(time_ms(kern, args))
+        log(f"probe atlas f32 B={MAIN_B} {name}: "
+            + "; ".join(f"{d} {'/'.join(f'{t:.3f}' for t in v)} ms"
+                        for d, v in ms.items()) + f"; card {name_limit}")
+    for d in ("thread", "tile", "tile", "thread"):
+        with design(d):
+            ms = time_ms(staged.fd_grad_staged, (m, q, qd, u))
+        log(f"probe atlas f32 B={MAIN_B} fd_grad_staged {d}: {ms:.3f} ms; "
+            f"card {name_limit}")
+    log(f"-- probe done at {time.perf_counter() - t0:.1f} s")
+
+
 V_SEED = 2               # phase V's own generator: earlier phases unchanged
 V_BATCHES = (1 << 14, MAIN_B)   # bench_dense_minv.py's two batches
 V_HEAD = 1024            # each new kernel's head against its plain version
@@ -4030,6 +4246,12 @@ def v_atlas_cases(mA):
     def one(fn):
         def call(q, qd, u):
             with one_thread(mA.n):
+                return fn(q, qd, u)
+        return call
+
+    def thread(fn):
+        def call(q, qd, u):
+            with design("thread"):
                 return fn(q, qd, u)
         return call
     k1, k4, k5 = {"bias_and_v": 1}, {"af": 1}, {"grad_cols_finish": 1}
@@ -4071,6 +4293,16 @@ def v_atlas_cases(mA):
                         {"minv_ud": 1, "minv_cols": 1}),
         "fd_staged": (lambda q, qd, u: staged.fd_staged(mA, q, qd, u),
                       {**k1, "minv_ud": 1, "minv_cols": 1}),
+        # the one-thread K2′ and K5 that the CTA tiles replaced
+        "fd_grad dense one-thread K2′ K5": (
+            thread(fdg()), {**k1, "minv_dense_thread": 1, **k4,
+                            "grad_cols_finish_thread": 1}),
+        "id_grad one-thread K5": (
+            thread(lambda q, qd, u: staged.id_grad_staged(mA, q, qd, u)),
+            {"vaf": 1, "grad_cols_thread": 1}),
+        "minv one-thread K2′": (
+            thread(lambda q, qd, u: staged.minv_qdd_dense_staged(mA, q)[0]),
+            {"minv_dense_thread": 1}),
     }
 
 
@@ -4087,29 +4319,34 @@ def crba_dense(m, q):
                         for row in M]).permute(2, 0, 1).contiguous()
 
 
-def chol_library_ms(tag, m, q, rhs, name_limit):
+LIB_CALLS = 20   # the library yardstick's calls (its time moved 2× between runs)
+
+
+def chol_library_ms(tag, m, q, rhs, name_limit, inverse=None):
     """library_ms of a kernel that contains a Cholesky: the batched
-    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse`` (rhs None) or
-    ``torch.cholesky_solve`` on the plain CRBA matrices of the same states
-    — the factor stage only, not the whole function."""
+    ``torch.linalg.cholesky_ex`` then ``torch.cholesky_inverse`` (rhs None,
+    or ``inverse``) and ``torch.cholesky_solve`` (rhs given) on the plain
+    CRBA matrices of the same states — the factor stage only, not the whole
+    function; the median of LIB_CALLS calls after two."""
     M = crba_dense(m, q)
-    if rhs is None:
-        def fn(M):
-            return torch.cholesky_inverse(torch.linalg.cholesky_ex(M)[0])
-        args = (M,)
-    else:
-        def fn(M, r):
-            return torch.cholesky_solve(r, torch.linalg.cholesky_ex(M)[0])
-        args = (M, rhs.T.contiguous()[..., None])
-    ms = time_ms(fn, args)
-    log(f"phaseV library {tag}: torch.linalg.cholesky_ex + "
-        f"{'torch.cholesky_inverse' if rhs is None else 'torch.cholesky_solve'}"
-        f" on the plain CRBA matrices ({M.shape[-1]}², f32, B={M.shape[0]}): "
-        f"{ms:.3f} ms — the factor stage only; card {name_limit}")
+    inverse = rhs is None if inverse is None else inverse
+    r = None if rhs is None else rhs.T.contiguous()[..., None]
+
+    def fn(M, r):
+        L = torch.linalg.cholesky_ex(M)[0]
+        return ((torch.cholesky_inverse(L),) if inverse else ()) + (
+            () if r is None else (torch.cholesky_solve(r, L),))
+    ms = time_ms(fn, (M, r), calls=LIB_CALLS)
+    what = " + ".join(["torch.linalg.cholesky_ex"]
+                      + ["torch.cholesky_inverse"] * inverse
+                      + ["torch.cholesky_solve"] * (r is not None))
+    log(f"library {tag}: {what} on the plain CRBA matrices "
+        f"({M.shape[-1]}², f32, B={M.shape[0]}): {ms:.3f} ms (median of "
+        f"{LIB_CALLS}) — the factor stage only; card {name_limit}")
     return ms
 
 
-def phaseV_variants():
+def phaseV_variants(plain_times):
     """The fixed-base M⁻¹ and FD variants at the JAX benchmarks' shapes,
     float32, on their own generator: Atlas's cases (v_atlas_cases) once each
     at 2¹⁸ with every count set to 0 before and read after — the launches
@@ -4167,7 +4404,9 @@ def phaseV_variants():
                            ("fd_grad per-side", "fd_grad dense", "per-side"),
                            ("fd_grad unfused", "fd_grad dense", "unfused"),
                            ("fd_grad dense mergeaf", "fd_grad dense",
-                            "mergeaf")):
+                            "mergeaf"),
+                           ("fd_grad dense one-thread K2′ K5",
+                            "fd_grad dense", "one-thread K2′ K5")):
             rel = _rel(outs[a][k], outs[b][k])
             held = what == "bf16"
             ok = not held or rel <= BF16_REL
@@ -4219,9 +4458,10 @@ def phaseV_variants():
     # Atlas's staged.cu ones on the pipeline's own kernel intermediates
     times, max_abs = {}, {}
 
-    def entry(label, name, kern, plain, mm, args):
+    def entry(label, name, kern, plain, mm, args, count=None,
+              plain_ms=None):
         times[name] = time_entry(label, name, kern, plain, mm, args,
-                                 name_limit)
+                                 name_limit, count=count, plain_ms=plain_ms)
         head = [a[..., :V_HEAD].contiguous() for a in args]
         max_abs[name], _ = check_against_plain(
             f"phaseV {label} {name} head ({V_HEAD} states) vs plain",
@@ -4240,6 +4480,17 @@ def phaseV_variants():
               for k in ("v", "a", "f", "Minv", "v2", "a2", "f2")})
     for name, (_, kern, plain, inputs) in variant_pairs()[1].items():
         entry("atlas", name, kern, plain, mA, tuple(inputs(sA, x)))
+    # the one-thread K2′ and K5 (the design the CTA tiles replaced), at the
+    # same shapes: bounded by the tiles' counts and beside their plain
+    # versions' phase-3 times (the same functions)
+    _, spairs = staged_pairs()
+    x.update(c=c)
+    with design("thread"):
+        for name in ("minv_dense", "grad_cols_finish", "grad_cols"):
+            _, kern, plain, inputs = spairs[name]
+            entry("atlas", f"{name}_thread", kern, plain, mA,
+                  tuple(inputs(sA, x)), count=name,
+                  plain_ms=plain_times[name])
     del x
     times["fd_grad_dense"]["library_ms"] = chol_library_ms(
         "fd_grad_dense iiwa14", mI, sI[0], None, name_limit)
@@ -4339,6 +4590,13 @@ RECORD = [
      TPU + "staged.py:319"),
     ("grad_cols_side", "grad_cols_side", "variants", STAGED_SRC,
      TPU + "staged.py:319"),
+    # phase V: the one-thread K2′ and K5 that the CTA tiles replaced
+    ("minv_dense_thread", "minv_dense_thread", "variants", STAGED_SRC,
+     TPU + "staged.py:218"),
+    ("grad_cols_finish_thread", "grad_cols_finish_thread", "variants",
+     STAGED_SRC, TPU + "staged.py:470"),
+    ("grad_cols_thread", "grad_cols_thread", "variants", STAGED_SRC,
+     TPU + "staged.py:356"),
 ]
 
 
@@ -4444,9 +4702,13 @@ def main():
     times.update(phase3_rows(rows_models, rows_st))
     del rows_models, rows_st
     done("phase 3 collision and loops")
-    v_launches, v_max_abs, v_times = phaseV_variants()
+    v_launches, v_max_abs, v_times = phaseV_variants(
+        {k: times[k]["plain_ms"] for k in ("minv_dense", "grad_cols_finish",
+                                           "grad_cols")})
     max_abs.update(v_max_abs)
     times.update(v_times)
+    times["minv_dense_thread"]["library_ms"] = \
+        times["minv_dense"]["library_ms"]
     done("phase V")
     max_abs.update({name: md_max_abs[f"{label}:{fam}"]
                     for name, (label, fam) in MD_TIMED.items()})
@@ -4482,6 +4744,10 @@ if __name__ == "__main__":
         md_profile_child(sys.argv[2])
     elif sys.argv[1:2] == ["--step-profile"]:
         step_profile_child()
+    elif sys.argv[1:2] == ["--tile-probe"]:
+        tile_probe()
+    elif sys.argv[1:2] == ["--atlas-profile"]:
+        atlas_profile_child()
     else:
         try:
             main()

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -36,9 +37,9 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "dual.cuh",
-            "so.cuh", "md.cuh", "md_staged.cuh", "contact.cuh", "ff.cuh",
-            "md_step.cuh")
+_HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "tile.cuh",
+            "dual.cuh", "so.cuh", "md.cuh", "md_staged.cuh", "contact.cuh",
+            "ff.cuh", "md_step.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -83,6 +84,12 @@ MAX_MD_GRAD_NV = 13
 # cb = 4 at free Atlas (18·29·4 = 2088 values, the K5 frame of fixed-base
 # Atlas), which chip_smoke.py times against narrower blocks.
 _MD_K5_VALUES = 2560
+# The CTA-tile K5 and K2′ (csrc/tile.cuh): a tile of states a CTA, each
+# state's working set in shared memory. A CTA may opt into at most this
+# much dynamic shared memory on an H100 (227 KB); it holds the robot's
+# 152·n constants, the topology tables (int16) and the tile.
+SMEM_BYTES = 232448
+TILE_MAX_STATES = 32
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -113,13 +120,17 @@ _UNITS = {
         "grid_af": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _D, _P),
         # consts, q, qd, qdd, v, a, f, B, gravity, stream
         "grid_vaf": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
-        # consts, q, rhs (or NULL), M, qdd (or NULL), B, stream
+        # consts, q, rhs (or NULL), M, qdd (or NULL), B, stream (the CTA
+        # tile; "_thread": the one-thread-per-state kernel it replaced)
         "grid_minv_dense": (_P, _P, _P, _P, _P, _LL, _P),
+        "grid_minv_dense_thread": (_P, _P, _P, _P, _P, _LL, _P),
         # consts, q, qd, v, a, f, Minv (or NULL), dq, dqd, B, cb, sides (1
         # ∂c/∂q, 2 ∂c/∂q̇, 3 both), s16 (v, a, f, Minv in bf16), gravity,
-        # stream
+        # stream (the CTA tile; "_thread": the one-thread kernel)
         "grid_grad_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                            _I, _D, _P),
+        "grid_grad_cols_thread": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                  _I, _I, _I, _D, _P),
         # consts, q, qd, u, qdd, B, gravity, stream (factor and solve)
         "grid_fd_dense": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, umc, v, M, a, f, B, gravity, stream (K2″)
@@ -264,6 +275,177 @@ def md_col_block(n: int, nv: int) -> int:
     return _widest_block(nv, 18 * n, _MD_K5_VALUES)
 
 
+# ------------------------------------------------------------------------
+# The CTA-tile K5 and K2′ (csrc/tile.cuh): topology tables and tile sizes
+# ------------------------------------------------------------------------
+def _tree(parents):
+    """Each joint's children (descending), depth and ancestors (root
+    first); parents precede their children."""
+    n = len(parents)
+    children = [[] for _ in range(n)]
+    depth, anc = [0] * n, [[] for _ in range(n)]
+    for i, p in enumerate(parents):
+        if p >= 0:
+            if p >= i:
+                raise ValueError(f"joint {i}'s parent {p} does not precede it")
+            children[p].insert(0, i)
+            depth[i] = depth[p] + 1
+            anc[i] = anc[p] + [p]
+    return children, depth, anc
+
+
+def k5_pattern(parents):
+    """K5's packed columns, ascending, joint by joint: the columns where
+    ∂v_i and ∂a_i can be nonzero (i's ancestors and i) and those where ∂f_i
+    and the rows ∂c_i can be (those and i's subtree)."""
+    _, _, anc = _tree(parents)
+    n = len(parents)
+    sub = [[] for _ in range(n)]
+    for i in range(n):
+        for a in anc[i]:
+            sub[a].append(i)
+    dva = [anc[i] + [i] for i in range(n)]
+    return dva, [anc[i] + [i] + sub[i] for i in range(n)]
+
+
+def _flatten(tables: dict):
+    """The tables as one int16 list and each one's offset into it."""
+    flat, offs = [], {}
+    for name, vals in tables.items():
+        offs[name] = len(flat)
+        flat += [int(v) for v in vals]
+    if max(map(abs, flat)) >= 1 << 15:
+        raise ValueError("a topology table does not fit int16")
+    return flat, offs
+
+
+def _tile_states(plan: dict, n: int, itemsize: int) -> int:
+    """States a CTA: as many as fit SMEM_BYTES beside the robot constants
+    and the tables, at most TILE_MAX_STATES; 0 where not one fits."""
+    free = SMEM_BYTES - 152 * n * itemsize - _table_bytes(plan)
+    return max(0, min(TILE_MAX_STATES, free // (plan["stride"] * itemsize)))
+
+
+def _table_bytes(plan: dict) -> int:
+    return -(-2 * len(plan["flat"]) // 16) * 16
+
+
+def tile_smem_bytes(plan: dict, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA: constants, tile, tables."""
+    return ((152 * n + _tile_states(plan, n, itemsize) * plan["stride"])
+            * itemsize + _table_bytes(plan))
+
+
+def _finish_plan(plan: dict, tables: dict, n: int) -> dict:
+    plan["flat"], plan["offs"] = _flatten(tables)
+    plan["tables"] = tables
+    # an odd stride puts one state's value and the next state's in
+    # different shared-memory banks
+    plan["stride"] = plan["values"] | 1
+    plan["states"] = {dt: _tile_states(plan, n, size)
+                      for dt, size in (("f32", 4), ("f64", 8))}
+    return plan
+
+
+def grad_cols_tile_plan(parents, prismatic) -> dict:
+    """K5's tile plan. A state's values: X (its two 3×3 blocks, 18n), v, a,
+    f, I·v and the q side's seed X_iᵀ·(S_i ×* f_i) (6n each) — with room
+    for M⁻¹ (n²) in the finish — then for each side ∂v and ∂a (6 a packed
+    ∂v/∂a column) and ∂f (6 a packed ∂f column), where the rows ∂c and the
+    outputs (2n²) go in the finish. Tables: the forward items (i, k, ∂v/∂a
+    slot, the parent's slot of column k or −1, ∂f slot) in BFS waves from
+    the roots; the backward items (p, k, ∂f slot, whether the forward sweep
+    wrote it) in waves from the deepest parents, each gathering its
+    children in descending order (the plain version's order); the ∂f slot
+    of every (joint, column) or −1; each ∂f slot's (joint, column); and
+    each column's rows and their ∂f slots, rows ascending (the finish's
+    sum)."""
+    n = len(parents)
+    children, depth, _ = _tree(parents)
+    dva, df = k5_pattern(parents)
+
+    def slots(cols):
+        out, off = [], 0
+        for c in cols:
+            out.append({k: off + j for j, k in enumerate(c)})
+            off += len(c)
+        return out, off
+
+    sv, ndva = slots(dva)
+    sf, ndf = slots(df)
+    waves = max(depth) + 1
+    fw, fw_waves = [], [0]
+    for d in range(waves):
+        for i in (j for j in range(n) if depth[j] == d):
+            p = parents[i]
+            for k in dva[i]:
+                fw += [i, k, sv[i][k], sv[p][k] if k != i else -1, sf[i][k]]
+        fw_waves.append(len(fw) // 5)
+    bw, bw_waves = [], [0]
+    for d in range(waves - 2, -1, -1):
+        for p in (j for j in range(n) if depth[j] == d and children[j]):
+            for k in df[p]:
+                bw += [p, k, sf[p][k], int(k in sv[p])]
+        bw_waves.append(len(bw) // 4)
+    tables = {
+        "par": parents, "prism": prismatic,
+        "fw": fw, "fw_waves": fw_waves, "bw": bw, "bw_waves": bw_waves,
+        "ch_start": [0] + list(itertools.accumulate(map(len, children))),
+        "ch_list": [c for ch in children for c in ch],
+        "df_slot": [sf[c].get(k, -1) for c in range(n) for k in range(n)],
+        "df_ik": [x for i in range(n) for k in df[i] for x in (i, k)],
+        "col_start": [0] + list(itertools.accumulate(
+            sum(c in sf[i] for i in range(n)) for c in range(n))),
+        "col_i": [i for c in range(n) for i in range(n) if c in sf[i]],
+        "col_d": [sf[i][c] for c in range(n) for i in range(n)
+                  if c in sf[i]],
+    }
+    region = max(48 * n, n * n)
+    plan = {"dva": ndva, "df": ndf, "waves": waves, "region": region,
+            "values": region + max(6 * (4 * ndva + 2 * ndf),
+                                   2 * ndf + 2 * n * n)}
+    return _finish_plan(plan, tables, n)
+
+
+def minv_tile_plan(parents, prismatic) -> dict:
+    """K2′'s tile plan. A state's values: X (its two 3×3 blocks, 18n), IC
+    (36n; then L⁻¹, n²)
+    and M (n²; first sin/cos of q and IC_c·X_c of one wave of children).
+    Tables: the CRBA sweep's waves from the deepest joints, each a list of
+    children c (and c's place in its wave) and the list of their parents,
+    which gather their children in descending order."""
+    n = len(parents)
+    children, depth, _ = _tree(parents)
+    cw, cs, pw, ps, pos = [0], [], [0], [], [0] * n
+    for d in range(max(depth), 0, -1):
+        wave = [j for j in range(n) if depth[j] == d]
+        for w, c in enumerate(wave):
+            pos[c] = w
+        cs += wave
+        cw.append(len(cs))
+        ps += sorted({parents[c] for c in wave})
+        pw.append(len(ps))
+    wide = max([b - a for a, b in zip(cw, cw[1:])], default=0)
+    tables = {
+        "par": parents, "prism": prismatic, "cw": cw, "c": cs, "pw": pw,
+        "p": ps, "pos": pos,
+        "ch_start": [0] + list(itertools.accumulate(map(len, children))),
+        "ch_list": [c for ch in children for c in ch],
+    }
+    plan = {"waves": len(cw) - 1, "ic": max(36 * n, n * n),
+            "m": max(n * n, 36 * wide, 2 * n)}
+    plan["values"] = 18 * n + plan["ic"] + plan["m"]
+    return _finish_plan(plan, tables, n)
+
+
+def _tile_macros(tag: str, plan: dict, names) -> list[str]:
+    gs = lambda xs: "".join(f"G({x})" for x in xs)
+    return [f"-DGRID_{tag}_TABLE=" + gs(plan["flat"]),
+            f"-DGRID_{tag}_OFFS=" + gs(plan["offs"][k] for k in plan["tables"]),
+            f"-DGRID_{tag}_PLAN=" + gs(plan[k] for k in names)
+            + gs(plan["states"][t] for t in ("f32", "f64"))]
+
+
 @dataclass(frozen=True)
 class KernelLibrary:
     """The loaded kernel libraries of one topology and how they were built."""
@@ -403,6 +585,10 @@ def _macros(key: tuple) -> list[str]:
         f"-DGRID_MINV_CB={minv_col_block(n)}",
         f"-DGRID_DENSE_HESSIAN={int(dense_hessian(n))}",
         f"-DGRID_SO_CB={so_col_block(n)}",
+        *_tile_macros("K5", grad_cols_tile_plan(parents, prism),
+                      ("dva", "df", "waves", "region", "stride")),
+        *_tile_macros("K2", minv_tile_plan(parents, prism),
+                      ("waves", "ic", "m", "stride")),
     ]
 
 

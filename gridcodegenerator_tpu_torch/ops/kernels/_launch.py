@@ -24,6 +24,12 @@ LAUNCHES = {
     "grad_cols_finish_bf16": 0, "grad_cols_side_bf16": 0,
     "grad_cols_finish_side_bf16": 0, "fd_dense": 0, "minv_af": 0,
     "minv_ud": 0, "minv_cols": 0,
+    # K5 and K2′ on the one-thread kernels the CTA tiles replaced
+    # (staged.DESIGN = "thread", a timed arm)
+    **{f"{k}{f}{sd}{b}_thread": 0 for k in ("grad_cols",)
+       for f in ("", "_finish") for sd in ("", "_side")
+       for b in ("", "_bf16")},
+    "minv_dense_thread": 0,
     # csrc/so.cu: the single-thread Hessians and the staged tangent stages
     "hessian_vp": 0, "hessian": 0, "t1": 0, "t2": 0, "t4": 0, "t5": 0,
     # csrc/md.cu: the multi-dof (ball and free joint) families

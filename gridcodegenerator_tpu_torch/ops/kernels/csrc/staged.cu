@@ -1,12 +1,17 @@
-// The staged large-robot pipeline's kernels, one thread per state.
+// The staged large-robot pipeline's kernels: one thread per state, and K5
+// and K2′ as CTA tiles of states.
 //
 // Replaces (gridcodegenerator_tpu/ops/kernels/staged.py):
 //   bias_and_v_staged, K1          (staged.py:172) -> grid_bias_v_{f32,f64}
 //   minv_qdd_dense_staged, K2′     (staged.py:218) -> grid_minv_dense_{f32,f64}
+//                                     (a CTA tile, tile.cuh; the one-thread
+//                                     kernel it replaced: grid_minv_dense_thread)
 //   fd_grad_staged body_af, K4     (staged.py:453) -> grid_af_{f32,f64}
 //   id_grad_staged body_vaf        (staged.py:341) -> grid_vaf_{f32,f64}
 //   fd_grad_staged body_grad, K5 with the fused −M⁻¹·∂c finish
 //                                  (staged.py:470) -> grid_grad_cols_{..}
+//                                     (a CTA tile, tile.cuh; the one-thread
+//                                     kernel it replaced: grid_grad_cols_thread)
 //   id_grad_staged body_grad, K5   (staged.py:356)    with Minv == NULL
 //   K4 and K5 reading bf16 stage tensors (stage_dtype, staged.py:319, :373)
 //                                  -> grid_af_* / grid_grad_cols_* with s16
@@ -30,13 +35,17 @@
 // read them as bf16, upcast in registers (staged.cuh, load_stage): one
 // instance a kernel for both storage types.
 //
-// What bounds them on an H100 is, as for fused.cu, the per-state working
-// set in local memory (L1/L2 traffic), not DRAM: K5 reads ≈ 21n values a
-// state and writes 2n·cb; the finish re-reads the block's rows of M⁻¹.
-// The robot constants are staged in shared memory once per block.
+// What bounds the one-thread kernels on an H100 is, as for fused.cu, the
+// per-state working set in local memory (L1/L2 traffic), not DRAM: K5
+// reads ≈ 21n values a state and writes 2n·cb; the finish re-reads the
+// block's rows of M⁻¹. The robot constants are staged in shared memory once
+// per block. K5 and K2′ run as CTA tiles instead (tile.cuh): a tile of
+// states a CTA, each state's working set in shared memory, every column
+// block at once (cb is checked as for the one-thread kernel and changes no
+// result); the one-thread kernels stay as their `_thread` entries.
 #include <cuda_runtime.h>
 
-#include "staged.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -150,6 +159,83 @@ minv_cols_kernel(const T* __restrict__ consts, const T* __restrict__ q,
   grid::minv_cols_state(R, q, U, Dinv, M, B, b, c0, w);
 }
 
+// ------------------------------------------------------ the CTA tiles
+// K5's threads a CTA: f32 1024 (≤ 64 registers a thread), f64 512 (≤ 128);
+// K2′ runs one warp a state
+template <typename T>
+__host__ __device__ constexpr int k5_threads() {
+  return sizeof(T) == 4 ? 1024 : 512;
+}
+template <typename T>
+__host__ __device__ constexpr int k2_threads() {
+  return 32 * grid::k2_states<T>();
+}
+
+// the CTA's shared memory: the robot constants, the tile, the tables
+template <typename T, int kStates, int kStride>
+__device__ __forceinline__ T* tile_shared(const T* __restrict__ consts,
+                                          const short* table, int count,
+                                          short** tb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* tile = sm + grid::kConstCount;
+  *tb = reinterpret_cast<short*>(tile + kStates * kStride);
+  for (int k = threadIdx.x; k < grid::kConstCount; k += blockDim.x)
+    sm[k] = consts[k];
+  for (int k = threadIdx.x; k < count; k += blockDim.x) (*tb)[k] = table[k];
+  __syncthreads();
+  return sm;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(k5_threads<T>())
+grad_cols_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                      const T* __restrict__ qd, const void* __restrict__ v,
+                      const void* __restrict__ a, const void* __restrict__ f,
+                      const void* __restrict__ Minv, bool s16,
+                      T* __restrict__ dq, T* __restrict__ dqd, long long B,
+                      int sides, T minus_g) {
+  constexpr int S = grid::k5_states<T>();
+  short* tb;
+  T* sm = tile_shared<T, S, grid::kK5Stride>(consts, grid::c_k5_table,
+                                             grid::kK5Table, &tb);
+  const grid::Robot<T> R(sm);
+  grid::grad_cols_tile<T, S, k5_threads<T>()>(
+      static_cast<int>(threadIdx.x), R, grid::K5Tables(tb),
+      sm + grid::kConstCount, q, qd, v, a, f, Minv, s16, dq, dqd, B,
+      static_cast<long long>(blockIdx.x) * S, sides, minus_g);
+}
+
+template <typename T, bool kRhs>
+__global__ void __launch_bounds__(k2_threads<T>())
+minv_dense_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                       const T* __restrict__ rhs, T* __restrict__ M,
+                       T* __restrict__ qdd, long long B) {
+  constexpr int S = grid::k2_states<T>();
+  short* tb;
+  T* sm = tile_shared<T, S, grid::kK2Stride>(consts, grid::c_k2_table,
+                                             grid::kK2Table, &tb);
+  const grid::Robot<T> R(sm);
+  grid::minv_dense_tile<T, kRhs, S, 32>(
+      static_cast<int>(threadIdx.x), R, grid::K2Tables(tb),
+      sm + grid::kConstCount, q, rhs, M, qdd, B,
+      static_cast<long long>(blockIdx.x) * S);
+}
+
+// opt a tile kernel into its dynamic shared memory (above 48 KB a launch
+// without it is refused) and launch it on ⌈B / states⌉ CTAs of threads
+template <typename K, typename... Args>
+int launch_tile(K kernel, size_t smem, long long B, int states, int threads,
+                cudaStream_t s, Args... args) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const unsigned blocks = static_cast<unsigned>((B + states - 1) / states);
+  kernel<<<blocks, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 unsigned blocks_for(long long B) {
   return static_cast<unsigned>((B + kThreads - 1) / kThreads);
 }
@@ -191,8 +277,9 @@ int launch_vaf(int mode, const void* consts, const void* q, const void* qd,
 
 // rhs == nullptr: M⁻¹ only (direct_minv); else also q̈ = M⁻¹·rhs
 template <typename T>
-int launch_minv_dense(const void* consts, const void* q, const void* rhs,
-                      void* M, void* qdd, long long B, void* stream) {
+int launch_minv_dense_thread(const void* consts, const void* q,
+                             const void* rhs, void* M, void* qdd, long long B,
+                             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const T*>(consts);
   if (rhs != nullptr) {
@@ -212,11 +299,11 @@ int launch_minv_dense(const void* consts, const void* q, const void* rhs,
 // Minv == nullptr: the ∂ID blocks (∂c); else the fused finish (−M⁻¹·∂c).
 // sides: 1 ∂c/∂q only, 2 ∂c/∂q̇ only, 3 both; s16: v, a, f, Minv in bf16.
 template <typename T>
-int launch_grad_cols(const void* consts, const void* q, const void* qd,
-                     const void* v, const void* a, const void* f,
-                     const void* Minv, void* dq, void* dqd, long long B,
-                     int cb, int sides, int s16, double gravity,
-                     void* stream) {
+int launch_grad_cols_thread(const void* consts, const void* q, const void* qd,
+                            const void* v, const void* a, const void* f,
+                            const void* Minv, void* dq, void* dqd,
+                            long long B, int cb, int sides, int s16,
+                            double gravity, void* stream) {
   if (cb < 1 || cb > grid::CB || sides < 1 || sides > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -236,6 +323,56 @@ int launch_grad_cols(const void* consts, const void* q, const void* qd,
         mg);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile launchers. A dtype whose tile does not fit one CTA's shared
+// memory (states 0 in the plan) launches the one-thread kernel.
+template <typename T>
+int launch_minv_dense(const void* consts, const void* q, const void* rhs,
+                      void* M, void* qdd, long long B, void* stream) {
+  constexpr int S = grid::k2_states<T>();
+  if constexpr (S > 0) {
+    const size_t smem = grid::tile_smem<T>(S, grid::kK2Stride, grid::kK2Table);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto k = static_cast<const T*>(consts);
+    auto tq = static_cast<const T*>(q);
+    auto tM = static_cast<T*>(M);
+    if (rhs != nullptr)
+      return launch_tile(minv_dense_tile_kernel<T, true>, smem, B, S,
+                         k2_threads<T>(), s, k, tq,
+                         static_cast<const T*>(rhs), tM,
+                         static_cast<T*>(qdd), B);
+    return launch_tile(minv_dense_tile_kernel<T, false>, smem, B, S,
+                       k2_threads<T>(), s, k, tq,
+                       static_cast<const T*>(nullptr), tM,
+                       static_cast<T*>(nullptr), B);
+  } else {
+    return launch_minv_dense_thread<T>(consts, q, rhs, M, qdd, B, stream);
+  }
+}
+
+template <typename T>
+int launch_grad_cols(const void* consts, const void* q, const void* qd,
+                     const void* v, const void* a, const void* f,
+                     const void* Minv, void* dq, void* dqd, long long B,
+                     int cb, int sides, int s16, double gravity,
+                     void* stream) {
+  constexpr int S = grid::k5_states<T>();
+  if constexpr (S > 0) {
+    if (cb < 1 || cb > grid::CB || sides < 1 || sides > 3)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = grid::tile_smem<T>(S, grid::kK5Stride, grid::kK5Table);
+    return launch_tile(grad_cols_tile_kernel<T>, smem, B, S,
+                       k5_threads<T>(), static_cast<cudaStream_t>(stream),
+                       static_cast<const T*>(consts),
+                       static_cast<const T*>(q), static_cast<const T*>(qd), v,
+                       a, f, Minv, s16 != 0, static_cast<T*>(dq),
+                       static_cast<T*>(dqd), B, sides,
+                       static_cast<T>(-gravity));
+  } else {
+    return launch_grad_cols_thread<T>(consts, q, qd, v, a, f, Minv, dq, dqd,
+                                      B, cb, sides, s16, gravity, stream);
+  }
 }
 
 template <typename T>
@@ -332,6 +469,19 @@ const char* grid_error_string(int code) {
                            int s16, double gravity, void* stream) {          \
     return launch_grad_cols<T>(consts, q, qd, v, a, f, Minv, dq, dqd, B, cb, \
                                sides, s16, gravity, stream);                 \
+  }                                                                          \
+  int grid_grad_cols_thread_##tag(                                           \
+      const void* consts, const void* q, const void* qd, const void* v,      \
+      const void* a, const void* f, const void* Minv, void* dq, void* dqd,   \
+      long long B, int cb, int sides, int s16, double gravity,               \
+      void* stream) {                                                        \
+    return launch_grad_cols_thread<T>(consts, q, qd, v, a, f, Minv, dq, dqd, \
+                                      B, cb, sides, s16, gravity, stream);   \
+  }                                                                          \
+  int grid_minv_dense_thread_##tag(const void* consts, const void* q,        \
+                                   const void* rhs, void* M, void* qdd,      \
+                                   long long B, void* stream) {              \
+    return launch_minv_dense_thread<T>(consts, q, rhs, M, qdd, B, stream);   \
   }                                                                          \
   int grid_fd_dense_##tag(const void* consts, const void* q, const void* qd, \
                           const void* u, void* qdd, long long B,             \

@@ -10,8 +10,13 @@ through device memory between them and X(q) recomputed in each:
   K1   q, q̇           → c, v        bias RNEA (v does not depend on q̈)
   K2′  q, u − c        → M⁻¹, q̈     CRBA, active-region Cholesky, L⁻ᵀL⁻¹
   K4   q, q̇, q̈, v     → a, f        the second sweep at the true q̈
-  K5   q, q̇, v, a, f[, M⁻¹] → ∂c or −M⁻¹·∂c, column block by column block,
-       both sides, every block in one launch (a 2-D grid)
+  K5   q, q̇, v, a, f[, M⁻¹] → ∂c or −M⁻¹·∂c, both sides
+
+K2′ and K5 are CTA tiles (``csrc/tile.cuh``): a tile of states a CTA, each
+state's working set in shared memory, every column of K5 at once. The
+one-thread-per-state kernels they replaced (K5 column block by column
+block, every block in one launch on a 2-D grid) stay as a timed arm,
+launched when ``DESIGN`` is ``"thread"`` and counted under ``<name>_thread``.
 
 The default route: ∇FD is K1, K2′, K4, K5 with the fused finish (four
 launches); ∂ID is the vaf sweep and K5 without it (two); ``direct_minv`` is
@@ -45,7 +50,9 @@ between the two.
 
 ``cb`` is the K5 column-block width. ``None`` takes the width the kernels
 are compiled for (``_build.default_col_block``); a smaller one forces
-narrower blocks (the tests use it to put a ragged block on a small robot).
+narrower blocks (the tests use it to put a ragged block on a small robot)
+in the plain version and the one-thread kernel. No width changes a result,
+and the tile computes every column at once.
 ``minv_staged``'s ``cb`` is K3's, against ``_build.minv_col_block``.
 """
 
@@ -62,6 +69,8 @@ from ._launch import (check, check_staged, empty, launch, on_cpu,
                       ptr)
 
 _SIDES = ("q", "qd")
+# "tile": K2′ and K5 launch the CTA tiles; "thread": the one-thread kernels
+DESIGN = "tile"
 
 
 def _as_list(stacked, n):
@@ -108,18 +117,13 @@ def _check_stage_dtype(stage_dtype):
 
 
 def to_stage(x):
-    """``x`` in bfloat16, rounded to nearest even from its own dtype —
-    JAX's ``astype(jnp.bfloat16)``. A float64 tensor is first rounded to
-    float32 by round-to-odd (truncate, then set the last bit where that was
-    inexact), which leaves the one rounding to bf16 exact; a plain cast
-    from float64 would round twice."""
-    if x.dtype != torch.float64:
-        return x.to(torch.bfloat16)
-    f = x.to(torch.float32)
-    f = torch.where(f.double().abs() > x.abs(),
-                    torch.nextafter(f, torch.zeros_like(f)), f)
-    odd = (f.view(torch.int32) | 1).view(torch.float32)
-    return torch.where(f.double() != x, odd, f).to(torch.bfloat16)
+    """``x`` in bfloat16 as JAX's ``astype(jnp.bfloat16)`` gives it: a
+    float64 tensor is rounded to float32, then to bf16, each step to nearest
+    even (so a value just past a bf16 halfway point may land on it, then
+    round to even); float32 is rounded once."""
+    if x.dtype == torch.float64:
+        x = x.to(torch.float32)
+    return x.to(torch.bfloat16)
 
 
 # --------------------------------------------------------------------------
@@ -274,7 +278,7 @@ def minv_qdd_dense_staged(model: RobotModel, q, rhs=None):
     Minv = empty(model, n, n, B)
     qdd = None if rhs is None else empty(model, n, B)
     if B:
-        launch("minv_dense", "grid_minv_dense", model,
+        launch(*_design("minv_dense"), model,
                 (q.data_ptr(), ptr(rhs), Minv.data_ptr(), ptr(qdd)), B)
     return (Minv,) if rhs is None else (Minv, qdd)
 
@@ -343,6 +347,16 @@ def minv_cols_staged(model: RobotModel, q, U, Dinv, cb=None):
     return M
 
 
+def _design(name, entry=None):
+    """The LAUNCHES key and the C entry of K2′ or K5 under ``DESIGN``."""
+    entry = entry or f"grid_{name}"
+    if DESIGN == "tile":
+        return name, entry
+    if DESIGN == "thread":
+        return f"{name}_thread", f"{entry}_thread"
+    raise ValueError(f"DESIGN must be 'tile' or 'thread', got {DESIGN!r}")
+
+
 def _stage_dtype_of(t):
     """The dtype staged inputs must share: bf16, else the model's (None)."""
     return torch.bfloat16 if t.dtype == torch.bfloat16 else None
@@ -400,7 +414,7 @@ def grad_cols_staged(model: RobotModel, q, qd, v, a, f, gravity=-9.81,
             + ("_side" if len(sides) == 1 else "")
             + ("_bf16" if sdt is not None else ""))
     if B:
-        launch(name, "grid_grad_cols", model,
+        launch(*_design(name, "grid_grad_cols"), model,
                 (q.data_ptr(), qd.data_ptr(), v.data_ptr(), a.data_ptr(),
                  f.data_ptr(), ptr(Minv), ptr(outs.get("q")),
                  ptr(outs.get("qd"))), B, cb, bits, int(sdt is not None),

@@ -16,7 +16,8 @@ plain versions) in float64:
   ``fd_staged``, held to the port's default pipeline, which
   ``test_torch_staged.py`` holds to JAX;
 * bf16 staging against full-precision staging and against one JAX
-  interpret-mode ``stage_dtype=jnp.bfloat16`` call;
+  interpret-mode ``stage_dtype=jnp.bfloat16`` call; ``to_stage`` against
+  JAX's ``astype(jnp.bfloat16)``, bit for bit;
 * Atlas (n = 28) against the float64 golden model;
 * errors and routing.
 
@@ -248,19 +249,22 @@ def test_bf16_staging_matches_jax():
 
 
 def test_to_stage_rounds_once():
-    """float64 → bf16 rounds to nearest even in one step: 1 + 2⁻⁸ + 2⁻⁴⁰
-    lies just above a bf16 halfway point and rounds up, where f64 → f32 →
-    bf16 lands on the halfway point and rounds to even (down); float32
-    values take torch's own cast."""
+    """``to_stage`` equals JAX's ``astype(jnp.bfloat16)`` bit for bit: each
+    step of float64 → float32 → bf16 rounds once, to nearest even, so
+    1 + 2⁻⁸ + 2⁻⁴⁰ (just past a bf16 halfway point) lands on the halfway
+    point in float32 and then rounds to even (1.0); on those halfway values
+    and on 1000 seeded float64 and float32 values."""
     h = 1.0 + 2.0 ** -8
-    x = torch.tensor([h + 2.0 ** -40, h - 2.0 ** -40, h, -h - 2.0 ** -40],
-                     dtype=torch.float64)
-    assert ts.to_stage(x).double().tolist() == [1.0078125, 1.0, 1.0,
-                                                -1.0078125]
-    y = torch.randn(1000, dtype=torch.float32, generator=torch.Generator()
-                    .manual_seed(0))
-    assert torch.equal(ts.to_stage(y), y.to(torch.bfloat16))
-    assert torch.equal(ts.to_stage(y.double()), y.to(torch.bfloat16))
+    halves = np.array([h + 2.0 ** -40, h - 2.0 ** -40, h, -h - 2.0 ** -40])
+    rng = np.random.default_rng(0)
+    wide = rng.standard_normal(1000) * 10.0 ** rng.integers(-6, 6, 1000)
+    for x in (halves, wide, wide.astype(np.float32)):
+        got = ts.to_stage(torch.from_numpy(x))
+        ref = np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+        assert np.array_equal(got.view(torch.int16).numpy(),
+                              ref.view(np.int16))
+    assert ts.to_stage(torch.from_numpy(halves)).double().tolist() == [
+        1.0, 1.0, 1.0, -1.0]
 
 
 # --------------------------------------------------------------- Atlas slice
