@@ -25,11 +25,17 @@ kernels/csrc`` and runs, on ``cuda:0``:
    both and on Atlas; the staged kernels (K1, K2′ with and without a
    right-hand side, K4, the ∂ID vaf sweep, K5 with and without the finish)
    on Atlas (n = 28, a forest) and forced on the branched arm at a column
-   block that leaves a ragged last block; K2′ and K5 — CTA tiles — in
-   every mode (``tile_pairs``: K5 with and without the finish, both
-   sides and each alone, on full-precision and bf16 stage tensors; K2′ with
-   and without a right-hand side) on HyQ, and on the branched arm and Atlas
-   the modes the staged pairs leave out (TILE_EXTRA); the M⁻¹ and FD
+   block that leaves a ragged last block; the staged CTA tiles in every
+   mode (``tile_pairs``: K5 with and without the finish, both sides and
+   each alone, on full-precision and bf16 stage tensors; K2′ with and
+   without a right-hand side; the sweep tile as K1, K4 on full-precision
+   and bf16 v, and ∂ID's vaf) on HyQ, and on the branched arm and Atlas
+   the modes the staged pairs leave out (TILE_EXTRA); the recursion ∇FD
+   tile on iiwa-14, the branched arm (PAIRS' fd_grad) and the prismatic
+   chain, each at a ragged last CTA; free HyQ's float32 step with its
+   ground geoms on the 121² grid on the states of its own draws that were
+   past the check before a state's sensitivity was measured again
+   (GEOMS_CASES, found by ``--geoms-fault``); the M⁻¹ and FD
    variants (the
    dense-M⁻¹ ∇FD and the composition FD on iiwa-14 and the branched arm;
    the factor-solve FD, K2 and K3, K2″, K4 and K5 reading bf16 stage
@@ -82,7 +88,7 @@ H. the second-order paths at B = 2¹⁶ (iiwa-14, the double pendulum,
    breakdowns; each kernel's bound (the larger of its operations over the
    card's float32 rate and its bytes over its memory rate; operations as
    :class:`OpCount` counts them, in a child process on the CPU started
-   at the top of the run, ``chip_smoke.py --count-ops``); ∇FD and λᵀ·H on
+   after the builds, ``chip_smoke.py --count-ops``); ∇FD and λᵀ·H on
    both routes on either side of their joint-count limits; K2′'s library
    yardstick (``torch.linalg.cholesky_ex``, ``cholesky_inverse`` and
    ``cholesky_solve`` on the same CRBA matrices); the Atlas ∇FD profile in
@@ -156,14 +162,23 @@ V. the fixed-base M⁻¹ and FD variants, float32, from a generator of their
    kernel's time, plain time, bound and head against its plain version,
    and for the kernels that factor, the batched ``torch.linalg``
    Cholesky on the same CRBA matrices (the factor stage alone); the
-   one-thread K2′ and K5 that the CTA tiles replaced (``design("thread")``)
-   as an arm: Atlas's dense ∇FD, ∂ID and M⁻¹ on them, launches pinned,
-   and each kernel's row (time, plain, bound, head).
+   one-thread K1, K2′, K4, K5, vaf and recursion ∇FD that the CTA tiles
+   replaced (``design("thread")``) as an arm: Atlas's dense ∇FD (full
+   precision and bf16), ∂ID and M⁻¹ and iiwa-14's ∇FD on them, launches
+   pinned, and each kernel's row (time, plain, bound, head).
 
 ``chip_smoke.py --tile-probe`` is the short first call for the tile
-kernels: it builds staged.cu for the branched arm, HyQ and Atlas, prints
-ptxas's report, holds K2′ and K5 in every mode to their plain versions in
-float64 and float32, and times both designs at Atlas f32, 2¹⁸.
+kernels: it builds staged.cu for the branched arm, HyQ and Atlas and
+fused.cu for iiwa-14, the branched arm and the prismatic chain, prints
+ptxas's report, holds the staged tiles in every mode and the recursion ∇FD
+tile to their plain versions in float64 and float32, and times both
+designs at Atlas f32, 2¹⁸ (the ∇FD at iiwa-14).
+``chip_smoke.py --geoms-fault`` holds free HyQ's float32 step with its
+ground geoms on the 121² grid to its plain version on 16,000 states of its
+own draws and prints, for each state past the check on the 8-draw
+sensitivity estimate, what tells an ill-conditioned state from a kernel
+fault. ``chip_smoke.py --tile-configs`` times the sweep and ∇FD tiles
+built with other plan settings (CTAs an SM, threads a CTA).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -392,6 +407,7 @@ STEP_MU_GROUND = 0.6
 # other state takes the normwise check.
 SENS_ULP = {torch.float64: 2e-16, torch.float32: 6e-8}
 SENS_DRAWS = 8
+SENS_REDRAWS = 64
 SENS_MARGIN = 10.0
 SENS_C = 10.0
 # the multi-dof step (bench_contact.py:258-295): the ball ant from MJCF
@@ -627,12 +643,13 @@ def variant_pairs(cb=None, mcb=None):
 
 
 def tile_pairs():
-    """K5 and K2′ in every mode as (LAUNCHES key, kernel, plain, inputs),
-    on the plain upstream stages' outputs like staged_pairs: K5 with the
-    finish and without (the ∂ID's sweep), both sides and each side alone,
-    on full-precision and bf16 stage tensors; K2′ with and without a
-    right-hand side. Names: the LAUNCHES key, then the side of a one-side
-    launch."""
+    """The staged tiles in every mode as (LAUNCHES key, kernel, plain,
+    inputs), on the plain upstream stages' outputs like staged_pairs: K5
+    with the finish and without (the ∂ID's sweep), both sides and each side
+    alone, on full-precision and bf16 stage tensors; K2′ with and without a
+    right-hand side; the sweep tile as K1, K4 (v in the model's dtype and
+    in bf16) and ∂ID's vaf. Names: the LAUNCHES key, then the side of a
+    one-side launch."""
     up, _ = variant_pairs()
 
     def k5(sides, fin, s16):
@@ -667,6 +684,14 @@ def tile_pairs():
     out["minv_dense"] = ("minv_dense", staged.minv_qdd_dense_staged,
                          staged.minv_qdd_dense_plain,
                          lambda st, x: (st[0], x["umc"]))
+    # the sweep tile: K1, K4 on full-precision and bf16 v, ∂ID's vaf
+    out["bias_and_v"] = ("bias_and_v", staged.bias_and_v_staged,
+                         staged.bias_and_v_plain, lambda st, x: st[:2])
+    for key, v in (("af", "v"), ("af_bf16", "v16")):
+        out[key] = (key, staged.af_staged, staged.af_plain,
+                    lambda st, x, v=v: (st[0], st[1], x["qdd"], x[v]))
+    out["vaf"] = ("vaf", staged.vaf_staged, staged.vaf_plain,
+                  lambda st, x: tuple(st))
     out["minv_dense_norhs"] = ("minv_dense", staged.minv_qdd_dense_staged,
                                staged.minv_qdd_dense_plain,
                                lambda st, x: (st[0],))
@@ -1216,13 +1241,14 @@ def phase0_toolchain():
 
 _PTXAS_NAME = re.compile(
     r"(md_step_ground|md_rnea|md_aba|md_id_grad|md_fd_grad|md_fd|md_vaf"
-    r"|md_minv"
+    r"|md_minv|vaf_tile|fd_grad_tile"
     r"|md_grad_cols|fb_aba|fb_fd|stance_fd|step_ground|fd_grad|id_grad"
     r"|fd_dense|fd|minv_dense_tile|minv_dense|minv_af|minv_ud|minv_cols"
     r"|minv|rnea|aba|vaf|grad_cols_tile|grad_cols|hessian|t1|t2|t4|t5)"
     r"_kernelI([fd])"
     r"(?:L([bi])(\d+)E)?")
 _TEMPLATE_ARG = {"rnea": "qdd", "minv_dense": "rhs", "vaf": "mode",
+                 "vaf_tile": "mode",
                  "minv_dense_tile": "rhs",
                  "grad_cols": "finish", "hessian": "lam", "t5": "q",
                  "fd_grad": "dense",
@@ -1296,14 +1322,15 @@ def rows_key(case):
             (cff.collision_links(cs), () if ls is None else ls.pairs))
 
 
-def build_all(models, staged=(), links=None, pairs=None):
+def build_all(models, staged=(), links=None, pairs=None, only=None):
     """Build every topology at once (one nvcc per source and topology), the
-    staged multi-dof unit too for the labels in ``staged``, a free flyer's
-    stance and step library for the contact links ``links[label]`` and the
-    collision and loop ``pairs[label]``."""
+    staged multi-dof unit too for the labels in ``staged``, only the units
+    ``only[label]`` of those labels, a free flyer's stance and step library
+    for the contact links ``links[label]`` and the collision and loop
+    ``pairs[label]``."""
     t0 = time.perf_counter()
-    links, pairs = links or {}, pairs or {}
-    units = {label: _with_staged(m) if label in staged else None
+    links, pairs, only = links or {}, pairs or {}, only or {}
+    units = {label: _with_staged(m) if label in staged else only.get(label)
              for label, m in models.items()}
     threads = [threading.Thread(target=_build.library,
                                 args=(m, units[label], links.get(label),
@@ -1358,23 +1385,34 @@ def state_errors(got, ref):
     return err
 
 
-def sensitivity(plain, m64, args64, ref, dtype):
+def moved_inputs(args, ulp, draws, seed=SEED):
+    """``draws`` copies of the batch-last inputs side by side in the batch,
+    every value moved by a random ± ``ulp`` relative."""
+    B = args[0].shape[-1]
+    gen = torch.Generator(device=args[0].device)
+    gen.manual_seed(seed)
+    return [(x.repeat(*(1,) * (x.dim() - 1), draws)
+             * (1 + (torch.rand(x.shape[:-1] + (draws * B,), generator=gen,
+                                device=x.device, dtype=x.dtype) * 2 - 1)
+                * ulp)) for x in args]
+
+
+def draw_errors(outs, ref, draws):
+    """state_errors of each of ``draws`` side-by-side copies of a batch
+    against ``ref``: (draws, B)."""
+    B = ref[0].shape[-1] if isinstance(ref, tuple) else ref.shape[-1]
+    return torch.stack([state_errors(tuple(o[..., d * B:(d + 1) * B]
+                                           for o in _as_tuple(outs)), ref)
+                        for d in range(draws)])
+
+
+def sensitivity(plain, m64, args64, ref, dtype, draws=SENS_DRAWS):
     """Each state's sensitivity (B,) for a check in ``dtype``: the largest
     move of the plain float64 version's outputs ``ref`` (state_errors) when
     every input moves by a random ± SENS_ULP[dtype] relative, over
-    SENS_DRAWS draws (in one call: the draws side by side in the batch)."""
-    B = args64[0].shape[-1]
-    gen = torch.Generator(device=args64[0].device)
-    gen.manual_seed(SEED)
-    moved = [(x.repeat(*(1,) * (x.dim() - 1), SENS_DRAWS)
-              * (1 + (torch.rand(x.shape[:-1] + (SENS_DRAWS * B,),
-                                 generator=gen, device=x.device,
-                                 dtype=x.dtype) * 2 - 1) * SENS_ULP[dtype]))
-             for x in args64]
-    outs = _as_tuple(plain(m64, *moved))
-    return torch.stack([state_errors(tuple(o[..., d * B:(d + 1) * B]
-                                           for o in outs), ref)
-                        for d in range(SENS_DRAWS)]).amax(0)
+    ``draws`` draws (in one call: the draws side by side in the batch)."""
+    moved = moved_inputs(args64, SENS_ULP[dtype], draws)
+    return draw_errors(plain(m64, *moved), ref, draws).amax(0)
 
 
 def check_sensitive(got, ref, scale, sel, tol):
@@ -1395,6 +1433,46 @@ def check_sensitive(got, ref, scale, sel, tol):
         ), ab
 
 
+def _f32_tol(plain32, ref):
+    """The float32 check's normwise tolerance on the states ``rest`` (a
+    (B,) mask, or None for every state): 1e-5, or twice the plain float32
+    version's own error there."""
+    def tol(rest):
+        def sub(x):
+            return (_as_tuple(x) if rest is None
+                    else tuple(o[..., rest] for o in _as_tuple(x)))
+        return max(REL_TOL[torch.float32],
+                   F32_PLAIN_FACTOR * compare(sub(plain32), sub(ref))[0])
+    return tol
+
+
+def _split_sensitive(got, ref, sens, keep, tol, plain32=None):
+    """One pass of a sensitive check: the states whose sensitivity ``sens``
+    passes REL_TOL / SENS_MARGIN (and ``keep``) each on its own
+    (check_sensitive; in float32 scaled by the larger of ``sens`` and the
+    plain float32 version's error ``plain32`` there), the rest normwise at
+    ``tol`` (a function of the rest: float32's depends on the plain float32
+    version's error there). → (out mask, rest mask, tol, sensitive ok, note,
+    their max abs error, the states past either check)."""
+    dtype = ref[0].dtype if isinstance(ref, tuple) else ref.dtype
+    out = sens > REL_TOL[torch.float32 if plain32 is not None
+                         else dtype] / SENS_MARGIN
+    if keep is not None:
+        out = out & keep
+    rest = ~out if keep is None else keep & ~out
+    t = tol(rest)
+    scale = sens if plain32 is None else torch.maximum(
+        sens, state_errors(plain32, ref))
+    ok, note, ab = check_sensitive(got, ref, scale, out, t)
+    err = state_errors(got, ref)
+    rest_err = state_errors(tuple(o[..., rest] for o in _as_tuple(got)),
+                            tuple(o[..., rest] for o in _as_tuple(ref)))
+    past = torch.zeros_like(out)
+    past[rest] = rest_err > t
+    past |= out & (err > (SENS_C * scale).clamp(min=t))
+    return out, rest, t, ok, note, ab, past
+
+
 def check_against_plain(tag, got, plain, m, args, keep=None,
                         sensitive=False):
     """Hold a kernel's output to its plain version on the same inputs: in
@@ -1404,42 +1482,55 @@ def check_against_plain(tag, got, plain, m, args, keep=None,
     only, where it is given: a ground step's states whose float64 gap or
     cell position lies within rounding of a switch (step_exclusions). With
     ``sensitive``, the round-off-sensitive states are held each on its own
-    (check_sensitive) and the rest normwise. Returns (max abs error,
-    normwise relative error)."""
+    (check_sensitive) and the rest normwise; a state past its check on the
+    SENS_DRAWS estimate of its sensitivity is measured again over
+    SENS_REDRAWS draws, and the check is made once more with the larger
+    estimate (eight draws of a 67-value input can miss the direction a
+    state is sensitive in by 3–5×; PERF.md §7). Returns (max abs
+    error, normwise relative error)."""
+    t0 = time.perf_counter()
     sens_ok, note, s_ab = True, "", 0.0
-    if m.dtype == torch.float64:
+    f64 = m.dtype == torch.float64
+    if f64:
         ref = plain(m, *args)
-        tol = REL_TOL[m.dtype]
-        if sensitive:
-            sens = sensitivity(plain, m, args, ref, m.dtype)
-            out = sens > tol / SENS_MARGIN
-            sens_ok, note, s_ab = check_sensitive(got, ref, sens, out, tol)
-            got, ref = (tuple(o[..., ~out] for o in _as_tuple(x))
-                        for x in (got, ref))
-        extra = note
+        m64, args64, plain32 = m, args, None
     else:
         m64, args64 = m.to(dtype=torch.float64), [x.double() for x in args]
         ref = plain(m64, *args64)
         plain32 = plain(m, *args)
-        rest = keep
-        if sensitive:
-            sens = sensitivity(plain, m64, args64, ref, m.dtype)
-            out = sens > REL_TOL[m.dtype] / SENS_MARGIN
-            if keep is not None:
-                out = out & keep
-            rest = ~out if keep is None else keep & ~out
-            scale = torch.maximum(sens, state_errors(plain32, ref))
-            s_got, s_ref = got, ref
-        if rest is not None:
-            got, ref, plain32 = (tuple(o[..., rest] for o in _as_tuple(x))
-                                 for x in (got, ref, plain32))
-        p_rel, p_st, _ = compare(plain32, ref)
-        k_rel, k_st, _ = compare(got, plain32)
+
+    tol_of = ((lambda rest: REL_TOL[m.dtype]) if f64
+              else _f32_tol(plain32, ref))
+    rest = keep
+    if sensitive:
+        sens = sensitivity(plain, m64, args64, ref, m.dtype)
+        out, rest, tol, sens_ok, note, s_ab, past = _split_sensitive(
+            got, ref, sens, keep, tol_of, plain32)
+        if bool(past.any()):
+            idx = torch.nonzero(past).flatten()
+            sub = [x[..., idx] for x in args64]
+            again = draw_errors(
+                plain(m64, *moved_inputs(sub, SENS_ULP[m.dtype],
+                                         SENS_REDRAWS)),
+                tuple(o[..., idx] for o in _as_tuple(ref)),
+                SENS_REDRAWS).amax(0)
+            sens = sens.clone()
+            sens[idx] = torch.maximum(sens[idx], again)
+            out, rest, tol, sens_ok, note, s_ab, _ = _split_sensitive(
+                got, ref, sens, keep, tol_of, plain32)
+            note += (f"; {len(idx)} states past on the {SENS_DRAWS}-draw "
+                     f"estimate measured again over {SENS_REDRAWS} draws")
+    else:
+        tol = tol_of(keep)
+    extra = note
+    if not f64:
+        p_rel, p_st, _ = compare(*(tuple(o[..., rest] for o in _as_tuple(x))
+                                   if rest is not None else x
+                                   for x in (plain32, ref)))
+        k_rel, k_st, _ = compare(*(tuple(o[..., rest] for o in _as_tuple(x))
+                                   if rest is not None else x
+                                   for x in (got, plain32)))
         del plain32
-        tol = max(REL_TOL[m.dtype], F32_PLAIN_FACTOR * p_rel)
-        if sensitive:
-            sens_ok, note, s_ab = check_sensitive(s_got, s_ref, scale, out,
-                                                  tol)
         extra = (f"; plain f32 vs f64 plain: rel {p_rel:.3e} (per-state "
                  f"{p_st:.3e}); kernel vs plain f32: rel {k_rel:.3e} "
                  f"(per-state {k_st:.3e})")
@@ -1447,12 +1538,16 @@ def check_against_plain(tag, got, plain, m, args, keep=None,
             extra += (f"; {int((~keep).sum())} of {keep.numel()} states "
                       f"left out near a switch")
         extra += note
+    if rest is not None:
+        got, ref = (tuple(o[..., rest] for o in _as_tuple(x))
+                    for x in (got, ref))
     rel, st, ab = compare(got, ref)
     ok = rel <= tol and sens_ok
     ab = max(ab, s_ab)
     log(f"{tag}: rel {rel:.3e} (per-state {st:.3e}, abs {ab:.3e}) tol "
         f"{tol:.1e}{' (the other states)' if note else ''} "
-        f"{'ok' if ok else 'FAIL'}{extra}")
+        f"{'ok' if ok else 'FAIL'}{extra} "
+        f"[{time.perf_counter() - t0:.1f} s]")
     if not ok:
         raise RuntimeError(f"{tag}: kernel disagrees with its plain version")
     return ab, rel
@@ -1469,17 +1564,26 @@ def run_pair(tag, key, kern, plain, m, args, keep=None, sensitive=False):
     return check_against_plain(tag, got, plain, m, args, keep, sensitive)
 
 
+# phase 1's second-order checks left out in float64 (the 750 s budget):
+# the Hessians on the branched arm (held in float64 on iiwa-14, in float32
+# on both) and the tangent stages at Atlas (held in float64 on the branched
+# arm at FORCED_CB, in float32 at Atlas)
+SO_F32_ONLY = {"branched_arm": "hessians", "atlas": "stages"}
+
+
 def phase1_second_order(label, m, q, qd, u, gen):
     """The single-thread Hessian kernels (iiwa-14, the branched arm) and the
     staged λᵀ·H's tangent stages (Atlas, and the branched arm at a forced
-    ragged column block) against their plain versions."""
+    ragged column block) against their plain versions (float64 but where
+    SO_F32_ONLY leaves them out)."""
     lam = uniform_lam(m.n, q.shape[-1], m.dtype, gen)
     s = (q, qd, u, lam)
     tag = f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]}"
-    if label != "atlas":
+    skip = SO_F32_ONLY.get(label) if m.dtype == torch.float64 else None
+    if label != "atlas" and skip != "hessians":
         for name, (key, kern, plain, k) in HESS_PAIRS.items():
             run_pair(f"{tag} {name}", key, kern, plain, m, s[:k])
-    if label != "iiwa14":
+    if label != "iiwa14" and skip != "stages":
         cb = FORCED_CB if label == "branched_arm" else None
         up, pairs = so_stage_pairs(cb)
         x = up(m, *s)
@@ -1540,6 +1644,13 @@ def phase1_kernels_vs_plain(gen):
                           device="cuda")
         phase1_tiles(TILE_ROBOT, m,
                      *uniform_states(m.n, PHASE1_B, dtype, tile_gen))
+    # the recursion ∇FD tile on the prismatic chain (iiwa-14 and the
+    # branched arm hold it above, as PAIRS' fd_grad)
+    for dtype in (torch.float64, torch.float32):
+        m = gt.load_robot(FD_TILE_ROBOTS["chain5p"], dtype=dtype,
+                          device="cuda")
+        phase1_fd_tile("chain5p", m,
+                       *uniform_states(m.n, PHASE1_B, dtype, tile_gen))
 
 
 def phase1_tiles(label, m, q, qd, u, names=None, x=None):
@@ -2531,7 +2642,7 @@ def count_ops_child():
 
 
 class OpCounts:
-    """The counting child: started at the top of main(), read at the
+    """The counting child: started after main()'s builds, read at the
     first bound phase 3 writes."""
 
     def __init__(self):
@@ -4152,36 +4263,73 @@ def design(name):
 
 
 TILE_PROBE_ROBOTS = ("branched_arm", "hyq", "atlas")
+# the recursion ∇FD tile's robots (n ≤ MAX_KERNEL_JOINTS): a serial chain,
+# siblings under a moving parent, and revolute and prismatic joints
+FD_TILE_ROBOTS = {"iiwa14": ROBOTS["iiwa14"],
+                  "branched_arm": ROBOTS["branched_arm"],
+                  "chain5p": zoo.serial_chain(5, damping=0.1,
+                                              prismatic_every=2)}
+# the sweep tile's and the ∇FD tile's kernels, timed on both designs
+SWEEP_TIMED = ("bias_and_v", "af", "af_bf16", "vaf")
+
+
+def phase1_fd_tile(label, m, q, qd, u):
+    """The recursion ∇FD tile against its plain version."""
+    key, kern, plain, _ = PAIRS["fd_grad"]
+    run_pair(f"phase1 {label} {str(m.dtype)[6:]} B={q.shape[-1]} tile "
+             f"fd_grad", key, kern, plain, m, (q, qd, u))
+
+
+def atlas_stages(m, q, qd, u):
+    """Atlas's staged intermediates on the card's kernels (the inputs
+    tile_pairs' kernels take)."""
+    x = {}
+    c, x["v"] = staged.bias_and_v_staged(m, q, qd)
+    x["umc"] = u - c
+    x["Minv"], x["qdd"] = staged.minv_qdd_dense_staged(m, q, x["umc"])
+    x["a"], x["f"] = staged.af_staged(m, q, qd, x["qdd"], x["v"])
+    x["v2"], x["a2"], x["f2"] = staged.vaf_staged(m, q, qd, u)
+    x["v16"] = staged.to_stage(x["v"])
+    return x
 
 
 def tile_probe():
     """``chip_smoke.py --tile-probe``: the short first call for the tile
-    kernels — build staged.cu for the branched arm, HyQ and Atlas, print
-    ptxas's report, hold K5 and K2′ in every mode (tile_pairs) to their
-    plain versions at PHASE1_B in float64 and float32, then time both
-    designs at Atlas f32, 2¹⁸ (thread, tile, tile, thread)."""
+    kernels — build staged.cu for the branched arm, HyQ and Atlas and
+    fused.cu for FD_TILE_ROBOTS, print ptxas's report, hold K5, K2′ and the
+    sweep tile in every mode (tile_pairs) and the recursion ∇FD tile to
+    their plain versions at PHASE1_B in float64 and float32, then time both
+    designs (thread, tile, tile, thread): K5, K2′ and the sweeps at Atlas
+    f32, 2¹⁸, and the ∇FD at iiwa-14."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     t0 = time.perf_counter()
     phase0_toolchain()
     urdf = {**ROBOTS, **ROUTE_ROBOTS}
-    models = {label: gt.load_robot(urdf[label], device="cuda")
-              for label in TILE_PROBE_ROBOTS}
-    threads = [threading.Thread(target=_build.library,
-                                args=(m, ("staged.cu",)))
-               for m in models.values()]
+    builds = [(label, gt.load_robot(urdf[label], device="cuda"), "staged.cu")
+              for label in TILE_PROBE_ROBOTS]
+    builds += [(label, gt.load_robot(u, device="cuda"), "fused.cu")
+               for label, u in FD_TILE_ROBOTS.items()]
+    threads = [threading.Thread(target=_build.library, args=(m, (unit,)))
+               for _, m, unit in builds]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for label, m in models.items():
-        lib = _build.library(m, ("staged.cu",))
-        log(f"build {label} (n={m.n}) staged.cu: nvcc "
-            f"{lib.build_seconds['staged.cu']:.1f} s")
-        for line in ptxas_report(lib.logs["staged.cu"]):
+    for label, m, unit in builds:
+        lib = _build.library(m, (unit,))
+        log(f"build {label} (n={m.n}) {unit}: nvcc "
+            f"{lib.build_seconds[unit]:.1f} s")
+        for line in ptxas_report(lib.logs[unit]):
             log(line)
+    log(f"-- probe builds done at {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    for label, u in FD_TILE_ROBOTS.items():
+        for dtype in (torch.float64, torch.float32):
+            m = gt.load_robot(u, dtype=dtype, device="cuda")
+            phase1_fd_tile(label, m,
+                           *uniform_states(m.n, PHASE1_B, dtype, gen))
     for label in TILE_PROBE_ROBOTS:
         for dtype in (torch.float64, torch.float32):
             m = gt.load_robot(urdf[label], dtype=dtype, device="cuda")
@@ -4189,32 +4337,297 @@ def tile_probe():
                          *uniform_states(m.n, PHASE1_B, dtype, gen))
     log(f"-- probe checks done at {time.perf_counter() - t0:.1f} s")
     name_limit = card()
-    m = models["atlas"]
-    q, qd, u = uniform_states(m.n, MAIN_B, torch.float32, gen)
-    up, pairs = tile_pairs()
-    x = {}
-    c, x["v"] = staged.bias_and_v_staged(m, q, qd)
-    x["umc"] = u - c
-    x["Minv"], x["qdd"] = staged.minv_qdd_dense_staged(m, q, x["umc"])
-    x["a"], x["f"] = staged.af_staged(m, q, qd, x["qdd"], x["v"])
-    x["v2"], x["a2"], x["f2"] = staged.vaf_staged(m, q, qd, u)
-    for name in ("grad_cols_finish", "grad_cols", "minv_dense",
-                 "minv_dense_norhs"):
-        _, kern, _, inputs = pairs[name]
-        args = (m, *inputs((q, qd, u), x))
+
+    def both(tag, fn, args):
         ms = {}
         for d in ("thread", "tile", "tile", "thread"):
             with design(d):
-                ms.setdefault(d, []).append(time_ms(kern, args))
-        log(f"probe atlas f32 B={MAIN_B} {name}: "
-            + "; ".join(f"{d} {'/'.join(f'{t:.3f}' for t in v)} ms"
-                        for d, v in ms.items()) + f"; card {name_limit}")
-    for d in ("thread", "tile", "tile", "thread"):
-        with design(d):
-            ms = time_ms(staged.fd_grad_staged, (m, q, qd, u))
-        log(f"probe atlas f32 B={MAIN_B} fd_grad_staged {d}: {ms:.3f} ms; "
-            f"card {name_limit}")
+                ms.setdefault(d, []).append(time_ms(fn, args))
+        log(f"probe {tag}: " + "; ".join(
+            f"{d} {'/'.join(f'{t:.3f}' for t in v)} ms"
+            for d, v in ms.items()) + f"; card {name_limit}")
+    mI = [m for label, m, unit in builds if label == "iiwa14"][0]
+    s = uniform_states(mI.n, MAIN_B, torch.float32, gen)
+    both(f"iiwa14 f32 B={MAIN_B} fd_grad", fused.fd_grad_fused, (mI, *s))
+    m = [m for label, m, unit in builds if label == "atlas"][0]
+    q, qd, u = uniform_states(m.n, MAIN_B, torch.float32, gen)
+    _, pairs = tile_pairs()
+    x = atlas_stages(m, q, qd, u)
+    for name in ("grad_cols_finish", "grad_cols", "minv_dense",
+                 "minv_dense_norhs", *SWEEP_TIMED):
+        _, kern, _, inputs = pairs[name]
+        both(f"atlas f32 B={MAIN_B} {name}", kern,
+             (m, *inputs((q, qd, u), x)))
+    both(f"atlas f32 B={MAIN_B} fd_grad_staged", staged.fd_grad_staged,
+         (m, q, qd, u))
     log(f"-- probe done at {time.perf_counter() - t0:.1f} s")
+
+
+# --tile-configs: (CTAs an SM, sweep threads f32 / f64, ∇FD threads f32 /
+# f64) — the plan settings _build.py sizes the sweep and ∇FD tiles with,
+# the default first
+TILE_CONFIGS = ((2, (512, 256), (384, 256)), (1, (512, 256), (512, 256)),
+                (2, (256, 256), (512, 256)), (3, (512, 256), (256, 256)))
+
+
+def tile_configs():
+    """``chip_smoke.py --tile-configs``: the sweep tile (K1, K4, vaf at
+    Atlas) and the ∇FD tile (iiwa-14) built with each TILE_CONFIGS plan
+    setting — every build at once — and timed at f32, 2¹⁸, each beside its
+    head against the plain version."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    phase0_toolchain()
+    name_limit = card()
+    saved = (_build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS)
+    mA = gt.load_robot(ROBOTS["atlas"], dtype=torch.float32, device="cuda")
+    mI = gt.load_robot(ROBOTS["iiwa14"], dtype=torch.float32, device="cuda")
+    builds = {}
+    for k, (ctas, vt, ft) in enumerate(TILE_CONFIGS):
+        _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = ctas, vt, ft
+        for m, unit in ((mA, "staged.cu"), (mI, "fused.cu")):
+            key = _build.topology_key(m)
+            out = _build.BUILD_DIR / f"config{k}_n{m.n}_{Path(unit).stem}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-std=c++17",
+                   "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   *_build._macros(key), "-o", str(out),
+                   str(_build._CSRC / unit)]
+            builds[k, unit] = (key, m.n, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sA = uniform_states(mA.n, MAIN_B, torch.float32, gen)
+    sI = uniform_states(mI.n, MAIN_B, torch.float32, gen)
+    try:
+        for k, (ctas, vt, ft) in enumerate(TILE_CONFIGS):
+            _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = (
+                ctas, vt, ft)
+            for unit in ("staged.cu", "fused.cu"):
+                key, n, out, proc = builds[k, unit]
+                text, _ = proc.communicate()
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed on {out.name}:\n{text}")
+                _build._LOADED[key] = _build.KernelLibrary(
+                    {unit: _build._load(unit, out, n)}, {unit: out},
+                    {unit: 0.0}, {unit: text})
+                for line in ptxas_report(text):
+                    if "_tile<float" in line:
+                        log(f"config {k}: {line.strip()}")
+            x = atlas_stages(mA, *sA)
+            q, qd, u = sA
+            calls = {"bias_and_v": (staged.bias_and_v_staged, (mA, q, qd)),
+                     "af": (staged.af_staged, (mA, q, qd, x["qdd"], x["v"])),
+                     "vaf": (staged.vaf_staged, (mA, q, qd, u)),
+                     "fd_grad": (fused.fd_grad_fused, (mI, *sI))}
+            ms = {name: [time_ms(fn, args) for _ in range(2)]
+                  for name, (fn, args) in calls.items()}
+            head = [a[:, :V_HEAD].contiguous() for a in sI]
+            _, rel = check_against_plain(
+                f"config {k} iiwa14 fd_grad head ({V_HEAD} states)",
+                fused.fd_grad_fused(mI, *head), fused.fd_grad_plain, mI,
+                head)
+            log(f"config {k}: {ctas} CTAs an SM, sweep threads {vt}, ∇FD "
+                f"threads {ft}: " + "; ".join(
+                    f"{name} {'/'.join(f'{t:.3f}' for t in v)} ms"
+                    for name, v in ms.items()) + f" (f32, B={MAIN_B}); card "
+                f"{name_limit}")
+            del x
+    finally:
+        _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = saved
+        for key in {b[0] for b in builds.values()}:
+            _build._LOADED.pop(key, None)
+
+
+GEOMS_SEED = 4           # --geoms-fault's own generator
+GEOMS_FAULT_CHUNKS = 16  # × PHASE1_B states
+FAULT_DRAWS = 64         # ± one-ulp draws a failing state is probed with
+# chunk of GEOMS_SEED's draws → the states phase 1 holds: those past the
+# float32 check on the SENS_DRAWS estimate of their sensitivity alone — 498
+# held normwise, 576 held as sensitive, the worst of each kind (chunks 7
+# and 9 held states 573, and 61 and 162, as well; --geoms-fault holds all
+# four) — and those that set each output's scale over the chunk
+GEOMS_CASES = {0: (497, 498, 632, 704, 731),
+               15: (385, 504, 520, 576, 794)}
+
+
+def phase1_geoms_cases():
+    """Free HyQ's float32 step with its ground geoms on the 121² grid on
+    GEOMS_CASES' states of GEOMS_SEED's draws, held to its plain version
+    as phase 1 holds the whole chunk (sensitive states one by one)."""
+    m = ff_model("hyq", torch.float32)
+    kern, plain = step_fns("hyq", "121", False, torch.float32, geoms=True)
+    draws = geoms_draws(m, max(GEOMS_CASES) + 1)
+    for chunk, held in GEOMS_CASES.items():
+        sub = [x[..., list(held)].contiguous() for x in draws[chunk]]
+        run_pair(f"phase1 free hyq float32 geoms chunk {chunk} states "
+                 f"{list(held)} step_ground_terrain_geoms",
+                 "step_ground_terrain", kern, plain, m, sub,
+                 step_switches(m, sub[:6], "hyq", "121", geoms=True)[0],
+                 sensitive=True)
+
+
+def _scaled_errors(got, ref, scales):
+    """Each state's largest error of ``got`` against ``ref``, each output
+    relative to its ``scales`` entry: (B,)."""
+    err = None
+    for a, b, sc in zip(_as_tuple(got), _as_tuple(ref), scales):
+        d = (a.double() - b.double()).abs().reshape(-1, a.shape[-1]).amax(0)
+        err = d / sc if err is None else torch.maximum(err, d / sc)
+    return err
+
+
+def geoms_draws(m, chunks):
+    """GEOMS_SEED's draws of free HyQ's step with its ground geoms on the
+    121² grid: ``chunks`` chunks of PHASE1_B states, each the inputs
+    (quat, pos, q, vb, qd, tau, mu) as phase 1 draws them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GEOMS_SEED)
+    out = []
+    for _ in range(chunks):
+        s = ff_states(m, PHASE1_B, gen, "hyq")
+        out.append((*s, *step_inputs(m, PHASE1_B, gen, "hyq", False,
+                                     geoms=True)))
+    return out
+
+
+def geoms_fault():
+    """``chip_smoke.py --geoms-fault``: free HyQ's float32 ground step with
+    its 14 geom contacts on the 121² grid (phase 1's
+    step_ground_terrain_geoms) on GEOMS_FAULT_CHUNKS chunks of PHASE1_B
+    states from its own generator (geoms_draws), each chunk held to its
+    plain version as phase 1 holds it — on the SENS_DRAWS sensitivity
+    estimate alone, and by check_against_plain, which measures a state past
+    its check again over SENS_REDRAWS draws. For every state past the first
+    it prints what tells an ill-conditioned state from a kernel fault: its
+    sensitivity over SENS_DRAWS and FAULT_DRAWS draws; the kernel in
+    float64 against the plain float64 version; the kernel's and the plain
+    float32 version's errors under FAULT_DRAWS draws of ± one float32 ulp
+    of every input; the output that is off; the contacts' distances to
+    their switches; and the chunk's states phase 1 holds (GEOMS_CASES)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    phase0_toolchain()
+    name_limit = card()
+    gl = cff.geom_links(cff.ground_geoms_static(step_geoms(torch.float64,
+                                                           "cpu")))
+    t0 = time.perf_counter()
+    lib = _build.library(ff_model("hyq"), links=FF_ROBOTS["hyq"][1] + gl)
+    log(f"build hyq (free flyer, ground geoms): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in ptxas_report(next(iter(lib.logs.values()))):
+        log(line)
+    m = ff_model("hyq", torch.float32)
+    m64 = m.to(dtype=torch.float64)
+    kern, plain = step_fns("hyq", "121", False, torch.float32, geoms=True)
+    found = []
+    names = ("quat", "pos", "q", "vb", "qd", "impulses")
+    for chunk, args in enumerate(geoms_draws(m, GEOMS_FAULT_CHUNKS)):
+        got = _as_tuple(kern(m, *args))
+        args64 = [x.double() for x in args]
+        ref = _as_tuple(plain(m64, *args64))
+        p32 = _as_tuple(plain(m, *args))
+        keep, gaps = step_switches(m, args[:6], "hyq", "121", geoms=True)
+        sens = sensitivity(plain, m64, args64, ref, torch.float32)
+        out, rest, tol, s_ok, note, _, past = _split_sensitive(
+            got, ref, sens, keep, _f32_tol(p32, ref), p32)
+        try:
+            check_against_plain(f"geoms-fault chunk {chunk} (the check)", got,
+                                plain, m, args, keep, sensitive=True)
+            verdict = "passes"
+        except RuntimeError:
+            verdict = "FAILS"
+        log(f"geoms-fault chunk {chunk}: on the {SENS_DRAWS}-draw estimate "
+            f"alone {int(past.sum())} states past (tol {tol:.3e}; "
+            f"sensitive ones {'ok' if s_ok else 'FAIL'}); the check "
+            f"{verdict}")
+        idx = torch.nonzero(past).flatten()
+        if not len(idx):
+            continue
+        one = [x[..., idx].contiguous() for x in args]
+        one64 = [x.double() for x in one]
+        ref1 = tuple(r[..., idx] for r in ref)
+        scales = [float(r[..., rest].double().abs().max().clamp(min=1.0))
+                  for r in ref]
+        e_k = _scaled_errors(got, ref, scales)
+        e_p = _scaled_errors(p32, ref, scales)
+        # the same geometry as the reference: the float32 grid and geoms
+        e64 = _scaled_errors(_as_tuple(kern(m64, *one64)), ref1, scales)
+        sens_n = draw_errors(plain(m64, *moved_inputs(one64, SENS_ULP[
+            torch.float32], FAULT_DRAWS)), ref1, FAULT_DRAWS).amax(0)
+        moved = moved_inputs(one, SENS_ULP[torch.float32], FAULT_DRAWS, 1)
+        k = len(idx)
+        d_k, d_p = (torch.stack([_scaled_errors(
+            tuple(o[..., d * k:(d + 1) * k] for o in _as_tuple(fn(m, *moved))),
+            ref1, scales) for d in range(FAULT_DRAWS)]) for fn in (kern,
+                                                                   plain))
+        _, pts = step_feet(m, *one[:3], "hyq", "121", True)
+        terr = step_terrain("121", torch.float32, "cuda")
+        edge = None
+        for p_w in pts:
+            u, v, _, _ = ttr.cell_index(terr, p_w[0], p_w[1])
+            e = torch.minimum((u - u.round()).abs(), (v - v.round()).abs())
+            edge = e if edge is None else torch.minimum(edge, e)
+        g1 = gaps[..., idx]
+        for j, b in enumerate(idx.tolist()):
+            worst = max(range(len(got)), key=lambda o: float(
+                (got[o][..., b].double() - ref[o][..., b]).abs().max()
+                / scales[o]))
+            found.append(dict(chunk=chunk, state=b,
+                              sensitive=bool(out[b]), err=float(e_k[b]),
+                              plain_err=float(e_p[b]), tol=tol,
+                              sens=float(sens[b]), sens64=float(sens_n[j]),
+                              kernel_f64=float(e64[j]),
+                              kernel_draws_max=float(d_k[:, j].max()),
+                              kernel_draws_median=float(d_k[:, j].median()),
+                              plain_draws_max=float(d_p[:, j].max()),
+                              plain_draws_median=float(d_p[:, j].median()),
+                              output=names[worst]))
+            log(f"geoms-fault chunk {chunk} state {b} "
+                f"({'sensitive' if out[b] else 'held normwise'}): kernel "
+                f"{e_k[b]:.3e} (tol {tol:.3e}), plain f32 {e_p[b]:.3e}; "
+                f"sensitivity {sens[b]:.3e} ({SENS_DRAWS} draws) / "
+                f"{sens_n[j]:.3e} ({FAULT_DRAWS}); kernel f64 vs plain f64 "
+                f"{e64[j]:.3e}; under ± 1 f32 ulp ({FAULT_DRAWS} draws): "
+                f"kernel max {d_k[:, j].max():.3e} median "
+                f"{d_k[:, j].median():.3e}, plain f32 max "
+                f"{d_p[:, j].max():.3e} median {d_p[:, j].median():.3e}; "
+                f"worst output {names[worst]}; active contacts "
+                f"{int((g1[:, j] < STEP_MARGIN).sum())} of {g1.shape[0]}, "
+                f"min |gap − margin| "
+                f"{float((g1[:, j] - STEP_MARGIN).abs().min()):.3e}, min "
+                f"cell-edge distance {float(edge[j]):.3e} cells")
+        # phase 1's case: the states past, and those that set each output's
+        # scale over the chunk (so the sub-batch's errors are scaled as the
+        # chunk's)
+        held = sorted(set(idx.tolist()) | {
+            int(r.double().abs().reshape(-1, PHASE1_B).amax(0).argmax())
+            for r in ref})
+        log(f"geoms-fault chunk {chunk}: phase 1's states {held}")
+        sub = [x[..., held].contiguous() for x in args]
+        sgot = tuple(o[..., held] for o in got)
+        sref = _as_tuple(plain(m64, *[x.double() for x in sub]))
+        sp32 = _as_tuple(plain(m, *sub))
+        skeep = step_switches(m, sub[:6], "hyq", "121", geoms=True)[0]
+        ssens = sensitivity(plain, m64, [x.double() for x in sub], sref,
+                            torch.float32)
+        *_, sok8, _, _, spast = _split_sensitive(
+            sgot, sref, ssens, skeep, _f32_tol(sp32, sref), sp32)
+        try:
+            check_against_plain(f"geoms-fault chunk {chunk} states {held}",
+                                sgot, plain, m, sub, skeep, sensitive=True)
+            verdict = "passes"
+        except RuntimeError:
+            verdict = "FAILS"
+        log(f"geoms-fault chunk {chunk} states {held}: on the "
+            f"{SENS_DRAWS}-draw estimate alone "
+            f"{'FAILS' if bool(spast.any()) or not sok8 else 'passes'}, the "
+            f"check {verdict}")
+    log(f"geoms-fault: {len(found)} states past on the {SENS_DRAWS}-draw "
+        f"estimate alone of {GEOMS_FAULT_CHUNKS * PHASE1_B}; card "
+        f"{name_limit}")
+    log(json.dumps(found))
 
 
 V_SEED = 2               # phase V's own generator: earlier phases unchanged
@@ -4293,13 +4706,18 @@ def v_atlas_cases(mA):
                         {"minv_ud": 1, "minv_cols": 1}),
         "fd_staged": (lambda q, qd, u: staged.fd_staged(mA, q, qd, u),
                       {**k1, "minv_ud": 1, "minv_cols": 1}),
-        # the one-thread K2′ and K5 that the CTA tiles replaced
-        "fd_grad dense one-thread K2′ K5": (
-            thread(fdg()), {**k1, "minv_dense_thread": 1, **k4,
-                            "grad_cols_finish_thread": 1}),
-        "id_grad one-thread K5": (
+        # the one-thread K1, K2′, K4, K5 and vaf that the CTA tiles
+        # replaced
+        "fd_grad dense one-thread": (
+            thread(fdg()), {"bias_and_v_thread": 1, "minv_dense_thread": 1,
+                            "af_thread": 1, "grad_cols_finish_thread": 1}),
+        "fd_grad bf16 one-thread": (
+            thread(fdg(stage_dtype=torch.bfloat16)),
+            {"bias_and_v_thread": 1, "minv_dense_thread": 1,
+             "af_bf16_thread": 1, "grad_cols_finish_bf16_thread": 1}),
+        "id_grad one-thread": (
             thread(lambda q, qd, u: staged.id_grad_staged(mA, q, qd, u)),
-            {"vaf": 1, "grad_cols_thread": 1}),
+            {"vaf_thread": 1, "grad_cols_thread": 1}),
         "minv one-thread K2′": (
             thread(lambda q, qd, u: staged.minv_qdd_dense_staged(mA, q)[0]),
             {"minv_dense_thread": 1}),
@@ -4390,6 +4808,9 @@ def phaseV_variants(plain_times):
             with route_limits():
                 outs[f"{label} {fam}"] = fused.fd_grad_fused(
                     mm, *s, minv_impl=fam)
+    # the one-thread recursion ∇FD the tile replaced
+    with design("thread"):
+        outs["iiwa14 recursion one-thread"] = fused.fd_grad_fused(mI, *sI)
     for mm, s, label in ((mI, sI, "iiwa14"), (mA, sA, "atlas")):
         outs[f"{label} fd"] = fused.forward_dynamics_fused(mm, *s)
         outs[f"{label} aba"] = fused.forward_dynamics_aba_fused(mm, *s)
@@ -4405,8 +4826,8 @@ def phaseV_variants(plain_times):
                            ("fd_grad unfused", "fd_grad dense", "unfused"),
                            ("fd_grad dense mergeaf", "fd_grad dense",
                             "mergeaf"),
-                           ("fd_grad dense one-thread K2′ K5",
-                            "fd_grad dense", "one-thread K2′ K5")):
+                           ("fd_grad dense one-thread",
+                            "fd_grad dense", "one-thread")):
             rel = _rel(outs[a][k], outs[b][k])
             held = what == "bf16"
             ok = not held or rel <= BF16_REL
@@ -4431,7 +4852,11 @@ def phaseV_variants(plain_times):
             J = torch.cat(outs[f"{label} {fam}"], 1).permute(2, 0, 1)
             parity_head(desc, J, *(x.T for x in s),
                         f"phaseV {label} fd_grad minv_impl={fam}")
-    del outs
+    tile, thread = (torch.cat(outs[f"iiwa14 recursion{k}"])
+                    for k in ("", " one-thread"))
+    log(f"phaseV parity iiwa14 B={MAIN_B} fd_grad tile vs one-thread: rel "
+        f"err {_rel(tile, thread):.3e}")
+    del outs, tile, thread
 
     for B in V_BATCHES:
         s = [x[..., :B].contiguous() for x in sA]
@@ -4484,13 +4909,19 @@ def phaseV_variants(plain_times):
     # same shapes: bounded by the tiles' counts and beside their plain
     # versions' phase-3 times (the same functions)
     _, spairs = staged_pairs()
+    _, tpairs = tile_pairs()
     x.update(c=c)
     with design("thread"):
-        for name in ("minv_dense", "grad_cols_finish", "grad_cols"):
-            _, kern, plain, inputs = spairs[name]
+        for name in ("minv_dense", "grad_cols_finish", "grad_cols",
+                     *SWEEP_TIMED):
+            _, kern, plain, inputs = tpairs[name]
             entry("atlas", f"{name}_thread", kern, plain, mA,
                   tuple(inputs(sA, x)), count=name,
-                  plain_ms=plain_times[name])
+                  plain_ms=plain_times.get(name, times.get(name, {}).get(
+                      "plain_ms")))
+        _, kern, plain, _ = PAIRS["fd_grad"]
+        entry("iiwa14", "fd_grad_thread", kern, plain, mI, tuple(sI),
+              count="fd_grad", plain_ms=plain_times["fd_grad"])
     del x
     times["fd_grad_dense"]["library_ms"] = chol_library_ms(
         "fd_grad_dense iiwa14", mI, sI[0], None, name_limit)
@@ -4597,6 +5028,17 @@ RECORD = [
      STAGED_SRC, TPU + "staged.py:470"),
     ("grad_cols_thread", "grad_cols_thread", "variants", STAGED_SRC,
      TPU + "staged.py:356"),
+    # phase V: the one-thread K1, K4, vaf and recursion ∇FD that the CTA
+    # tiles replaced
+    ("bias_and_v_thread", "bias_and_v_thread", "variants", STAGED_SRC,
+     TPU + "staged.py:172"),
+    ("af_thread", "af_thread", "variants", STAGED_SRC, TPU + "staged.py:453"),
+    ("af_bf16_thread", "af_bf16_thread", "variants", STAGED_SRC,
+     TPU + "staged.py:373"),
+    ("vaf_thread", "vaf_thread", "variants", STAGED_SRC,
+     TPU + "staged.py:341"),
+    ("fd_grad_thread", "fd_grad_thread", "variants", FUSED_SRC,
+     TPU + "fused.py:394"),
 ]
 
 
@@ -4606,9 +5048,6 @@ def main():
                          "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    # the bounds' operation counts run on the CPU in a child process, beside
-    # every GPU phase up to phase 3
-    COUNTS.start()
 
     def done(phase):
         log(f"-- {phase} done at {time.perf_counter() - t0:.1f} s")
@@ -4627,7 +5066,9 @@ def main():
                       ff_model(label)
                       for label in FF_CHECK for k in (False, True)},
                    **{label: model for label, (model, _, _) in
-                      step_builds().items()}},
+                      step_builds().items()},
+                   "chain5p": gt.load_robot(FD_TILE_ROBOTS["chain5p"],
+                                            device="cuda")},
                   staged={f"{label} (multi-dof)" for label in
                           (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
                   links={**{f"{label} (free flyer, stance)":
@@ -4635,14 +5076,20 @@ def main():
                          **{label: links for label, (_, links, _) in
                             step_builds().items()}},
                   pairs={label: pairs for label, (_, _, pairs) in
-                         step_builds().items() if pairs})
+                         step_builds().items() if pairs},
+                  only={"chain5p": ("fused.cu",)})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         done("builds")
+        # the bounds' operation counts run on the CPU in a child process,
+        # beside every GPU phase from phase 1 to phase 3 (started after the
+        # builds, whose nvcc processes take every core)
+        COUNTS.start()
         phase1_kernels_vs_plain(gen)
     phase1_multidof(gen)
     md_stage_abs = phase1_md_staged(gen)
     phase1_free_flyer(gen)
+    phase1_geoms_cases()
     # the collision and loop cases draw from a generator of their own, so
     # the later phases' states are the ones they drew before those cases
     # were added
@@ -4704,7 +5151,8 @@ def main():
     done("phase 3 collision and loops")
     v_launches, v_max_abs, v_times = phaseV_variants(
         {k: times[k]["plain_ms"] for k in ("minv_dense", "grad_cols_finish",
-                                           "grad_cols")})
+                                           "grad_cols", "fd_grad",
+                                           *SWEEP_TIMED) if k in times})
     max_abs.update(v_max_abs)
     times.update(v_times)
     times["minv_dense_thread"]["library_ms"] = \
@@ -4746,6 +5194,10 @@ if __name__ == "__main__":
         step_profile_child()
     elif sys.argv[1:2] == ["--tile-probe"]:
         tile_probe()
+    elif sys.argv[1:2] == ["--geoms-fault"]:
+        geoms_fault()
+    elif sys.argv[1:2] == ["--tile-configs"]:
+        tile_configs()
     elif sys.argv[1:2] == ["--atlas-profile"]:
         atlas_profile_child()
     else:

@@ -90,6 +90,19 @@ _MD_K5_VALUES = 2560
 # 152·n constants, the topology tables (int16) and the tile.
 SMEM_BYTES = 232448
 TILE_MAX_STATES = 32
+# The CTA-tile RNEA sweeps (K1, K4, ∂ID's vaf) and the recursion ∇FD
+# (csrc/tile.cuh) are sized for TILE_CTAS CTAs an SM, so one CTA's loads
+# and barriers overlap another's work: each takes at most an SM's 228 KB
+# over TILE_CTAS, less the 1 KB the card keeps for every CTA.
+SM_SMEM_BYTES = 233472
+TILE_CTAS = 2
+# threads a CTA of the sweep and ∇FD tiles, f32 / f64 (with TILE_CTAS CTAs
+# an SM: ≤ 64 / 128 registers a thread for the sweeps, ≤ 85 / 128 for the
+# ∇FD). `chip_smoke.py --tile-configs` times other settings on an H100
+# (PERF.md): K1, K4 and vaf are fastest at 2 × 512 of those tried, the ∇FD
+# reads within 2 % at 2 × 384, 1 × 512 and 2 × 512.
+VAF_THREADS = (512, 256)
+FD_THREADS = (384, 256)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -98,8 +111,10 @@ _I = ctypes.c_int
 # unit → entry → argtypes (every entry has an _f32 and an _f64 variant)
 _UNITS = {
     "fused.cu": {
-        # consts, q, qd, u, ddq, ddqd, B, gravity, stream
+        # consts, q, qd, u, ddq, ddqd, B, gravity, stream (the CTA tile;
+        # "_thread": the one-thread-per-state kernel it replaced)
         "grid_fd_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        "grid_fd_grad_thread": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, qdd, dq, dqd, B, gravity, stream
         "grid_id_grad": (_P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, u, ddq, ddqd, B, gravity, stream (minv_impl="dense")
@@ -114,12 +129,16 @@ _UNITS = {
         "grid_aba": (_P, _P, _P, _P, _P, _LL, _D, _P),
     },
     "staged.cu": {
-        # consts, q, qd, c, v, B, gravity, stream
+        # consts, q, qd, c, v, B, gravity, stream (K1, K4 and vaf: the
+        # sweep tile; "_thread": the one-thread kernel it replaced)
         "grid_bias_v": (_P, _P, _P, _P, _P, _LL, _D, _P),
+        "grid_bias_v_thread": (_P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, qd, qdd, v, a, f, B, s16 (v in bf16), gravity, stream
         "grid_af": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _D, _P),
+        "grid_af_thread": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _D, _P),
         # consts, q, qd, qdd, v, a, f, B, gravity, stream
         "grid_vaf": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
+        "grid_vaf_thread": (_P, _P, _P, _P, _P, _P, _P, _LL, _D, _P),
         # consts, q, rhs (or NULL), M, qdd (or NULL), B, stream (the CTA
         # tile; "_thread": the one-thread-per-state kernel it replaced)
         "grid_minv_dense": (_P, _P, _P, _P, _P, _LL, _P),
@@ -438,6 +457,87 @@ def minv_tile_plan(parents, prismatic) -> dict:
     return _finish_plan(plan, tables, n)
 
 
+def _fit_states(stride: int, n: int, itemsize: int, table_bytes: int,
+                ctas: int) -> int:
+    """States a CTA of ``stride`` values each: as many as fit an SM's shared
+    memory over ``ctas`` CTAs beside the robot constants and the tables,
+    at most TILE_MAX_STATES; 0 where not one fits."""
+    per_cta = min(SMEM_BYTES, SM_SMEM_BYTES // ctas - 1024)
+    free = per_cta - 152 * n * itemsize - table_bytes
+    return max(0, min(TILE_MAX_STATES, free // (stride * itemsize)))
+
+
+def rnea_tile_plan(parents, prismatic) -> dict:
+    """The RNEA sweeps' tile plan (K1, K4 and ∂ID's vaf; the ∇FD tile's
+    sweeps and its M⁻¹ recursion run on the same tables). A state's values:
+    X (its two 3×3 blocks, 18n), v, a, f (6n each; sin/cos of q in f's
+    rows until X is built), q̇ and q̈ (n each). Tables: the joints in BFS
+    waves from the roots (the forward sweeps); the parents in waves from
+    the deepest, each gathering its children in descending order (the
+    backward sweeps: the plain version's order)."""
+    n = len(parents)
+    children, depth, _ = _tree(parents)
+    waves = max(depth) + 1
+    fw, fw_waves = [], [0]
+    for d in range(waves):
+        fw += [j for j in range(n) if depth[j] == d]
+        fw_waves.append(len(fw))
+    bw, bw_waves = [], [0]
+    for d in range(waves - 2, -1, -1):
+        bw += [p for p in range(n) if depth[p] == d and children[p]]
+        bw_waves.append(len(bw))
+    tables = {
+        "par": parents, "prism": prismatic, "fw": fw, "fw_waves": fw_waves,
+        "bw": bw, "bw_waves": bw_waves,
+        "ch_start": [0] + list(itertools.accumulate(map(len, children))),
+        "ch_list": [c for ch in children for c in ch],
+    }
+    plan = {"waves": waves, "values": 38 * n}
+    plan["flat"], plan["offs"] = _flatten(tables)
+    plan["tables"] = tables
+    plan["stride"] = plan["values"] | 1
+    plan["states"] = {dt: _fit_states(plan["stride"], n, size,
+                                      _table_bytes(plan), TILE_CTAS)
+                      for dt, size in (("f32", 4), ("f64", 8))}
+    plan["threads"] = dict(zip(("f32", "f64"), VAF_THREADS))
+    return plan
+
+
+def fd_tile_plan(parents, prismatic) -> dict:
+    """The recursion ∇FD's tile plan (n ≤ MAX_KERNEL_JOINTS): K5's region
+    A (X, v, a, f, I·v, the q side's backward seed) and region B (the
+    ∂-tensors of both sides; first sin/cos of q, then the M⁻¹ recursion's
+    IA (36n), F (6n²), U (6n), D⁻¹ (n), Ia·X (36n) and Xᵀ·U (6n): region B
+    holds the larger), then M⁻¹ (n²), q̇, u and q̈ (n each) and the q
+    side's ∂a seeds (6n: the second sweep sums f while K5's forward sweep
+    runs). Its
+    tables are K5's (grad_cols_tile_plan) and the sweeps'
+    (rnea_tile_plan)."""
+    n = len(parents)
+    k5 = grad_cols_tile_plan(parents, prismatic)
+    rn = rnea_tile_plan(parents, prismatic)
+    region_b = max(k5["values"] - k5["region"], 85 * n + 6 * n * n)
+    plan = {"region_b": region_b,
+            "values": k5["region"] + region_b + n * n + 9 * n}
+    plan["stride"] = plan["values"] | 1
+    tables = _table_bytes(k5) + _table_bytes(rn)
+    plan["states"] = {dt: _fit_states(plan["stride"], n, size, tables,
+                                      TILE_CTAS)
+                      for dt, size in (("f32", 4), ("f64", 8))}
+    plan["threads"] = dict(zip(("f32", "f64"), FD_THREADS))
+    plan["table_bytes"] = tables
+    return plan
+
+
+def sweep_smem_bytes(plan: dict, n: int, itemsize: int, dt: str) -> int:
+    """Dynamic shared memory of one CTA of the sweep or ∇FD tile:
+    constants, tile, tables (the ∇FD tile's: K5's and the sweeps')."""
+    tables = plan.get("table_bytes", None)
+    tables = _table_bytes(plan) if tables is None else tables
+    return ((152 * n + plan["states"][dt] * plan["stride"]) * itemsize
+            + tables)
+
+
 def _tile_macros(tag: str, plan: dict, names) -> list[str]:
     gs = lambda xs: "".join(f"G({x})" for x in xs)
     return [f"-DGRID_{tag}_TABLE=" + gs(plan["flat"]),
@@ -589,7 +689,24 @@ def _macros(key: tuple) -> list[str]:
                       ("dva", "df", "waves", "region", "stride")),
         *_tile_macros("K2", minv_tile_plan(parents, prism),
                       ("waves", "ic", "m", "stride")),
+        *_sweep_macros(parents, prism),
     ]
+
+
+def _sweep_macros(parents, prism) -> list[str]:
+    """The sweep tile's tables and plan, and the ∇FD tile's plan (its
+    tables are K5's and the sweeps')."""
+    gs = lambda xs: "".join(f"G({x})" for x in xs)
+    rn, fd = rnea_tile_plan(parents, prism), fd_tile_plan(parents, prism)
+
+    def sized(plan):
+        return gs(plan[d][t] for d in ("states", "threads")
+                  for t in ("f32", "f64"))
+    return ["-DGRID_RN_TABLE=" + gs(rn["flat"]),
+            "-DGRID_RN_OFFS=" + gs(rn["offs"][k] for k in rn["tables"]),
+            "-DGRID_RN_PLAN=" + gs((rn["waves"], rn["stride"])) + sized(rn),
+            "-DGRID_FD_PLAN=" + gs((fd["region_b"], fd["stride"]))
+            + sized(fd), f"-DGRID_TILE_CTAS={TILE_CTAS}"]
 
 
 def _digest(key: tuple) -> str:

@@ -2,6 +2,9 @@
 //
 // Replaces (gridcodegenerator_tpu/ops/kernels/fused.py):
 //   fd_grad_fused          (fused.py:394)  -> grid_fd_grad_{f32,f64}
+//                                     (a CTA tile, tile.cuh fd_grad_tile;
+//                                     the one-thread kernel it replaced:
+//                                     grid_fd_grad_thread_{f32,f64})
 //   id_grad_fused          (fused.py:433)  -> grid_id_grad_{f32,f64}
 //   minv_fused, one tile   (fused.py:290)  -> grid_minv_{f32,f64}
 //   inverse_dynamics_fused (fused.py:270)  -> grid_rnea_{f32,f64}
@@ -35,8 +38,10 @@
 // per block, where every thread of a warp reads the same address. Joint
 // and column loops stay rolled (rbd.cuh), which keeps nvcc to seconds and
 // ptxas free of spills; ptxas's report is printed at build time
-// (_build.py). Staging the ∂-tensors in shared memory, or a block or warp
-// per state, is later work.
+// (_build.py). The recursion ∇FD runs as a CTA tile instead (tile.cuh,
+// fd_grad_tile): a tile of states a CTA, each state's X, v, a, f, the M⁻¹
+// recursion's IA, F, U, D⁻¹ and both sides' packed ∂-tensors in shared
+// memory for the whole body, the CTA's threads over each phase's items.
 //
 // Robot topology comes in as -D macros (see rbd.cuh); the kernels are
 // templated on float and double so the card can hold them to the plain
@@ -46,7 +51,9 @@
 
 #include "aba.cuh"
 #include "rbd.cuh"
-#include "staged.cuh"  // crba, chol_minv: the dense M⁻¹ of minv_impl="dense"
+// crba, chol_minv (staged.cuh): the dense M⁻¹ of minv_impl="dense"; the
+// recursion ∇FD's CTA tile
+#include "tile.cuh"
 
 #ifndef GRID_DENSE_GRADS
 #error "compile with -DGRID_DENSE_GRADS=0|1"
@@ -76,6 +83,34 @@ __device__ __forceinline__ long long state_index() {
 }
 
 #if GRID_DENSE_GRADS
+// the recursion ∇FD as a CTA tile (tile.cuh, fd_grad_tile): the robot
+// constants, the tile, then K5's and the sweeps' tables in shared memory
+template <typename T>
+__global__ void __launch_bounds__(grid::fd_threads<T>(), GRID_TILE_CTAS)
+fd_grad_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                    const T* __restrict__ qd, const T* __restrict__ u,
+                    T* __restrict__ ddq, T* __restrict__ ddqd, long long B,
+                    T minus_g) {
+  constexpr int S = grid::fd_states<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  short* t5 = reinterpret_cast<short*>(sm + grid::kConstCount +
+                                       S * grid::kFdStride);
+  short* tr = t5 + (grid::kK5Table + 7) / 8 * 8;
+  for (int k = threadIdx.x; k < grid::kConstCount; k += blockDim.x)
+    sm[k] = consts[k];
+  for (int k = threadIdx.x; k < grid::kK5Table; k += blockDim.x)
+    t5[k] = grid::c_k5_table[k];
+  for (int k = threadIdx.x; k < grid::kRnTable; k += blockDim.x)
+    tr[k] = grid::c_rn_table[k];
+  __syncthreads();
+  const grid::Robot<T> R(sm);
+  grid::fd_grad_tile<T, S, grid::fd_threads<T>()>(
+      static_cast<int>(threadIdx.x), R, grid::K5Tables(t5),
+      grid::RnTables(tr), sm + grid::kConstCount, q, qd, u, ddq, ddqd, B,
+      static_cast<long long>(blockIdx.x) * S, minus_g);
+}
+
 template <typename T, bool kDense>
 __global__ void __launch_bounds__(kThreads)
 fd_grad_kernel(const T* __restrict__ consts, const T* __restrict__ q,
@@ -155,6 +190,35 @@ size_t smem_bytes() {
 }
 
 #if GRID_DENSE_GRADS
+// the recursion ∇FD tile; a dtype whose tile does not fit a CTA's shared
+// memory (states 0 in the plan) is refused
+template <typename T>
+int fd_grad_tile(const void* consts, const void* q, const void* qd,
+                 const void* u, void* ddq, void* ddqd, long long B,
+                 double gravity, void* stream) {
+  constexpr int S = grid::fd_states<T>();
+  if constexpr (S > 0) {
+    const size_t smem =
+        grid::tile_smem<T>(S, grid::kFdStride, grid::kK5Table) +
+        (2 * static_cast<size_t>(grid::kRnTable) + 15) / 16 * 16;
+    auto kernel = fd_grad_tile_kernel<T>;
+    cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const unsigned blocks = static_cast<unsigned>((B + S - 1) / S);
+    kernel<<<blocks, grid::fd_threads<T>(), smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(consts), static_cast<const T*>(q),
+        static_cast<const T*>(qd), static_cast<const T*>(u),
+        static_cast<T*>(ddq), static_cast<T*>(ddqd), B,
+        static_cast<T>(-gravity));
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+}
+
 template <typename T, bool kDense>
 int fd_grad(const void* consts, const void* q, const void* qd, const void* u,
             void* ddq, void* ddqd, long long B, double gravity,
@@ -253,12 +317,27 @@ const char* grid_error_string(int code) {
 int grid_fd_grad_f32(const void* consts, const void* q, const void* qd,
                      const void* u, void* ddq, void* ddqd, long long B,
                      double gravity, void* stream) {
-  return fd_grad<float, false>(consts, q, qd, u, ddq, ddqd, B, gravity,
-                               stream);
+  return fd_grad_tile<float>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                             stream);
 }
 int grid_fd_grad_f64(const void* consts, const void* q, const void* qd,
                      const void* u, void* ddq, void* ddqd, long long B,
                      double gravity, void* stream) {
+  return fd_grad_tile<double>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                              stream);
+}
+// the one-thread recursion ∇FD the tile replaced (a timed arm)
+int grid_fd_grad_thread_f32(const void* consts, const void* q,
+                            const void* qd, const void* u, void* ddq,
+                            void* ddqd, long long B, double gravity,
+                            void* stream) {
+  return fd_grad<float, false>(consts, q, qd, u, ddq, ddqd, B, gravity,
+                               stream);
+}
+int grid_fd_grad_thread_f64(const void* consts, const void* q,
+                            const void* qd, const void* u, void* ddq,
+                            void* ddqd, long long B, double gravity,
+                            void* stream) {
   return fd_grad<double, false>(consts, q, qd, u, ddq, ddqd, B, gravity,
                                 stream);
 }

@@ -1,8 +1,11 @@
-// The staged large-robot pipeline's kernels: one thread per state, and K5
-// and K2′ as CTA tiles of states.
+// The staged large-robot pipeline's kernels: one thread per state, and K1,
+// K4, ∂ID's vaf, K2′ and K5 as CTA tiles of states.
 //
 // Replaces (gridcodegenerator_tpu/ops/kernels/staged.py):
 //   bias_and_v_staged, K1          (staged.py:172) -> grid_bias_v_{f32,f64}
+//                                     (K1, K4 and vaf: the sweep tile,
+//                                     tile.cuh; the one-thread kernel:
+//                                     grid_{bias_v,af,vaf}_thread)
 //   minv_qdd_dense_staged, K2′     (staged.py:218) -> grid_minv_dense_{f32,f64}
 //                                     (a CTA tile, tile.cuh; the one-thread
 //                                     kernel it replaced: grid_minv_dense_thread)
@@ -39,10 +42,16 @@
 // per-state working set in local memory (L1/L2 traffic), not DRAM: K5
 // reads ≈ 21n values a state and writes 2n·cb; the finish re-reads the
 // block's rows of M⁻¹. The robot constants are staged in shared memory once
-// per block. K5 and K2′ run as CTA tiles instead (tile.cuh): a tile of
-// states a CTA, each state's working set in shared memory, every column
-// block at once (cb is checked as for the one-thread kernel and changes no
-// result); the one-thread kernels stay as their `_thread` entries.
+// per block. K5, K2′ and the sweeps K1, K4 and vaf run as CTA tiles instead
+// (tile.cuh): a tile of states a CTA, each state's working set in shared
+// memory, K5 every column block at once (cb is checked as for the
+// one-thread kernel and changes no result); the one-thread kernels stay as
+// their `_thread` entries (grid_bias_v_thread, grid_af_thread,
+// grid_vaf_thread, grid_minv_dense_thread, grid_grad_cols_thread). The
+// sweeps are bound by bytes (K4 at Atlas: ≈ 2.3 KB a state): their tile
+// loads and stores the (6, n, B) stage tensors with consecutive threads on
+// consecutive states and keeps X, v, a, f in shared memory, so the stage
+// writes, not a local-memory frame, set their time.
 #include <cuda_runtime.h>
 
 #include "tile.cuh"
@@ -206,6 +215,24 @@ grad_cols_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
       static_cast<long long>(blockIdx.x) * S, sides, minus_g);
 }
 
+template <typename T, int kMode>
+__global__ void __launch_bounds__(grid::vaf_threads<T>(), GRID_TILE_CTAS)
+vaf_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
+                const T* __restrict__ qd, const T* __restrict__ qdd,
+                const void* __restrict__ v_in, bool s16, T* __restrict__ c,
+                T* __restrict__ v, T* __restrict__ a, T* __restrict__ f,
+                long long B, T minus_g) {
+  constexpr int S = grid::vaf_states<T>();
+  short* tb;
+  T* sm = tile_shared<T, S, grid::kVafStride>(consts, grid::c_rn_table,
+                                              grid::kRnTable, &tb);
+  const grid::Robot<T> R(sm);
+  grid::vaf_tile<T, kMode, S, grid::vaf_threads<T>()>(
+      static_cast<int>(threadIdx.x), R, grid::RnTables(tb),
+      sm + grid::kConstCount, q, qd, qdd, v_in, s16, c, v, a, f, B,
+      static_cast<long long>(blockIdx.x) * S, minus_g);
+}
+
 template <typename T, bool kRhs>
 __global__ void __launch_bounds__(k2_threads<T>())
 minv_dense_tile_kernel(const T* __restrict__ consts, const T* __restrict__ q,
@@ -245,11 +272,13 @@ size_t smem_bytes() {
   return grid::kConstCount * sizeof(T);
 }
 
-// s16: v_in is bf16 (K4 under stage_dtype)
+// the one-thread K1, K4, vaf (the sweep tile's timed arm); s16: v_in is
+// bf16 (K4 under stage_dtype)
 template <typename T>
-int launch_vaf(int mode, const void* consts, const void* q, const void* qd,
-               const void* qdd, const void* v_in, bool s16, void* c, void* v,
-               void* a, void* f, long long B, double gravity, void* stream) {
+int launch_vaf_thread(int mode, const void* consts, const void* q,
+                      const void* qd, const void* qdd, const void* v_in,
+                      bool s16, void* c, void* v, void* a, void* f,
+                      long long B, double gravity, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const T*>(consts);
   auto tq = static_cast<const T*>(q);
@@ -273,6 +302,46 @@ int launch_vaf(int mode, const void* consts, const void* q, const void* qd,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the sweep tile (K1, K4, ∂ID's vaf); a dtype whose tile does not fit a
+// CTA's shared memory (states 0 in the plan) is refused
+template <typename T>
+int launch_vaf(int mode, const void* consts, const void* q, const void* qd,
+               const void* qdd, const void* v_in, bool s16, void* c, void* v,
+               void* a, void* f, long long B, double gravity, void* stream) {
+  constexpr int S = grid::vaf_states<T>();
+  if constexpr (S > 0) {
+    const size_t smem = grid::tile_smem<T>(S, grid::kVafStride,
+                                           grid::kRnTable);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto k = static_cast<const T*>(consts);
+    auto tq = static_cast<const T*>(q);
+    auto tqd = static_cast<const T*>(qd);
+    auto tqdd = static_cast<const T*>(qdd);
+    const T mg = static_cast<T>(-gravity);
+    constexpr int NT = grid::vaf_threads<T>();
+    if (mode == grid::kBiasV)
+      return launch_tile(vaf_tile_kernel<T, grid::kBiasV>, smem, B, S, NT, s,
+                         k, tq, tqd, static_cast<const T*>(nullptr),
+                         static_cast<const void*>(nullptr), false,
+                         static_cast<T*>(c), static_cast<T*>(v),
+                         static_cast<T*>(nullptr), static_cast<T*>(nullptr),
+                         B, mg);
+    if (mode == grid::kAF)
+      return launch_tile(vaf_tile_kernel<T, grid::kAF>, smem, B, S, NT, s, k,
+                         tq, tqd, tqdd, v_in, s16, static_cast<T*>(nullptr),
+                         static_cast<T*>(nullptr), static_cast<T*>(a),
+                         static_cast<T*>(f), B, mg);
+    if (mode == grid::kVAF)
+      return launch_tile(vaf_tile_kernel<T, grid::kVAF>, smem, B, S, NT, s,
+                         k, tq, tqd, tqdd, static_cast<const void*>(nullptr),
+                         false, static_cast<T*>(nullptr), static_cast<T*>(v),
+                         static_cast<T*>(a), static_cast<T*>(f), B, mg);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
 }
 
 // rhs == nullptr: M⁻¹ only (direct_minv); else also q̈ = M⁻¹·rhs
@@ -456,6 +525,27 @@ const char* grid_error_string(int code) {
                      long long B, double gravity, void* stream) {            \
     return launch_vaf<T>(grid::kVAF, consts, q, qd, qdd, nullptr, false,     \
                          nullptr, v, a, f, B, gravity, stream);              \
+  }                                                                          \
+  int grid_bias_v_thread_##tag(const void* consts, const void* q,            \
+                               const void* qd, void* c, void* v, long long B, \
+                               double gravity, void* stream) {                \
+    return launch_vaf_thread<T>(grid::kBiasV, consts, q, qd, nullptr,        \
+                                nullptr, false, c, v, nullptr, nullptr, B,   \
+                                gravity, stream);                            \
+  }                                                                          \
+  int grid_af_thread_##tag(const void* consts, const void* q, const void* qd, \
+                           const void* qdd, const void* v, void* a, void* f,  \
+                           long long B, int s16, double gravity,              \
+                           void* stream) {                                    \
+    return launch_vaf_thread<T>(grid::kAF, consts, q, qd, qdd, v, s16 != 0,  \
+                                nullptr, nullptr, a, f, B, gravity, stream); \
+  }                                                                          \
+  int grid_vaf_thread_##tag(const void* consts, const void* q,               \
+                            const void* qd, const void* qdd, void* v,        \
+                            void* a, void* f, long long B, double gravity,   \
+                            void* stream) {                                  \
+    return launch_vaf_thread<T>(grid::kVAF, consts, q, qd, qdd, nullptr,     \
+                                false, nullptr, v, a, f, B, gravity, stream); \
   }                                                                          \
   int grid_minv_dense_##tag(const void* consts, const void* q,               \
                             const void* rhs, void* M, void* qdd,             \

@@ -16,6 +16,12 @@ the CPU and on the card alike, as the JAX wrappers do (fused.py:294, :421,
 
 The variants the JAX package keeps for its benchmarks, one launch each:
 
+The recursion ∇FD (``fd_grad_fused``'s default) is a CTA tile
+(``csrc/tile.cuh``): a tile of states a CTA, each state's working set in
+shared memory through the whole body. The one-thread kernel it replaced
+stays as a timed arm, launched when ``staged.DESIGN`` is ``"thread"`` and
+counted under ``fd_grad_thread``.
+
 * ``fd_grad_fused(..., minv_impl="dense")`` — the ∇FD kernel with M⁻¹
   from CRBA, the active-region Cholesky and L⁻ᵀL⁻¹ (:func:`_dense_minv_bl`,
   ``grid_fd_grad_dense``) in place of the articulated recursion; past
@@ -165,10 +171,10 @@ def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81,
     ddqd = empty(model, model.n, model.n, B)
     dense = minv_impl == "dense"
     if B:
-        launch("fd_grad_dense" if dense else "fd_grad",
-                "grid_fd_grad_dense" if dense else "grid_fd_grad", model,
-                (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
-                 ddqd.data_ptr()), B, float(gravity))
+        launch(*(("fd_grad_dense", "grid_fd_grad_dense") if dense
+                 else staged._design("fd_grad")), model,
+               (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
+                ddqd.data_ptr()), B, float(gravity))
     return ddq, ddqd
 
 

@@ -12,11 +12,13 @@ through device memory between them and X(q) recomputed in each:
   K4   q, q̇, q̈, v     → a, f        the second sweep at the true q̈
   K5   q, q̇, v, a, f[, M⁻¹] → ∂c or −M⁻¹·∂c, both sides
 
-K2′ and K5 are CTA tiles (``csrc/tile.cuh``): a tile of states a CTA, each
-state's working set in shared memory, every column of K5 at once. The
-one-thread-per-state kernels they replaced (K5 column block by column
-block, every block in one launch on a 2-D grid) stay as a timed arm,
-launched when ``DESIGN`` is ``"thread"`` and counted under ``<name>_thread``.
+K1, K2′, K4, K5 and ∂ID's vaf sweep are CTA tiles (``csrc/tile.cuh``): a
+tile of states a CTA, each state's working set in shared memory, every
+column of K5 at once. The one-thread-per-state kernels they replaced (K5
+column block by column block, every block in one launch on a 2-D grid)
+stay as a timed arm, launched when ``DESIGN`` is ``"thread"`` and counted
+under ``<name>_thread``; the same switch takes :mod:`.fused`'s recursion
+∇FD to its one-thread kernel.
 
 The default route: ∇FD is K1, K2′, K4, K5 with the fused finish (four
 launches); ∂ID is the vaf sweep and K5 without it (two); ``direct_minv`` is
@@ -69,7 +71,8 @@ from ._launch import (check, check_staged, empty, launch, on_cpu,
                       ptr)
 
 _SIDES = ("q", "qd")
-# "tile": K2′ and K5 launch the CTA tiles; "thread": the one-thread kernels
+# "tile": K1, K2′, K4, K5, vaf and fused's recursion ∇FD launch the CTA
+# tiles; "thread": the one-thread kernels
 DESIGN = "tile"
 
 
@@ -262,7 +265,7 @@ def bias_and_v_staged(model: RobotModel, q, qd, gravity=-9.81):
     B = check(model, [q, qd])
     c, v = empty(model, model.n, B), empty(model, 6, model.n, B)
     if B:
-        launch("bias_and_v", "grid_bias_v", model,
+        launch(*_design("bias_and_v", "grid_bias_v"), model,
                 (q.data_ptr(), qd.data_ptr(), c.data_ptr(), v.data_ptr()),
                 B, float(gravity))
     return c, v
@@ -348,7 +351,8 @@ def minv_cols_staged(model: RobotModel, q, U, Dinv, cb=None):
 
 
 def _design(name, entry=None):
-    """The LAUNCHES key and the C entry of K2′ or K5 under ``DESIGN``."""
+    """The LAUNCHES key and the C entry of a tiled kernel under
+    ``DESIGN``."""
     entry = entry or f"grid_{name}"
     if DESIGN == "tile":
         return name, entry
@@ -372,7 +376,7 @@ def af_staged(model: RobotModel, q, qd, qdd, v, gravity=-9.81):
     s16 = v.dtype == torch.bfloat16
     a, f = empty(model, 6, model.n, B), empty(model, 6, model.n, B)
     if B:
-        launch("af_bf16" if s16 else "af", "grid_af", model,
+        launch(*_design("af_bf16" if s16 else "af", "grid_af"), model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, int(s16), float(gravity))
     return a, f
@@ -385,7 +389,7 @@ def vaf_staged(model: RobotModel, q, qd, qdd, gravity=-9.81):
     B = check(model, [q, qd, qdd])
     v, a, f = (empty(model, 6, model.n, B) for _ in range(3))
     if B:
-        launch("vaf", "grid_vaf", model,
+        launch(*_design("vaf"), model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, float(gravity))
     return v, a, f
