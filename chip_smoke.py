@@ -33,8 +33,9 @@ kernels/csrc`` and runs, on ``cuda:0``:
    the modes the staged pairs leave out (TILE_EXTRA); the recursion ∇FD
    tile on iiwa-14, the branched arm (PAIRS' fd_grad) and the prismatic
    chain, each at a ragged last CTA; free HyQ's float32 step with its
-   ground geoms on the 121² grid on the states of its own draws that were
-   past the check before a state's sensitivity was measured again
+   ground geoms on the 121² grid on the states of its own draws where the
+   kernel failed the check while it contracted FMAs and divided by dt and
+   the cell size where its plain version multiplies by their reciprocals
    (GEOMS_CASES, found by ``--geoms-fault``); the M⁻¹ and FD
    variants (the
    dense-M⁻¹ ∇FD and the composition FD on iiwa-14 and the branched arm;
@@ -175,10 +176,10 @@ tile to their plain versions in float64 and float32, and times both
 designs at Atlas f32, 2¹⁸ (the ∇FD at iiwa-14).
 ``chip_smoke.py --geoms-fault`` holds free HyQ's float32 step with its
 ground geoms on the 121² grid to its plain version on 16,000 states of its
-own draws and prints, for each state past the check on the 8-draw
-sensitivity estimate, what tells an ill-conditioned state from a kernel
-fault. ``chip_smoke.py --tile-configs`` times the sweep and ∇FD tiles
-built with other plan settings (CTAs an SM, threads a CTA).
+own draws, counts the states where the kernel is the plain version bit for
+bit, and makes the same check on the plain version run with true division
+(what one rounding does on an ill-conditioned state); it fails if the
+kernel fails the check.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Imports no jax. Fails (non-zero exit, no result line) when
@@ -407,7 +408,6 @@ STEP_MU_GROUND = 0.6
 # other state takes the normwise check.
 SENS_ULP = {torch.float64: 2e-16, torch.float32: 6e-8}
 SENS_DRAWS = 8
-SENS_REDRAWS = 64
 SENS_MARGIN = 10.0
 SENS_C = 10.0
 # the multi-dof step (bench_contact.py:258-295): the ball ant from MJCF
@@ -1322,54 +1322,94 @@ def rows_key(case):
             (cff.collision_links(cs), () if ls is None else ls.pairs))
 
 
-def build_all(models, staged=(), links=None, pairs=None, only=None):
-    """Build every topology at once (one nvcc per source and topology), the
+# nvcc processes running before the next topology's start, while the checks
+# run beside them on one core
+BUILD_SLOTS = max(1, (os.cpu_count() or 2) - 1)
+
+
+def start_builds(models, staged=(), links=None, pairs=None, only=None):
+    """Build every topology (one nvcc per source and topology) on threads
+    beside the checks, in the order of ``models`` — the order the checks
+    need them — each once fewer than BUILD_SLOTS nvcc processes run: the
     staged multi-dof unit too for the labels in ``staged``, only the units
     ``only[label]`` of those labels, a free flyer's stance and step library
     for the contact links ``links[label]`` and the collision and loop
-    ``pairs[label]``."""
+    ``pairs[label]``. A wrapper that reaches a library in its build waits
+    for it (``_build.library`` holds one lock a topology). Returns the
+    function that waits for every build, logs them and raises if one
+    failed."""
     t0 = time.perf_counter()
     links, pairs, only = links or {}, pairs or {}, only or {}
     units = {label: _with_staged(m) if label in staged else only.get(label)
              for label, m in models.items()}
-    threads = [threading.Thread(target=_build.library,
-                                args=(m, units[label], links.get(label),
-                                      pairs.get(label)))
-               for label, m in models.items()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    log(f"builds of {len(models)} topologies: "
-        f"{time.perf_counter() - t0:.1f} s wall")
-    for label, m in models.items():
-        # raises if a build failed
-        lib = _build.library(m, units[label], links.get(label),
-                             pairs.get(label))
-        if hasattr(m, "I_base"):
-            what = (f"free flyer, contact links {links[label]}"
-                    if links.get(label) else "free flyer")
-            if pairs.get(label) and any(pairs[label]):
-                what += (f", collision links {pairs[label][0]}, loops "
-                         f"{pairs[label][1]}")
-        elif hasattr(m, "nv") and links.get(label):
-            what = (f"nq={m.nq}, nv={m.nv}, the ground step of contact "
-                    f"links {links[label]}")
-        elif hasattr(m, "nv"):
-            what = (f"nq={m.nq}, nv={m.nv}, single-thread gradient kernels "
-                    f"{'built' if _build.md_dense_grads(m.nv) else 'not built'}"
-                    f", K5md column block "
-                    f"{_build.md_col_block(m.n, m.nv)}")
-        else:
-            what = (f"K5 column block {_build.default_col_block(m.n)}, T5 "
-                    f"{_build.so_col_block(m.n)}")
-        for unit in lib.paths:
-            log(f"build {label} (n={m.n}) {unit}: nvcc "
-                f"{lib.build_seconds[unit]:.1f} s -> "
-                f"{lib.paths[unit].relative_to(_build.BUILD_DIR.parents[1])}"
-                f" ({what})")
-            for line in ptxas_report(lib.logs[unit]):
-                log(line)
+    free = threading.Condition()
+    busy = [0]      # nvcc processes running
+    workers = []
+
+    def build(label, m, k):
+        try:
+            _build.library(m, units[label], links.get(label),
+                           pairs.get(label))
+        except RuntimeError:
+            pass    # raised again by finish
+        finally:
+            with free:
+                busy[0] -= k
+                free.notify()
+
+    def dispatch():
+        # a topology's units start together once fewer than BUILD_SLOTS
+        # nvcc processes run
+        for label, m in models.items():
+            k = len(units[label] or _build._units(_build.topology_key(
+                m, links.get(label), pairs.get(label))))
+            with free:
+                free.wait_for(lambda: busy[0] < BUILD_SLOTS)
+                busy[0] += k
+            worker = threading.Thread(target=build, args=(label, m, k))
+            worker.start()
+            workers.append(worker)
+
+    dispatcher = threading.Thread(target=dispatch)
+    dispatcher.start()
+
+    def finish():
+        dispatcher.join()
+        for worker in workers:
+            worker.join()
+        log(f"builds of {len(models)} topologies (each started once fewer "
+            f"than {BUILD_SLOTS} nvcc ran): {time.perf_counter() - t0:.1f} s "
+            f"wall")
+        for label, m in models.items():
+            # raises if a build failed
+            lib = _build.library(m, units[label], links.get(label),
+                                 pairs.get(label))
+            if hasattr(m, "I_base"):
+                what = (f"free flyer, contact links {links[label]}"
+                        if links.get(label) else "free flyer")
+                if pairs.get(label) and any(pairs[label]):
+                    what += (f", collision links {pairs[label][0]}, loops "
+                             f"{pairs[label][1]}")
+            elif hasattr(m, "nv") and links.get(label):
+                what = (f"nq={m.nq}, nv={m.nv}, the ground step of contact "
+                        f"links {links[label]}")
+            elif hasattr(m, "nv"):
+                built = "built" if _build.md_dense_grads(m.nv) else "not built"
+                what = (f"nq={m.nq}, nv={m.nv}, single-thread gradient "
+                        f"kernels {built}, K5md column block "
+                        f"{_build.md_col_block(m.n, m.nv)}")
+            else:
+                what = (f"K5 column block {_build.default_col_block(m.n)}, "
+                        f"T5 {_build.so_col_block(m.n)}")
+            root = _build.BUILD_DIR.parents[1]
+            for unit in lib.paths:
+                log(f"build {label} (n={m.n}) {unit}: nvcc "
+                    f"{lib.build_seconds[unit]:.1f} s -> "
+                    f"{lib.paths[unit].relative_to(root)} ({what})")
+                for line in ptxas_report(lib.logs[unit]):
+                    log(line)
+
+    return finish
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1482,11 +1522,7 @@ def check_against_plain(tag, got, plain, m, args, keep=None,
     only, where it is given: a ground step's states whose float64 gap or
     cell position lies within rounding of a switch (step_exclusions). With
     ``sensitive``, the round-off-sensitive states are held each on its own
-    (check_sensitive) and the rest normwise; a state past its check on the
-    SENS_DRAWS estimate of its sensitivity is measured again over
-    SENS_REDRAWS draws, and the check is made once more with the larger
-    estimate (eight draws of a 67-value input can miss the direction a
-    state is sensitive in by 3–5×; PERF.md §7). Returns (max abs
+    (check_sensitive) and the rest normwise. Returns (max abs
     error, normwise relative error)."""
     t0 = time.perf_counter()
     sens_ok, note, s_ab = True, "", 0.0
@@ -1504,22 +1540,8 @@ def check_against_plain(tag, got, plain, m, args, keep=None,
     rest = keep
     if sensitive:
         sens = sensitivity(plain, m64, args64, ref, m.dtype)
-        out, rest, tol, sens_ok, note, s_ab, past = _split_sensitive(
+        out, rest, tol, sens_ok, note, s_ab, _ = _split_sensitive(
             got, ref, sens, keep, tol_of, plain32)
-        if bool(past.any()):
-            idx = torch.nonzero(past).flatten()
-            sub = [x[..., idx] for x in args64]
-            again = draw_errors(
-                plain(m64, *moved_inputs(sub, SENS_ULP[m.dtype],
-                                         SENS_REDRAWS)),
-                tuple(o[..., idx] for o in _as_tuple(ref)),
-                SENS_REDRAWS).amax(0)
-            sens = sens.clone()
-            sens[idx] = torch.maximum(sens[idx], again)
-            out, rest, tol, sens_ok, note, s_ab, _ = _split_sensitive(
-                got, ref, sens, keep, tol_of, plain32)
-            note += (f"; {len(idx)} states past on the {SENS_DRAWS}-draw "
-                     f"estimate measured again over {SENS_REDRAWS} draws")
     else:
         tol = tol_of(keep)
     extra = note
@@ -1569,6 +1591,12 @@ def run_pair(tag, key, kern, plain, m, args, keep=None, sensitive=False):
 # on both) and the tangent stages at Atlas (held in float64 on the branched
 # arm at FORCED_CB, in float32 at Atlas)
 SO_F32_ONLY = {"branched_arm": "hessians", "atlas": "stages"}
+# and the steps left out in float64 (their inputs still drawn, so the later
+# states do not move): HyQ with its ground geoms, flat and on the grid, and
+# HyQ's collision cases (the feet-only steps, the chain's pair and the
+# four-bar hold each step's rows in float64)
+STEP_F32_ONLY = ("hyq_geoms", "hyq_collision", "hyq_collision_geoms",
+                 "hyq_collision_options")
 
 
 def phase1_second_order(label, m, q, qd, u, gen):
@@ -1791,6 +1819,9 @@ def phase1_free_flyer(gen):
             for grid in (None, "121"):
                 kern, plain = step_fns(label, grid, False, dtype, geoms=True)
                 f64 = dtype == torch.float64
+                if f64 and "hyq_geoms" in STEP_F32_ONLY:
+                    step_inputs(m, PHASE1_B, gen, label, False, geoms=True)
+                    continue
                 run_pair(f"{tag} step_ground{'' if grid is None else '_terrain'}"
                          f"_geoms ({step_contacts(label, True)} contacts)",
                          "step_ground" if grid is None
@@ -4022,7 +4053,8 @@ def phase3_md_and_geoms(models, states):
 # ------------------------------------------ collision and loop-closure rows
 def phase1_rows(gen):
     """The step kernels with collision contacts and loop closures against
-    their plain versions at B = 1000, float64 and float32, in each case of
+    their plain versions at B = 1000, float64 (but where STEP_F32_ONLY
+    leaves them out) and float32, in each case of
     ROWS_PHASE1: HyQ with the fat collision set (self and obstacle pairs),
     with HyQ's ground geoms too (24 contacts, 72 rows), with a push, a soft
     contact and restitution; the 3-link chain's base capsule in a self
@@ -4038,6 +4070,9 @@ def phase1_rows(gen):
             s = rows_states(m, PHASE1_B, gen, label)
             kern, plain, key = rows_fns(case, dtype)
             kf, kc, kg = rows_counts(case)
+            if dtype == torch.float64 and case in STEP_F32_ONLY:
+                rows_inputs(m, PHASE1_B, gen, case)
+                continue
             keep = (None if dtype == torch.float64
                     else rows_switches(m, s, case)[0])
             run_pair(f"phase1 rows {case} {str(dtype)[6:]} B={PHASE1_B} "
@@ -4254,12 +4289,12 @@ def phase3_rows(models, states):
 def design(name):
     """K2′ and K5 on the CTA tiles ("tile", the route) or on the one-thread
     kernels they replaced ("thread")."""
-    saved = staged.DESIGN
-    staged.DESIGN = name
+    saved = _launch.DESIGN
+    _launch.DESIGN = name
     try:
         yield
     finally:
-        staged.DESIGN = saved
+        _launch.DESIGN = saved
 
 
 TILE_PROBE_ROBOTS = ("branched_arm", "hyq", "atlas")
@@ -4363,91 +4398,14 @@ def tile_probe():
     log(f"-- probe done at {time.perf_counter() - t0:.1f} s")
 
 
-# --tile-configs: (CTAs an SM, sweep threads f32 / f64, ∇FD threads f32 /
-# f64) — the plan settings _build.py sizes the sweep and ∇FD tiles with,
-# the default first
-TILE_CONFIGS = ((2, (512, 256), (384, 256)), (1, (512, 256), (512, 256)),
-                (2, (256, 256), (512, 256)), (3, (512, 256), (256, 256)))
-
-
-def tile_configs():
-    """``chip_smoke.py --tile-configs``: the sweep tile (K1, K4, vaf at
-    Atlas) and the ∇FD tile (iiwa-14) built with each TILE_CONFIGS plan
-    setting — every build at once — and timed at f32, 2¹⁸, each beside its
-    head against the plain version."""
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs a CUDA device")
-    phase0_toolchain()
-    name_limit = card()
-    saved = (_build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS)
-    mA = gt.load_robot(ROBOTS["atlas"], dtype=torch.float32, device="cuda")
-    mI = gt.load_robot(ROBOTS["iiwa14"], dtype=torch.float32, device="cuda")
-    builds = {}
-    for k, (ctas, vt, ft) in enumerate(TILE_CONFIGS):
-        _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = ctas, vt, ft
-        for m, unit in ((mA, "staged.cu"), (mI, "fused.cu")):
-            key = _build.topology_key(m)
-            out = _build.BUILD_DIR / f"config{k}_n{m.n}_{Path(unit).stem}.so"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-std=c++17",
-                   "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   *_build._macros(key), "-o", str(out),
-                   str(_build._CSRC / unit)]
-            builds[k, unit] = (key, m.n, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    sA = uniform_states(mA.n, MAIN_B, torch.float32, gen)
-    sI = uniform_states(mI.n, MAIN_B, torch.float32, gen)
-    try:
-        for k, (ctas, vt, ft) in enumerate(TILE_CONFIGS):
-            _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = (
-                ctas, vt, ft)
-            for unit in ("staged.cu", "fused.cu"):
-                key, n, out, proc = builds[k, unit]
-                text, _ = proc.communicate()
-                if proc.returncode:
-                    raise RuntimeError(f"nvcc failed on {out.name}:\n{text}")
-                _build._LOADED[key] = _build.KernelLibrary(
-                    {unit: _build._load(unit, out, n)}, {unit: out},
-                    {unit: 0.0}, {unit: text})
-                for line in ptxas_report(text):
-                    if "_tile<float" in line:
-                        log(f"config {k}: {line.strip()}")
-            x = atlas_stages(mA, *sA)
-            q, qd, u = sA
-            calls = {"bias_and_v": (staged.bias_and_v_staged, (mA, q, qd)),
-                     "af": (staged.af_staged, (mA, q, qd, x["qdd"], x["v"])),
-                     "vaf": (staged.vaf_staged, (mA, q, qd, u)),
-                     "fd_grad": (fused.fd_grad_fused, (mI, *sI))}
-            ms = {name: [time_ms(fn, args) for _ in range(2)]
-                  for name, (fn, args) in calls.items()}
-            head = [a[:, :V_HEAD].contiguous() for a in sI]
-            _, rel = check_against_plain(
-                f"config {k} iiwa14 fd_grad head ({V_HEAD} states)",
-                fused.fd_grad_fused(mI, *head), fused.fd_grad_plain, mI,
-                head)
-            log(f"config {k}: {ctas} CTAs an SM, sweep threads {vt}, ∇FD "
-                f"threads {ft}: " + "; ".join(
-                    f"{name} {'/'.join(f'{t:.3f}' for t in v)} ms"
-                    for name, v in ms.items()) + f" (f32, B={MAIN_B}); card "
-                f"{name_limit}")
-            del x
-    finally:
-        _build.TILE_CTAS, _build.VAF_THREADS, _build.FD_THREADS = saved
-        for key in {b[0] for b in builds.values()}:
-            _build._LOADED.pop(key, None)
-
-
 GEOMS_SEED = 4           # --geoms-fault's own generator
 GEOMS_FAULT_CHUNKS = 16  # × PHASE1_B states
-FAULT_DRAWS = 64         # ± one-ulp draws a failing state is probed with
-# chunk of GEOMS_SEED's draws → the states phase 1 holds: those past the
-# float32 check on the SENS_DRAWS estimate of their sensitivity alone — 498
-# held normwise, 576 held as sensitive, the worst of each kind (chunks 7
-# and 9 held states 573, and 61 and 162, as well; --geoms-fault holds all
-# four) — and those that set each output's scale over the chunk
+# chunk of GEOMS_SEED's draws → the states phase 1 holds: those where the
+# kernel built with FMA contraction and true division by dt and the cell
+# size was past the float32 check — 498 held normwise, 576 held as
+# sensitive, the worst of each kind (chunks 7 and 9 held states 573, and
+# 61 and 162, as well; --geoms-fault holds all four) — and those that set
+# each output's scale over the chunk
 GEOMS_CASES = {0: (497, 498, 632, 704, 731),
                15: (385, 504, 520, 576, 794)}
 
@@ -4468,16 +4426,6 @@ def phase1_geoms_cases():
                  sensitive=True)
 
 
-def _scaled_errors(got, ref, scales):
-    """Each state's largest error of ``got`` against ``ref``, each output
-    relative to its ``scales`` entry: (B,)."""
-    err = None
-    for a, b, sc in zip(_as_tuple(got), _as_tuple(ref), scales):
-        d = (a.double() - b.double()).abs().reshape(-1, a.shape[-1]).amax(0)
-        err = d / sc if err is None else torch.maximum(err, d / sc)
-    return err
-
-
 def geoms_draws(m, chunks):
     """GEOMS_SEED's draws of free HyQ's step with its ground geoms on the
     121² grid: ``chunks`` chunks of PHASE1_B states, each the inputs
@@ -4492,20 +4440,40 @@ def geoms_draws(m, chunks):
     return out
 
 
+@contextmanager
+def true_division():
+    """A tensor divided by a Python number as a true division: on the card
+    torch multiplies by the number's reciprocal instead, a rounding apart."""
+    div, rdiv = torch.Tensor.__truediv__, torch.Tensor.__rtruediv__
+
+    def true_div(a, b):
+        if isinstance(b, (int, float)):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        return div(a, b)
+
+    def true_rdiv(a, b):
+        if isinstance(b, (int, float)):
+            return div(torch.full_like(a, b), a)
+        return rdiv(a, b)
+    torch.Tensor.__truediv__, torch.Tensor.__rtruediv__ = true_div, true_rdiv
+    try:
+        yield
+    finally:
+        torch.Tensor.__truediv__, torch.Tensor.__rtruediv__ = div, rdiv
+
+
 def geoms_fault():
     """``chip_smoke.py --geoms-fault``: free HyQ's float32 ground step with
     its 14 geom contacts on the 121² grid (phase 1's
     step_ground_terrain_geoms) on GEOMS_FAULT_CHUNKS chunks of PHASE1_B
     states from its own generator (geoms_draws), each chunk held to its
-    plain version as phase 1 holds it — on the SENS_DRAWS sensitivity
-    estimate alone, and by check_against_plain, which measures a state past
-    its check again over SENS_REDRAWS draws. For every state past the first
-    it prints what tells an ill-conditioned state from a kernel fault: its
-    sensitivity over SENS_DRAWS and FAULT_DRAWS draws; the kernel in
-    float64 against the plain float64 version; the kernel's and the plain
-    float32 version's errors under FAULT_DRAWS draws of ± one float32 ulp
-    of every input; the output that is off; the contacts' distances to
-    their switches; and the chunk's states phase 1 holds (GEOMS_CASES)."""
+    plain version by phase 1's check (sensitive states one by one). For
+    each chunk it prints the states where the kernel is its plain float32
+    version bit for bit, the check's verdict and the states past it; and
+    the same for the plain version itself run with true division in place
+    of torch's product with a Python number's reciprocal — states whose
+    error one rounding moves further than the input draws of
+    ``sensitivity`` do. Fails if the kernel fails the check on a chunk."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     phase0_toolchain()
@@ -4521,113 +4489,51 @@ def geoms_fault():
     m = ff_model("hyq", torch.float32)
     m64 = m.to(dtype=torch.float64)
     kern, plain = step_fns("hyq", "121", False, torch.float32, geoms=True)
-    found = []
-    names = ("quat", "pos", "q", "vb", "qd", "impulses")
+    n_same = n_past = n_true = 0
     for chunk, args in enumerate(geoms_draws(m, GEOMS_FAULT_CHUNKS)):
         got = _as_tuple(kern(m, *args))
         args64 = [x.double() for x in args]
         ref = _as_tuple(plain(m64, *args64))
         p32 = _as_tuple(plain(m, *args))
-        keep, gaps = step_switches(m, args[:6], "hyq", "121", geoms=True)
+        with true_division():
+            pt = _as_tuple(plain(m, *args))
+        keep, _ = step_switches(m, args[:6], "hyq", "121", geoms=True)
         sens = sensitivity(plain, m64, args64, ref, torch.float32)
-        out, rest, tol, s_ok, note, _, past = _split_sensitive(
-            got, ref, sens, keep, _f32_tol(p32, ref), p32)
-        try:
-            check_against_plain(f"geoms-fault chunk {chunk} (the check)", got,
-                                plain, m, args, keep, sensitive=True)
-            verdict = "passes"
-        except RuntimeError:
-            verdict = "FAILS"
-        log(f"geoms-fault chunk {chunk}: on the {SENS_DRAWS}-draw estimate "
-            f"alone {int(past.sum())} states past (tol {tol:.3e}; "
-            f"sensitive ones {'ok' if s_ok else 'FAIL'}); the check "
-            f"{verdict}")
-        idx = torch.nonzero(past).flatten()
-        if not len(idx):
-            continue
-        one = [x[..., idx].contiguous() for x in args]
-        one64 = [x.double() for x in one]
-        ref1 = tuple(r[..., idx] for r in ref)
-        scales = [float(r[..., rest].double().abs().max().clamp(min=1.0))
-                  for r in ref]
-        e_k = _scaled_errors(got, ref, scales)
-        e_p = _scaled_errors(p32, ref, scales)
-        # the same geometry as the reference: the float32 grid and geoms
-        e64 = _scaled_errors(_as_tuple(kern(m64, *one64)), ref1, scales)
-        sens_n = draw_errors(plain(m64, *moved_inputs(one64, SENS_ULP[
-            torch.float32], FAULT_DRAWS)), ref1, FAULT_DRAWS).amax(0)
-        moved = moved_inputs(one, SENS_ULP[torch.float32], FAULT_DRAWS, 1)
-        k = len(idx)
-        d_k, d_p = (torch.stack([_scaled_errors(
-            tuple(o[..., d * k:(d + 1) * k] for o in _as_tuple(fn(m, *moved))),
-            ref1, scales) for d in range(FAULT_DRAWS)]) for fn in (kern,
-                                                                   plain))
-        _, pts = step_feet(m, *one[:3], "hyq", "121", True)
-        terr = step_terrain("121", torch.float32, "cuda")
-        edge = None
-        for p_w in pts:
-            u, v, _, _ = ttr.cell_index(terr, p_w[0], p_w[1])
-            e = torch.minimum((u - u.round()).abs(), (v - v.round()).abs())
-            edge = e if edge is None else torch.minimum(edge, e)
-        g1 = gaps[..., idx]
-        for j, b in enumerate(idx.tolist()):
-            worst = max(range(len(got)), key=lambda o: float(
-                (got[o][..., b].double() - ref[o][..., b]).abs().max()
-                / scales[o]))
-            found.append(dict(chunk=chunk, state=b,
-                              sensitive=bool(out[b]), err=float(e_k[b]),
-                              plain_err=float(e_p[b]), tol=tol,
-                              sens=float(sens[b]), sens64=float(sens_n[j]),
-                              kernel_f64=float(e64[j]),
-                              kernel_draws_max=float(d_k[:, j].max()),
-                              kernel_draws_median=float(d_k[:, j].median()),
-                              plain_draws_max=float(d_p[:, j].max()),
-                              plain_draws_median=float(d_p[:, j].median()),
-                              output=names[worst]))
-            log(f"geoms-fault chunk {chunk} state {b} "
-                f"({'sensitive' if out[b] else 'held normwise'}): kernel "
-                f"{e_k[b]:.3e} (tol {tol:.3e}), plain f32 {e_p[b]:.3e}; "
-                f"sensitivity {sens[b]:.3e} ({SENS_DRAWS} draws) / "
-                f"{sens_n[j]:.3e} ({FAULT_DRAWS}); kernel f64 vs plain f64 "
-                f"{e64[j]:.3e}; under ± 1 f32 ulp ({FAULT_DRAWS} draws): "
-                f"kernel max {d_k[:, j].max():.3e} median "
-                f"{d_k[:, j].median():.3e}, plain f32 max "
-                f"{d_p[:, j].max():.3e} median {d_p[:, j].median():.3e}; "
-                f"worst output {names[worst]}; active contacts "
-                f"{int((g1[:, j] < STEP_MARGIN).sum())} of {g1.shape[0]}, "
-                f"min |gap − margin| "
-                f"{float((g1[:, j] - STEP_MARGIN).abs().min()):.3e}, min "
-                f"cell-edge distance {float(edge[j]):.3e} cells")
-        # phase 1's case: the states past, and those that set each output's
-        # scale over the chunk (so the sub-batch's errors are scaled as the
-        # chunk's)
-        held = sorted(set(idx.tolist()) | {
-            int(r.double().abs().reshape(-1, PHASE1_B).amax(0).argmax())
-            for r in ref})
-        log(f"geoms-fault chunk {chunk}: phase 1's states {held}")
-        sub = [x[..., held].contiguous() for x in args]
-        sgot = tuple(o[..., held] for o in got)
-        sref = _as_tuple(plain(m64, *[x.double() for x in sub]))
-        sp32 = _as_tuple(plain(m, *sub))
-        skeep = step_switches(m, sub[:6], "hyq", "121", geoms=True)[0]
-        ssens = sensitivity(plain, m64, [x.double() for x in sub], sref,
-                            torch.float32)
-        *_, sok8, _, _, spast = _split_sensitive(
-            sgot, sref, ssens, skeep, _f32_tol(sp32, sref), sp32)
-        try:
-            check_against_plain(f"geoms-fault chunk {chunk} states {held}",
-                                sgot, plain, m, sub, skeep, sensitive=True)
-            verdict = "passes"
-        except RuntimeError:
-            verdict = "FAILS"
-        log(f"geoms-fault chunk {chunk} states {held}: on the "
-            f"{SENS_DRAWS}-draw estimate alone "
-            f"{'FAILS' if bool(spast.any()) or not sok8 else 'passes'}, the "
-            f"check {verdict}")
-    log(f"geoms-fault: {len(found)} states past on the {SENS_DRAWS}-draw "
-        f"estimate alone of {GEOMS_FAULT_CHUNKS * PHASE1_B}; card "
+        ok, past = {}, {}
+        for name, x in (("kernel", got), ("true", pt)):
+            _, rest, t, s_ok, _, _, past[name] = _split_sensitive(
+                x, ref, sens, keep, _f32_tol(p32, ref), p32)
+            rel = compare(tuple(o[..., rest] for o in x),
+                          tuple(o[..., rest] for o in ref))[0]
+            ok[name] = s_ok and rel <= t
+        same = torch.stack([(a == b).reshape(-1, a.shape[-1]).all(0)
+                            for a, b in zip(got, p32)]).all(0)
+        n_same += int(same.sum())
+        n_past += not ok["kernel"]
+        n_true += not ok["true"]
+        log(f"geoms-fault chunk {chunk}: the kernel is its plain float32 "
+            f"version bit for bit on {int(same.sum())} of {PHASE1_B} "
+            f"states; the check: the kernel "
+            f"{'passes' if ok['kernel'] else 'FAILS'} (states past "
+            f"{torch.nonzero(past['kernel']).flatten().tolist()}), the plain "
+            f"version with true division {'passes' if ok['true'] else 'FAILS'}"
+            f" (states past {torch.nonzero(past['true']).flatten().tolist()})")
+        err = {name: state_errors(x, ref)
+               for name, x in (("kernel", got), ("plain", p32),
+                               ("true", pt))}
+        for b in torch.nonzero(past["kernel"] | past["true"]).flatten():
+            b = int(b)
+            log(f"geoms-fault chunk {chunk} state {b}: error kernel "
+                f"{err['kernel'][b]:.3e}, plain f32 {err['plain'][b]:.3e}, "
+                f"plain f32 with true division {err['true'][b]:.3e}; "
+                f"sensitivity ({SENS_DRAWS} draws) {sens[b]:.3e}")
+    log(f"geoms-fault: of {GEOMS_FAULT_CHUNKS * PHASE1_B} states the kernel "
+        f"is its plain version bit for bit on {n_same}; of "
+        f"{GEOMS_FAULT_CHUNKS} chunks the kernel fails the check on "
+        f"{n_past}, the plain version with true division on {n_true}; card "
         f"{name_limit}")
-    log(json.dumps(found))
+    if n_past:
+        raise SystemExit("geoms-fault: the kernel fails the check")
 
 
 V_SEED = 2               # phase V's own generator: earlier phases unchanged
@@ -5057,45 +4963,54 @@ def main():
     # the routing limits too, and the staged multi-dof ones of robots under
     # MAX_MD_GRAD_NV
     with route_limits():
-        build_all({**{label: gt.load_robot(u, device="cuda")
-                      for label, u in {**ROBOTS, **ROUTE_ROBOTS,
-                                       **HESS_ROUTE_ROBOTS}.items()},
-                   **{f"{label} (multi-dof)": md_model(label)
-                      for label in MD_ROBOTS},
-                   **{f"{label} (free flyer{', stance' if k else ''})":
-                      ff_model(label)
-                      for label in FF_CHECK for k in (False, True)},
-                   **{label: model for label, (model, _, _) in
-                      step_builds().items()},
-                   "chain5p": gt.load_robot(FD_TILE_ROBOTS["chain5p"],
-                                            device="cuda")},
-                  staged={f"{label} (multi-dof)" for label in
-                          (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
-                  links={**{f"{label} (free flyer, stance)":
-                            FF_ROBOTS[label][1] for label in FF_CHECK},
-                         **{label: links for label, (_, links, _) in
-                            step_builds().items()}},
-                  pairs={label: pairs for label, (_, _, pairs) in
-                         step_builds().items() if pairs},
-                  only={"chain5p": ("fused.cu",)})
+        # in the order the checks need them: phase1_kernels_vs_plain's
+        # robots, then the free flyers' and the steps' libraries (their
+        # checks run beside the last builds), then the rest
+        first = ("iiwa14", "branched_arm", "atlas", TILE_ROBOT)
+        robots = {**ROBOTS, **ROUTE_ROBOTS, **HESS_ROUTE_ROBOTS}
+        finish_builds = start_builds(
+            {**{label: gt.load_robot(robots[label], device="cuda")
+                for label in first},
+             "chain5p": gt.load_robot(FD_TILE_ROBOTS["chain5p"],
+                                      device="cuda"),
+             **{f"{label} (free flyer{', stance' if k else ''})":
+                ff_model(label)
+                for label in FF_CHECK for k in (False, True)},
+             **{label: model for label, (model, _, _) in
+                step_builds().items()},
+             **{label: gt.load_robot(u, device="cuda")
+                for label, u in robots.items() if label not in first},
+             **{f"{label} (multi-dof)": md_model(label)
+                for label in MD_ROBOTS}},
+            staged={f"{label} (multi-dof)" for label in
+                    (*MD_ROUTE_ROBOTS, *MD_STAGED_CHECK)},
+            links={**{f"{label} (free flyer, stance)":
+                      FF_ROBOTS[label][1] for label in FF_CHECK},
+                   **{label: links for label, (_, links, _) in
+                      step_builds().items()}},
+            pairs={label: pairs for label, (_, _, pairs) in
+                   step_builds().items() if pairs},
+            only={"chain5p": ("fused.cu",)})
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
-        done("builds")
-        # the bounds' operation counts run on the CPU in a child process,
-        # beside every GPU phase from phase 1 to phase 3 (started after the
-        # builds, whose nvcc processes take every core)
-        COUNTS.start()
         phase1_kernels_vs_plain(gen)
+        # the bounds' operation counts run on the CPU in a child process,
+        # beside every GPU phase up to phase 3 (started beside the last
+        # builds, so that phase 3 need not wait for it)
+        COUNTS.start()
+        # the free-flyer kernels and the steps route by no limit
+        phase1_free_flyer(gen)
+        phase1_geoms_cases()
+        # the collision and loop cases draw from a generator of their own,
+        # so the later phases' states are the ones they drew before those
+        # cases were added
+        rows_gen = torch.Generator(device="cuda")
+        rows_gen.manual_seed(ROWS_SEED)
+        phase1_rows(rows_gen)
+        finish_builds()
+        done("builds")
     phase1_multidof(gen)
     md_stage_abs = phase1_md_staged(gen)
-    phase1_free_flyer(gen)
-    phase1_geoms_cases()
-    # the collision and loop cases draw from a generator of their own, so
-    # the later phases' states are the ones they drew before those cases
-    # were added
-    rows_gen = torch.Generator(device="cuda")
-    rows_gen.manual_seed(ROWS_SEED)
-    phase1_rows(rows_gen)
     phase1_md_step(gen)
     md_cross_check(gen)
     done("phase 1")
@@ -5196,8 +5111,6 @@ if __name__ == "__main__":
         tile_probe()
     elif sys.argv[1:2] == ["--geoms-fault"]:
         geoms_fault()
-    elif sys.argv[1:2] == ["--tile-configs"]:
-        tile_configs()
     elif sys.argv[1:2] == ["--atlas-profile"]:
         atlas_profile_child()
     else:

@@ -42,6 +42,11 @@ _HEADERS = ("rbd.cuh", "aba.cuh", "chol.cuh", "staged.cuh", "tile.cuh",
             "ff.cuh", "md_step.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# a unit's nvcc flags past the common ones: ff.cu builds without FMA
+# contraction, so its ground step forms every product and sum as its plain
+# version does (a float32 step with ground geoms reads the plain version bit
+# for bit, also where a near-singular Delassus G amplifies one rounding)
+UNIT_FLAGS = {"ff.cu": ("-fmad=false",)}
 
 # The single-thread ∇FD, ∂ID and M⁻¹ kernels keep O(n²) values a state in
 # local memory (∇FD's frame is ≈ 28·n² values) while the staged kernels
@@ -710,7 +715,7 @@ def _sweep_macros(parents, prism) -> list[str]:
 
 
 def _digest(key: tuple) -> str:
-    h = hashlib.sha256(repr(_macros(key)).encode())
+    h = hashlib.sha256(repr((_macros(key), UNIT_FLAGS)).encode())
     for name in _HEADERS + tuple(_UNITS):
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -725,8 +730,9 @@ def _compile(key: tuple, outs: dict) -> tuple[dict, dict]:
         # load a half-written library
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", *macros,
-               "-o", str(tmp), str(_CSRC / unit)]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               *UNIT_FLAGS.get(unit, ()), *macros, "-o", str(tmp),
+               str(_CSRC / unit)]
         procs[unit] = (cmd, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

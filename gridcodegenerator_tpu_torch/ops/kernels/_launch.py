@@ -25,7 +25,7 @@ LAUNCHES = {
     "grad_cols_finish_side_bf16": 0, "fd_dense": 0, "minv_af": 0,
     "minv_ud": 0, "minv_cols": 0,
     # K5, K2′, K1, K4, vaf and the recursion ∇FD on the one-thread kernels
-    # the CTA tiles replaced (staged.DESIGN = "thread", a timed arm)
+    # the CTA tiles replaced (DESIGN = "thread", a timed arm)
     **{f"{k}{f}{sd}{b}_thread": 0 for k in ("grad_cols",)
        for f in ("", "_finish") for sd in ("", "_side")
        for b in ("", "_bf16")},
@@ -46,6 +46,21 @@ LAUNCHES = {
 }
 
 _DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+
+# "tile": K1, K2′, K4, K5, ∂ID's vaf (staged) and the recursion ∇FD (fused)
+# launch the CTA tiles; "thread": the one-thread kernels they replaced
+DESIGN = "tile"
+
+
+def design(name, entry=None):
+    """The LAUNCHES key and the C entry of a tiled kernel under
+    ``DESIGN``."""
+    entry = entry or f"grid_{name}"
+    if DESIGN == "tile":
+        return name, entry
+    if DESIGN == "thread":
+        return f"{name}_thread", f"{entry}_thread"
+    raise ValueError(f"DESIGN must be 'tile' or 'thread', got {DESIGN!r}")
 
 
 def reset_launches() -> None:

@@ -143,20 +143,23 @@ __device__ __forceinline__ void mv3(const A* M, const V* x, TT* out) {
 #endif
 
 // The run-time scalars of the frictional ground step, in T (the plain
-// version's Python floats meet its tensors in their dtype).
+// version's Python floats meet its tensors in their dtype). inv_dt is 1/dt
+// formed in double: torch divides a tensor by a Python float as a product
+// with that reciprocal.
 template <typename T>
 struct StepParams {
-  T dt, ground_z, minus_g, neg_erp, margin, restitution;
+  T dt, inv_dt, ground_z, minus_g, neg_erp, margin, restitution;
   int iters;
 };
 
 // A bilinear heightfield: node (i, j) at (x0 + i·cell, y0 + j·cell) is
-// h[i·W + j], read from device memory (no grid size is too large).
+// h[i·W + j], read from device memory (no grid size is too large);
+// inv_cell is 1/cell formed in double (as StepParams' inv_dt).
 template <typename T>
 struct Heightfield {
   const T* __restrict__ h;
   int H, W;
-  T cell, x0, y0;
+  T cell, inv_cell, x0, y0;
 };
 
 // Height and contact frame rows C = [t1; t2; n] at world (px, py)
@@ -168,8 +171,9 @@ template <typename T>
 __device__ __forceinline__ void terrain_frame(const Heightfield<T>& hf, T px,
                                               T py, T* h, T C[3][3]) {
   const T one(1);
-  const T u = (px - hf.x0) / hf.cell;
-  const T v = (py - hf.y0) / hf.cell;
+  // ÷ cell as the plain version's division by a Python float
+  const T u = (px - hf.x0) * hf.inv_cell;
+  const T v = (py - hf.y0) * hf.inv_cell;
   T iu = floor(u), iv = floor(v);
   iu = iu < T(0) ? T(0) : (iu > T(hf.H - 2) ? T(hf.H - 2) : iu);
   iv = iv < T(0) ? T(0) : (iv > T(hf.W - 2) ? T(hf.W - 2) : iv);
@@ -180,8 +184,8 @@ __device__ __forceinline__ void terrain_frame(const Heightfield<T>& hf, T px,
   const T h11 = GRID_LDG(hf.h + idx + hf.W + 1);
   *h = (one - fu) * (one - fv) * h00 + fu * (one - fv) * h10 +
        (one - fu) * fv * h01 + fu * fv * h11;
-  const T hx = ((one - fv) * (h10 - h00) + fv * (h11 - h01)) / hf.cell;
-  const T hy = ((one - fu) * (h01 - h00) + fu * (h11 - h10)) / hf.cell;
+  const T hx = ((one - fv) * (h10 - h00) + fv * (h11 - h01)) * hf.inv_cell;
+  const T hy = ((one - fu) * (h01 - h00) + fu * (h11 - h10)) * hf.inv_cell;
   const T inv = one / sqrt(hx * hx + hy * hy + one);
   const T nx = -hx * inv, ny = -hy * inv, nz = inv;
   const T it = one / sqrt(nz * nz + nx * nx);

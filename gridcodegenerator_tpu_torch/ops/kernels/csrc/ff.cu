@@ -191,10 +191,12 @@ int step(const void* consts, const void* quat, const void* pos,
          double margin, double restitution, int H, int W, double cell,
          double x0, double y0, void* stream) {
   const grid::StepParams<T> sp{
-      static_cast<T>(dt),     static_cast<T>(ground_z),
-      static_cast<T>(-gravity), static_cast<T>(-erp),
-      static_cast<T>(margin), static_cast<T>(restitution), iters};
+      static_cast<T>(dt),       static_cast<T>(1.0 / dt),
+      static_cast<T>(ground_z), static_cast<T>(-gravity),
+      static_cast<T>(-erp),     static_cast<T>(margin),
+      static_cast<T>(restitution), iters};
   const grid::Heightfield<T> hf{in<T>(heights), H, W, static_cast<T>(cell),
+                                static_cast<T>(1.0 / cell),
                                 static_cast<T>(x0), static_cast<T>(y0)};
   auto s = static_cast<cudaStream_t>(stream);
   if (heights == nullptr) {

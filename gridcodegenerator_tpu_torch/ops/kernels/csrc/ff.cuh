@@ -59,8 +59,13 @@
 // Every sum runs in the order of the plain version; the structural zeros the
 // plain versions form (x·0 terms of the contact rows) are formed here too,
 // and the zero columns outside a contact's chain are skipped, which changes
-// no value (x + 0 = x). nvcc's FMA contraction is the only difference in
-// rounding. Joint and column loops stay rolled (rbd.cuh).
+// no value (x + 0 = x). A division by dt or the grid's cell size is a
+// product with its reciprocal formed in double, as torch divides a tensor
+// by a Python float, and ff.cu builds without FMA contraction
+// (_build.UNIT_FLAGS): the float32 step with ground geoms reads its plain
+// version bit for bit, also on the states whose near-singular Delassus G
+// turns one rounding into an error of 1e-4 in q̇.
+// Joint and column loops stay rolled (rbd.cuh).
 #pragma once
 
 #include "chol.cuh"
@@ -1146,7 +1151,8 @@ GRID_ROLLED
 
   // the Delassus G = J·M⁻¹Jᵀ (lower triangle) and b = J·v_free, less v* on
   // the cone normals (−erp·min(gap, 0)/dt − restitution·min(vn, 0)), plus
-  // erp·gap/dt on the closures
+  // erp·gap/dt on the closures; ÷ dt as the plain version's division by a
+  // Python float (a product with sp.inv_dt)
   T Gm[RT * (RT + 1) / 2], bb[RT];
 GRID_ROLLED
   for (int ci = 0; ci < FF_T; ++ci) {
@@ -1178,12 +1184,12 @@ GRID_ROLLED
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
         const int row = 3 * ci + r;
-        bb[row] = bb[row] + erp * lgap[row - RC] / sp.dt;
+        bb[row] = bb[row] + erp * lgap[row - RC] * sp.inv_dt;
       }
       continue;
     }
     const T gmin = gap[ci] < T(0) ? gap[ci] : T(0);
-    T v_star = sp.neg_erp * gmin / sp.dt;
+    T v_star = sp.neg_erp * gmin * sp.inv_dt;
     if (sp.restitution != T(0)) {
       T vn = J[ci][2][0] * v[0];
 #pragma unroll

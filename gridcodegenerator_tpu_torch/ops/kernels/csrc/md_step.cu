@@ -70,9 +70,10 @@ int md_step(const void* consts, const void* q, const void* qd,
             double gravity, int iters, double erp, double margin,
             double restitution, void* stream) {
   const grid::StepParams<T> sp{
-      static_cast<T>(dt),       static_cast<T>(ground_z),
-      static_cast<T>(-gravity), static_cast<T>(-erp),
-      static_cast<T>(margin),   static_cast<T>(restitution), iters};
+      static_cast<T>(dt),       static_cast<T>(1.0 / dt),
+      static_cast<T>(ground_z), static_cast<T>(-gravity),
+      static_cast<T>(-erp),     static_cast<T>(margin),
+      static_cast<T>(restitution), iters};
   const dim3 blocks(static_cast<unsigned>((B + kThreads - 1) / kThreads));
   md_step_ground_kernel<T>
       <<<blocks, kThreads, grid::kMdConstCount * sizeof(T),

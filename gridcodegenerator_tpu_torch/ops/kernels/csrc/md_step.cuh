@@ -280,7 +280,8 @@ GRID_ROLLED
       bb[row] = acc;
     }
     const T gmin = gap[ci] < T(0) ? gap[ci] : T(0);
-    T v_star = sp.neg_erp * gmin / sp.dt;
+    // ÷ dt as the plain version's division by a Python float
+    T v_star = sp.neg_erp * gmin * sp.inv_dt;
     if (sp.restitution != T(0)) {
       T vn = J[ci][2][0] * v[c_md_chains.col[ci][0]];
 GRID_ROLLED

@@ -19,7 +19,7 @@ The variants the JAX package keeps for its benchmarks, one launch each:
 The recursion ∇FD (``fd_grad_fused``'s default) is a CTA tile
 (``csrc/tile.cuh``): a tile of states a CTA, each state's working set in
 shared memory through the whole body. The one-thread kernel it replaced
-stays as a timed arm, launched when ``staged.DESIGN`` is ``"thread"`` and
+stays as a timed arm, launched when ``_launch.DESIGN`` is ``"thread"`` and
 counted under ``fd_grad_thread``.
 
 * ``fd_grad_fused(..., minv_impl="dense")`` — the ∇FD kernel with M⁻¹
@@ -46,7 +46,7 @@ from .. import blops
 from ..aba import aba_bl
 from . import staged
 from ._build import dense_grads
-from ._launch import check, empty, launch, on_cpu
+from ._launch import check, design, empty, launch, on_cpu
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +172,7 @@ def fd_grad_fused(model: RobotModel, q, qd, u, gravity=-9.81,
     dense = minv_impl == "dense"
     if B:
         launch(*(("fd_grad_dense", "grid_fd_grad_dense") if dense
-                 else staged._design("fd_grad")), model,
+                 else design("fd_grad")), model,
                (q.data_ptr(), qd.data_ptr(), u.data_ptr(), ddq.data_ptr(),
                 ddqd.data_ptr()), B, float(gravity))
     return ddq, ddqd

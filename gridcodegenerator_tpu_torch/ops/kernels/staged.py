@@ -16,9 +16,9 @@ K1, K2′, K4, K5 and ∂ID's vaf sweep are CTA tiles (``csrc/tile.cuh``): a
 tile of states a CTA, each state's working set in shared memory, every
 column of K5 at once. The one-thread-per-state kernels they replaced (K5
 column block by column block, every block in one launch on a 2-D grid)
-stay as a timed arm, launched when ``DESIGN`` is ``"thread"`` and counted
-under ``<name>_thread``; the same switch takes :mod:`.fused`'s recursion
-∇FD to its one-thread kernel.
+stay as a timed arm, launched when ``_launch.DESIGN`` is ``"thread"`` and
+counted under ``<name>_thread``; the same switch takes :mod:`.fused`'s
+recursion ∇FD to its one-thread kernel.
 
 The default route: ∇FD is K1, K2′, K4, K5 with the fused finish (four
 launches); ∂ID is the vaf sweep and K5 without it (two); ``direct_minv`` is
@@ -67,13 +67,10 @@ from .. import blops
 from . import _build
 from .contact_fused import (_chol_factor_act, _chol_minv_sym,
                             _chol_solve_act)
-from ._launch import (check, check_staged, empty, launch, on_cpu,
+from ._launch import (check, check_staged, design, empty, launch, on_cpu,
                       ptr)
 
 _SIDES = ("q", "qd")
-# "tile": K1, K2′, K4, K5, vaf and fused's recursion ∇FD launch the CTA
-# tiles; "thread": the one-thread kernels
-DESIGN = "tile"
 
 
 def _as_list(stacked, n):
@@ -265,7 +262,7 @@ def bias_and_v_staged(model: RobotModel, q, qd, gravity=-9.81):
     B = check(model, [q, qd])
     c, v = empty(model, model.n, B), empty(model, 6, model.n, B)
     if B:
-        launch(*_design("bias_and_v", "grid_bias_v"), model,
+        launch(*design("bias_and_v", "grid_bias_v"), model,
                 (q.data_ptr(), qd.data_ptr(), c.data_ptr(), v.data_ptr()),
                 B, float(gravity))
     return c, v
@@ -281,7 +278,7 @@ def minv_qdd_dense_staged(model: RobotModel, q, rhs=None):
     Minv = empty(model, n, n, B)
     qdd = None if rhs is None else empty(model, n, B)
     if B:
-        launch(*_design("minv_dense"), model,
+        launch(*design("minv_dense"), model,
                 (q.data_ptr(), ptr(rhs), Minv.data_ptr(), ptr(qdd)), B)
     return (Minv,) if rhs is None else (Minv, qdd)
 
@@ -350,17 +347,6 @@ def minv_cols_staged(model: RobotModel, q, U, Dinv, cb=None):
     return M
 
 
-def _design(name, entry=None):
-    """The LAUNCHES key and the C entry of a tiled kernel under
-    ``DESIGN``."""
-    entry = entry or f"grid_{name}"
-    if DESIGN == "tile":
-        return name, entry
-    if DESIGN == "thread":
-        return f"{name}_thread", f"{entry}_thread"
-    raise ValueError(f"DESIGN must be 'tile' or 'thread', got {DESIGN!r}")
-
-
 def _stage_dtype_of(t):
     """The dtype staged inputs must share: bf16, else the model's (None)."""
     return torch.bfloat16 if t.dtype == torch.bfloat16 else None
@@ -376,7 +362,7 @@ def af_staged(model: RobotModel, q, qd, qdd, v, gravity=-9.81):
     s16 = v.dtype == torch.bfloat16
     a, f = empty(model, 6, model.n, B), empty(model, 6, model.n, B)
     if B:
-        launch(*_design("af_bf16" if s16 else "af", "grid_af"), model,
+        launch(*design("af_bf16" if s16 else "af", "grid_af"), model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, int(s16), float(gravity))
     return a, f
@@ -389,7 +375,7 @@ def vaf_staged(model: RobotModel, q, qd, qdd, gravity=-9.81):
     B = check(model, [q, qd, qdd])
     v, a, f = (empty(model, 6, model.n, B) for _ in range(3))
     if B:
-        launch(*_design("vaf"), model,
+        launch(*design("vaf"), model,
                 (q.data_ptr(), qd.data_ptr(), qdd.data_ptr(), v.data_ptr(),
                  a.data_ptr(), f.data_ptr()), B, float(gravity))
     return v, a, f
@@ -418,7 +404,7 @@ def grad_cols_staged(model: RobotModel, q, qd, v, a, f, gravity=-9.81,
             + ("_side" if len(sides) == 1 else "")
             + ("_bf16" if sdt is not None else ""))
     if B:
-        launch(*_design(name, "grid_grad_cols"), model,
+        launch(*design(name, "grid_grad_cols"), model,
                 (q.data_ptr(), qd.data_ptr(), v.data_ptr(), a.data_ptr(),
                  f.data_ptr(), ptr(Minv), ptr(outs.get("q")),
                  ptr(outs.get("qd"))), B, cb, bits, int(sdt is not None),

@@ -167,16 +167,16 @@ def test_tile_macros_and_design():
     offs = [x for x in macros if x.startswith("-DGRID_K5_OFFS=")][0]
     assert offs == "-DGRID_K5_OFFS=" + "".join(
         f"G({k5['offs'][k]})" for k in k5["tables"])
-    assert ts._design("minv_dense") == ("minv_dense", "grid_minv_dense")
+    assert _launch.design("minv_dense") == ("minv_dense", "grid_minv_dense")
     try:
-        ts.DESIGN = "thread"
-        assert ts._design("grad_cols_finish", "grid_grad_cols") == (
+        _launch.DESIGN = "thread"
+        assert _launch.design("grad_cols_finish", "grid_grad_cols") == (
             "grad_cols_finish_thread", "grid_grad_cols_thread")
-        ts.DESIGN = "warp"
+        _launch.DESIGN = "warp"
         with pytest.raises(ValueError, match="DESIGN"):
-            ts._design("minv_dense")
+            _launch.design("minv_dense")
     finally:
-        ts.DESIGN = "tile"
+        _launch.DESIGN = "tile"
     assert {f"{k}_thread" for k in ("minv_dense", "grad_cols_finish")} <= \
         set(_launch.LAUNCHES)
     for entry in ("grid_minv_dense_thread", "grid_grad_cols_thread"):
@@ -271,13 +271,13 @@ def test_sweep_and_fd_design(name, entry, unit):
     macros = _build._macros(_build.topology_key(_model("barm")))
     for tag in ("RN_TABLE", "RN_OFFS", "RN_PLAN", "FD_PLAN", "TILE_CTAS"):
         assert sum(x.startswith(f"-DGRID_{tag}=") for x in macros) == 1
-    assert ts._design(name, entry) == (name, entry)
+    assert _launch.design(name, entry) == (name, entry)
     try:
-        ts.DESIGN = "thread"
-        assert ts._design(name, entry) == (f"{name}_thread",
+        _launch.DESIGN = "thread"
+        assert _launch.design(name, entry) == (f"{name}_thread",
                                            f"{entry}_thread")
     finally:
-        ts.DESIGN = "tile"
+        _launch.DESIGN = "tile"
     assert {name, f"{name}_thread"} <= set(_launch.LAUNCHES)
     assert _build.unit_of(entry) == _build.unit_of(f"{entry}_thread") == unit
 
@@ -291,11 +291,11 @@ def test_thread_design_on_cpu_runs_plain():
                 for _ in range(3))
     _launch.reset_launches()
     try:
-        ts.DESIGN = "thread"
+        _launch.DESIGN = "thread"
         got = (tf.fd_grad_fused(m, q, qd, u),
                ts.bias_and_v_staged(m, q, qd), ts.vaf_staged(m, q, qd, u))
     finally:
-        ts.DESIGN = "tile"
+        _launch.DESIGN = "tile"
     ref = (tf.fd_grad_plain(m, q, qd, u), ts.bias_and_v_plain(m, q, qd),
            ts.vaf_plain(m, q, qd, u))
     for a, b in zip(got, ref):
